@@ -1,0 +1,28 @@
+"""Core: the paper's analytic data-layout optimization on a Hopper machine
+model.  Counterpart of ``repro.core`` (single-device planner; the segmented
+iterator comes with its kernel in a later slice)."""
+from repro_torch.core.aliasing import InterleavedMemoryModel, Stream, analytic_skews
+from repro_torch.core.autotune import LayoutPlan, StreamSignature, plan_streams
+from repro_torch.core.layout import (
+    LayoutPolicy,
+    PaddedDim,
+    hopper_limits,
+    round_up,
+    vector_unit,
+)
+from repro_torch.core.planner import (
+    KernelPlan,
+    clear_plan_cache,
+    explain,
+    plan_cache_info,
+    plan_kernel,
+    register_family,
+)
+
+__all__ = [
+    "InterleavedMemoryModel", "Stream", "analytic_skews",
+    "LayoutPlan", "StreamSignature", "plan_streams",
+    "LayoutPolicy", "PaddedDim", "hopper_limits", "round_up", "vector_unit",
+    "KernelPlan", "plan_kernel", "plan_cache_info", "clear_plan_cache",
+    "explain", "register_family",
+]

@@ -1,0 +1,408 @@
+"""Layout planner: from a kernel's stream signature to its Hopper launch geometry.
+
+The counterpart of ``repro.core.planner`` (single-device part).  Each kernel
+family declares its ``StreamSignature`` (how many read/write streams of what
+element size) and the planner derives, in closed form and without search,
+
+  * the padded *physical* shape: the minor dim a whole number of warp-wide
+    16-B vector spans (``layout.vector_unit``), rows unpadded (row unit 1);
+  * the block one CTA walks (``_fit_block``): in-flight bytes within the
+    per-CTA shared-memory budget, enough CTAs to fill every SM;
+  * the per-stream skews and segment shift (``plan_streams``), scored under
+    the interleaved-memory conflict model.
+
+Plans are memoized in a process-level cache keyed on
+``(kernel, shape, dtype, model, smem_budget, sm_count)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import numpy as np
+import torch
+
+from repro_torch.core.aliasing import InterleavedMemoryModel, Stream
+from repro_torch.core.autotune import LayoutPlan, StreamSignature, plan_streams
+from repro_torch.core.layout import (
+    cdiv,
+    choose_block_shape,
+    hopper_limits,
+    round_up,
+    vector_unit,
+)
+
+# Widest 1-D reshape width in elements: a row long enough that every CTA
+# streams many whole vector spans, short enough that a block of one row per
+# stream stays far inside the per-CTA budget.
+MAX_WIDTH = 4096
+
+# The paper's per-kernel "data access properties" table: how many read and
+# write streams each kernel family drives against device memory.  Element
+# size is rebound to the actual dtype at planning time.
+FAMILIES: dict[str, StreamSignature] = {
+    "stream.copy": StreamSignature(n_read=1, n_write=1),
+    "stream.scale": StreamSignature(n_read=1, n_write=1),
+    "stream.add": StreamSignature(n_read=2, n_write=1),
+    "stream.triad": StreamSignature(n_read=2, n_write=1),
+    "triad": StreamSignature(n_read=3, n_write=1),          # Schoenauer B+C*D
+    "jacobi": StreamSignature(n_read=1, n_write=1),         # rows stream once
+}
+
+# In-flight row buffers per CTA when it differs from the stream count + 1:
+# a Jacobi output row needs the rows above, at and below it resident.
+CTA_BUFFERS: dict[str, int] = {"jacobi": 4}
+
+# How many of a family's streams move a full planned array each launch;
+# absent families move one per signature stream.  Jacobi's neighbour rows
+# are re-read from cache, so the grid streams in once and out once.
+MAJOR_STREAMS: dict[str, int] = {"jacobi": 2}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a torch, numpy or string dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"not a dtype: {dtype!r}")
+    return out
+
+
+def dtype_name(dtype) -> str:
+    """Canonical name of a torch, numpy or string dtype ("float32", ...)."""
+    return str(torch_dtype(dtype)).removeprefix("torch.")
+
+
+def itemsize(dtype) -> int:
+    return torch_dtype(dtype).itemsize
+
+
+def register_family(name: str, signature: StreamSignature, *,
+                    cta_buffers: int | None = None) -> None:
+    """Declare (or re-assert) a kernel family's stream signature.
+
+    The registry calls this when a kernel registers, so the planner's table
+    and the registered kernels cannot drift: a second declaration with a
+    different signature or buffer count is a shadowed name and raises.  A
+    first ``cta_buffers`` declaration drops the family's cached plans.
+    """
+    cur = FAMILIES.get(name)
+    if cur is not None and (cur.n_read, cur.n_write) != (
+            signature.n_read, signature.n_write):
+        raise ValueError(
+            f"kernel family {name!r} already declared with "
+            f"{cur.n_read}R+{cur.n_write}W; refusing shadow declaration "
+            f"{signature.n_read}R+{signature.n_write}W"
+        )
+    geometry_changed = False
+    if cta_buffers is not None:
+        prev = CTA_BUFFERS.get(name)
+        if prev is not None and prev != cta_buffers:
+            raise ValueError(
+                f"kernel family {name!r} already declared with {prev} CTA "
+                f"buffers; refusing shadow declaration {cta_buffers}"
+            )
+        geometry_changed = prev is None
+        CTA_BUFFERS[name] = cta_buffers
+    FAMILIES[name] = signature
+    if geometry_changed:
+        with _LOCK:
+            for key in [k for k in _CACHE if k[0] == name]:
+                del _CACHE[key]
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPlan:
+    """Everything a kernel wrapper needs to lay its arrays out."""
+
+    kernel: str
+    logical_shape: tuple[int, ...]
+    dtype: str
+    padded_shape: tuple[int, ...]
+    block_shape: tuple[int, ...]
+    signature: StreamSignature
+    layout: LayoutPlan
+    naive_balance: float
+    # Minor-dim unit the width is a multiple of: the dtype's vector unit,
+    # or the fp32 unit when the narrow-dtype rule took the fp32 geometry.
+    minor_unit: int = 128
+    # "analytic" (the closed form) or where a pinned plan came from.
+    provenance: str = dataclasses.field(default="analytic", compare=False)
+
+    # ---- geometry --------------------------------------------------------
+    @property
+    def rows(self) -> int:
+        return self.padded_shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.padded_shape[-1]
+
+    @property
+    def block_rows(self) -> int:
+        return self.block_shape[0]
+
+    @property
+    def block_cols(self) -> int:
+        return self.block_shape[-1]
+
+    @property
+    def grid(self) -> tuple[int, ...]:
+        return tuple(cdiv(p, b) for p, b in zip(self.padded_shape, self.block_shape))
+
+    # ---- accounting ------------------------------------------------------
+    @property
+    def logical_elems(self) -> int:
+        return int(np.prod(self.logical_shape, dtype=np.int64))
+
+    @property
+    def padded_elems(self) -> int:
+        return int(np.prod(self.padded_shape, dtype=np.int64))
+
+    @property
+    def waste(self) -> float:
+        """Fraction of the physical footprint that is padding."""
+        p = self.padded_elems
+        return (p - self.logical_elems) / p if p else 0.0
+
+    @property
+    def elem_bytes(self) -> int:
+        return itemsize(self.dtype)
+
+    @property
+    def waste_bytes(self) -> int:
+        """Padding overhead in bytes: a bf16 plan can pad more elements
+        than the fp32 plan of the same shape yet cost fewer bytes."""
+        return (self.padded_elems - self.logical_elems) * self.elem_bytes
+
+    @property
+    def predicted_balance(self) -> float:
+        return self.layout.predicted_balance
+
+    # ---- predicted traffic ----------------------------------------------
+    def _traffic_bytes(self, elems: int) -> int:
+        major = MAJOR_STREAMS.get(self.kernel, self.signature.n_streams)
+        return major * elems * self.elem_bytes
+
+    @property
+    def predicted_hbm_bytes(self) -> int:
+        """Device-memory traffic per launch at the planned physical
+        footprint: every major stream moves one padded array."""
+        return self._traffic_bytes(self.padded_elems)
+
+    @property
+    def predicted_logical_bytes(self) -> int:
+        """The same traffic at the logical footprint; the difference to
+        ``predicted_hbm_bytes`` is what the padding costs per launch."""
+        return self._traffic_bytes(self.logical_elems)
+
+    def explain(self) -> str:
+        """Human-readable report: predicted balance, waste, block geometry."""
+        sig = self.signature
+        grid = "x".join(str(g) for g in self.grid)
+        block = "x".join(str(b) for b in self.block_shape)
+        return (
+            f"plan[{self.kernel}] logical={self.logical_shape} {self.dtype}"
+            f" -> physical {self.padded_shape}, block {block}, grid {grid},"
+            f" minor unit {self.minor_unit}\n"
+            f"  streams: {sig.n_read}R+{sig.n_write}W x {sig.elem_bytes}B"
+            f"  align={self.layout.align_bytes}B"
+            f" offsets={self.layout.offsets_bytes}B"
+            f" segment-shift={self.layout.segment_shift_bytes}B\n"
+            f"  predicted balance {self.predicted_balance:.2f}"
+            f" (naive {self.naive_balance:.2f}),"
+            f" waste {self.waste:.1%}"
+            f" ({self.padded_elems - self.logical_elems} pad elems)\n"
+            f"  predicted traffic {self.predicted_hbm_bytes}B"
+            f" (logical {self.predicted_logical_bytes}B)"
+            + ("" if self.provenance == "analytic"
+               else f"\n  source: {self.provenance}")
+        )
+
+
+# ---------------------------------------------------------------------------
+# Plan cache
+# ---------------------------------------------------------------------------
+
+_CACHE: dict[tuple, KernelPlan] = {}
+_STATS = {"hits": 0, "misses": 0}
+_LOCK = threading.RLock()
+_DEFAULT_MODEL = InterleavedMemoryModel()
+
+
+def plan_kernel(
+    kernel: str,
+    shape,
+    dtype,
+    *,
+    model: InterleavedMemoryModel | None = None,
+    smem_budget: int | None = None,
+    sm_count: int | None = None,
+) -> KernelPlan:
+    """Memoized analytic plan for ``kernel`` on a logical ``shape``/``dtype``.
+
+    ``smem_budget`` (per-CTA bytes) and ``sm_count`` default to the current
+    CUDA device's limits, or the H100 data sheet when there is none
+    (``layout.hopper_limits``); both are normally supplied by the ambient
+    ``repro_torch.api.PlanContext``.
+    """
+    if kernel not in FAMILIES:
+        raise KeyError(
+            f"unknown kernel family {kernel!r}; known: {sorted(FAMILIES)}"
+        )
+    name = dtype_name(dtype)
+    model = model or _DEFAULT_MODEL
+    if smem_budget is None or sm_count is None:
+        limits = hopper_limits()
+        smem_budget = limits.smem_per_cta if smem_budget is None else smem_budget
+        sm_count = limits.sm_count if sm_count is None else sm_count
+    budget, sms = int(smem_budget), int(sm_count)
+    if budget <= 0:
+        raise ValueError(f"smem_budget must be positive, got {smem_budget}")
+    if sms <= 0:
+        raise ValueError(f"sm_count must be positive, got {sm_count}")
+    key = (kernel, tuple(int(s) for s in shape), name, model, budget, sms)
+    with _LOCK:
+        plan = _CACHE.get(key)
+        if plan is not None:
+            _STATS["hits"] += 1
+            return plan
+        _STATS["misses"] += 1
+        plan = _plan_uncached(kernel, key[1], name, model, budget, sms)
+        _CACHE[key] = plan
+        return plan
+
+
+def plan_cache_info() -> dict[str, int]:
+    with _LOCK:
+        return {"hits": _STATS["hits"], "misses": _STATS["misses"],
+                "size": len(_CACHE)}
+
+
+def clear_plan_cache() -> None:
+    with _LOCK:
+        _CACHE.clear()
+        _STATS["hits"] = _STATS["misses"] = 0
+
+
+def explain(kernel: str, shape, dtype, *,
+            model: InterleavedMemoryModel | None = None,
+            smem_budget: int | None = None,
+            sm_count: int | None = None) -> str:
+    """Convenience: plan and render the report in one call."""
+    return plan_kernel(kernel, shape, dtype, model=model,
+                       smem_budget=smem_budget, sm_count=sm_count).explain()
+
+
+# ---------------------------------------------------------------------------
+# Closed-form planning rules
+# ---------------------------------------------------------------------------
+
+def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
+                   model: InterleavedMemoryModel, budget: int,
+                   sms: int) -> KernelPlan:
+    size = itemsize(name)
+    sig = dataclasses.replace(FAMILIES[kernel], elem_bytes=size)
+    n_buffers = CTA_BUFFERS.get(kernel, sig.n_streams + 1)
+    unit = vector_unit(size)
+    if len(shape) == 1:
+        padded, block = _plan_1d(shape[0], size, unit, n_buffers, budget, sms)
+    elif len(shape) == 2:
+        padded, block = _plan_2d(shape, size, unit, n_buffers, budget, sms)
+    else:
+        raise ValueError(f"{kernel}: cannot plan rank-{len(shape)} shape {shape}")
+    plan = KernelPlan(
+        kernel=kernel,
+        logical_shape=shape,
+        dtype=name,
+        padded_shape=padded,
+        block_shape=block,
+        signature=sig,
+        layout=_plan_layout(sig, model),
+        naive_balance=_naive_balance(sig, model),
+        minor_unit=unit,
+    )
+    # Narrow-dtype waste guarantee: a bf16 plan never pays more padding
+    # bytes than the fp32 plan of the same logical shape.  The bf16 vector
+    # unit (256 elements) is twice the fp32 one, so a minor dim just past a
+    # 128 multiple can pad more bytes at bf16.  The fp32 geometry is legal
+    # at bf16 (128 bf16 elements = 256 B keeps every row 16-B aligned) and
+    # costs exactly itemsize/4 of the fp32 padding bytes, so take the
+    # cheaper of the two.
+    if size < 4:
+        f32 = plan_kernel(kernel, shape, torch.float32, model=model,
+                          smem_budget=budget, sm_count=sms)
+        if plan.waste_bytes * 4 > f32.waste_bytes * size:
+            plan = dataclasses.replace(
+                plan, padded_shape=f32.padded_shape,
+                block_shape=f32.block_shape, minor_unit=f32.minor_unit,
+            )
+    return plan
+
+
+def _plan_layout(sig: StreamSignature, model: InterleavedMemoryModel) -> LayoutPlan:
+    """The analytic skew plan, scored as deployed: n_channels concurrent
+    segments whose chunk stride is congruent to one channel step."""
+    step = 1 << model.channel_shift
+    return plan_streams(
+        sig, model,
+        n_threads=model.n_channels,
+        chunk_bytes=model.period_bytes + step,
+    )
+
+
+def _naive_balance(sig: StreamSignature, model: InterleavedMemoryModel) -> float:
+    """Score of the unplanned layout: page-aligned streams, period-aliased
+    segments (paper Fig. 2, offset zero)."""
+    streams = [
+        Stream(base=0, kind="write" if k < sig.n_write else "read")
+        for k in range(sig.n_streams)
+    ]
+    return model.balance(streams, n_threads=model.n_channels,
+                         chunk_bytes=model.period_bytes)
+
+
+def _fit_block(rows: int, width: int, size: int, unit: int, n_buffers: int,
+               budget: int, sms: int) -> tuple[int, int, int]:
+    """Rows per CTA for a full-width (rows, width) kernel.
+
+    ``choose_block_shape`` gives the largest block that fits the budget and
+    fills the SMs.  A divisor of the row count within half of it is taken
+    (no extra padding, at most twice the CTAs); failing that, rows pad up to
+    a block multiple, which costs at most one block of padding.
+    Returns (padded rows, block rows, block cols)."""
+    brows, bcols = choose_block_shape(
+        rows, width, bytes_per_el=size, n_buffers=n_buffers,
+        smem_budget=budget, sm_count=sms, minor_unit=unit,
+    )
+    for cand in range(brows, max(brows // 2, 1) - 1, -1):
+        if rows % cand == 0:
+            return rows, cand, bcols
+    return round_up(rows, brows), brows, bcols
+
+
+def _plan_1d(n: int, size: int, unit: int, n_buffers: int, budget: int,
+             sms: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """1-D stream of n elements -> (rows, width) layout.
+
+    The width is n rounded up to the vector unit, capped at MAX_WIDTH; the
+    rows are as many as n needs.  Padding is therefore under one vector
+    unit for n <= MAX_WIDTH and under one row beyond."""
+    n = max(int(n), 1)
+    width = round_up(min(n, MAX_WIDTH), unit)
+    rows, brows, bcols = _fit_block(cdiv(n, width), width, size, unit,
+                                    n_buffers, budget, sms)
+    return (rows, width), (brows, bcols)
+
+
+def _plan_2d(shape: tuple[int, ...], size: int, unit: int, n_buffers: int,
+             budget: int, sms: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(rows, cols) kernel: rows as they are, cols padded to the vector
+    unit (the row pitch keeps every row 16-B aligned)."""
+    r, c = shape
+    width = round_up(max(int(c), 1), unit)
+    rows, brows, bcols = _fit_block(max(int(r), 1), width, size, unit,
+                                    n_buffers, budget, sms)
+    return (rows, width), (brows, bcols)

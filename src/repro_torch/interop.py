@@ -1,0 +1,74 @@
+"""Carry the reference package's state into the port.
+
+The JAX package and the port meet only through numpy: ``to_torch`` turns a
+numpy array (a JAX array's ``np.asarray``) into a port tensor on a given
+device and dtype, and ``plan_from_dict`` turns a reference ``KernelPlan``'s
+fields (``dataclasses.asdict``) into a port plan, so a test can pin the
+same geometry on both sides.
+
+numpy has no bf16 of its own: a bf16 array (``ml_dtypes.bfloat16``, as JAX
+returns it) goes through float32, which holds every bf16 value exactly, and
+a float32 array asked for as bf16 is rounded by ``.to(torch.bfloat16)``,
+round-to-nearest-even like JAX's cast.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.autotune import LayoutPlan, StreamSignature
+from repro_torch.core.layout import vector_unit
+from repro_torch.core.planner import KernelPlan, dtype_name, itemsize, torch_dtype
+from repro_torch.kernels.util import resolve_device
+
+
+def to_torch(x, *, device=None, dtype=None) -> torch.Tensor:
+    """A port tensor holding numpy array ``x`` on ``device`` (CUDA unless
+    named), converted to ``dtype`` when given."""
+    dev = resolve_device(device)
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+    if dtype is not None:
+        t = t.to(torch_dtype(dtype))
+    return t.to(dev)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``t``; bf16 widens to float32 (exact)."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy().copy()
+
+
+def plan_from_dict(fields: Mapping[str, Any]) -> KernelPlan:
+    """A port ``KernelPlan`` with the geometry of a reference plan given as
+    ``dataclasses.asdict(plan)``.  The reference's sublane tile has no
+    counterpart; the minor unit is the largest vector unit the width is a
+    multiple of.  A plan for a mesh or a shard has no single-device
+    counterpart and is refused."""
+    if fields.get("mesh") or fields.get("local"):
+        raise ValueError("plan_from_dict takes single-device plans only, got "
+                         f"mesh={fields.get('mesh')!r} local={fields.get('local')!r}")
+    name = dtype_name(fields["dtype"])
+    padded = tuple(int(s) for s in fields["padded_shape"])
+    layout = dict(fields["layout"])
+    layout["offsets_bytes"] = tuple(layout["offsets_bytes"])
+    return KernelPlan(
+        kernel=fields["kernel"],
+        logical_shape=tuple(int(s) for s in fields["logical_shape"]),
+        dtype=name,
+        padded_shape=padded,
+        block_shape=tuple(int(s) for s in fields["block_shape"]),
+        signature=StreamSignature(**fields["signature"]),
+        layout=LayoutPlan(**layout),
+        naive_balance=float(fields["naive_balance"]),
+        minor_unit=math.gcd(padded[-1], vector_unit(itemsize(name))),
+        provenance=f"reference:{fields.get('provenance', 'analytic')}",
+    )

@@ -1,0 +1,67 @@
+// Shared helpers of the streaming kernels: dtype codes, fp32 widening and
+// rounding, 16-B vector loads/stores, and the error string every library
+// exports for its Python wrapper.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+// dtype codes shared with the Python wrappers
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// One 16-B vector of T, widened to fp32.
+template <typename T> struct Vec;
+
+template <> struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float (&x)[N]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&x)[N]) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&x)[N]) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      x[2 * k] = f.x;
+      x[2 * k + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&x)[N]) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) h[k] = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+}  // namespace repro
+
+extern "C" const char* repro_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

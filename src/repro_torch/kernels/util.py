@@ -1,0 +1,72 @@
+"""Shared helpers for the streaming kernels.
+
+Counterpart of ``repro.kernels.util``.  A long vector is processed as a
+(rows, width) 2-D tensor whose width, from the plan, is a whole number of
+warp-wide 16-B vector spans, so every row starts 16-B aligned.  That
+reshape is the paper's alignment rule and is centralized here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.planner import KernelPlan
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point that makes data runs on: CUDA unless the
+    caller names another.  Raises when CUDA is asked for (or defaulted to)
+    and absent; nothing falls back to the CPU silently."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def to_tiles(x: torch.Tensor, plan: KernelPlan) -> tuple[torch.Tensor, int]:
+    """Lay a 1-D tensor out as the plan's (rows, width) tiles.
+
+    Returns ``(tiles, n)`` with ``n`` the logical length.  When ``n`` fills
+    the plan exactly the tiles are a view of ``x``; a ragged tail costs one
+    copy into a zero-padded buffer."""
+    (n,) = x.shape
+    # A plan is only valid for the logical shape it was derived from; a
+    # mismatched plan would silently drop tail rows from the grid.
+    if plan.logical_shape != (n,):
+        raise ValueError(
+            f"plan {plan.kernel} is for shape {plan.logical_shape}, "
+            f"got tensor of shape {(n,)}"
+        )
+    rows, width = plan.padded_shape
+    if width % plan.minor_unit:
+        raise ValueError(
+            f"plan width {width} is not a multiple of its minor unit "
+            f"{plan.minor_unit}")
+    if n == rows * width and x.is_contiguous():
+        return x.view(rows, width), n
+    tiles = x.new_zeros(rows * width)
+    tiles[:n] = x
+    return tiles.view(rows, width), n
+
+
+def from_tiles(x2: torch.Tensor, n: int) -> torch.Tensor:
+    """The logical 1-D view of a tiled result (no copy)."""
+    return x2.reshape(-1)[:n]
+
+
+def plan_args_1d(a: torch.Tensor, *_rest, **_scalars):
+    """Registry ``plan_args`` for 1-D streaming kernels: plan on the first
+    tensor's logical length and dtype (all streams share one layout)."""
+    if a.ndim != 1:
+        raise ValueError(f"1-D stream kernel got rank-{a.ndim} tensor")
+    return tuple(a.shape), a.dtype
+
+
+def block_rows(rows: int, target: int = 4) -> int:
+    """Rows per CTA when a kernel wrapper is called without a plan: the
+    largest divisor of ``rows`` not above ``target``."""
+    b = max(1, min(rows, target))
+    while rows % b:
+        b -= 1
+    return b
