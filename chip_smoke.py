@@ -10,15 +10,20 @@ Phases, each fatal on failure:
   3. the main path at real size through ``repro_torch.api.launch``:
      STREAM copy/scale/add/triad and the Schoenauer triad at n = 2**27
      (fp32 and bf16) and at one ragged n, a phase sweep of
-     ``vector_triad_phased`` (stream k at element phase k*p, p = 0..64), and
-     ``jacobi_sweeps`` on a 16384 x 16384 fp32 grid; launch counters are
-     zeroed just before and read just after, and every output is checked
-     against the registered plain oracle on the card;
+     ``vector_triad_phased`` (stream k at element phase k*p, p = 0..64),
+     ``jacobi_sweeps`` on a 16384 x 16384 fp32 grid, ``lbm_run`` for 20
+     D3Q19 steps in both layouts at N = 256 and N = 250 (paper Fig. 7,
+     MLUP/s printed), and ``vector_triad_segmented`` at n = 2**27 in 8
+     segments (paper Fig. 5); launch counters are zeroed just before and
+     read just after, and every output is checked against the registered
+     plain oracle (or the flat triad) on the card;
   4. each kernel against its plain PyTorch version on the same inputs at
      the main path's shapes, with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
-     function, beside the least time the card could take (``bound_ms``).
+     function, beside the least time the card could take (``bound_ms``);
+     the LBM collision's time per layout and size apart from the whole
+     step, and the segmented triad's time over the flat triad's.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, the ``kernels`` JSON object and
@@ -42,6 +47,11 @@ GRID = 16_384              # Jacobi grid edge: 1 GiB per fp32 buffer
 SWEEPS = 20
 SCALAR = 3.0
 PHASES = range(0, 65)
+LBM_SIZES = (256, 250)     # 256: N % 64 == 0, 1.27 GB a lattice; 250: ragged
+LBM_STEPS = 20
+LBM_BF16_N = 64
+OMEGA = 1.2
+SEGMENTS = 8               # segmented triad: 8 segments, align 128, shift 16
 
 # Data-sheet rates (NVIDIA H100/H200 data sheets): device-memory bytes/s and
 # fp32 operations/s outside the tensor cores.  Matched on the card's name.
@@ -52,15 +62,20 @@ DATASHEET = [
     ("H100", 3.35e12, 67e12),
 ]
 
-# Where each TPU kernel this port replaces is defined.
-REPLACES = {
-    "stream.copy": "src/repro/kernels/stream/kernel.py:21",
-    "stream.scale": "src/repro/kernels/stream/kernel.py:25",
-    "stream.add": "src/repro/kernels/stream/kernel.py:29",
-    "stream.triad": "src/repro/kernels/stream/kernel.py:33",
-    "triad": "src/repro/kernels/triad/kernel.py:26",
-    "jacobi": "src/repro/kernels/jacobi/kernel.py:31",
+# Each ported kernel: its CUDA source under src/repro_torch/kernels/csrc/
+# and where the TPU kernel it replaces is defined.
+KERNELS = {
+    "stream.copy": ("stream.cu", "src/repro/kernels/stream/kernel.py:21"),
+    "stream.scale": ("stream.cu", "src/repro/kernels/stream/kernel.py:25"),
+    "stream.add": ("stream.cu", "src/repro/kernels/stream/kernel.py:29"),
+    "stream.triad": ("stream.cu", "src/repro/kernels/stream/kernel.py:33"),
+    "triad": ("stream.cu", "src/repro/kernels/triad/kernel.py:26"),
+    "jacobi": ("jacobi.cu", "src/repro/kernels/jacobi/kernel.py:31"),
+    "lbm.soa": ("lbm.cu", "src/repro/kernels/lbm/kernel.py:51"),
+    "lbm.ivjk": ("lbm.cu", "src/repro/kernels/lbm/kernel.py:57"),
 }
+NO_LIBRARY = {"lbm.soa": "no single PyTorch call computes a BGK collision",
+              "lbm.ivjk": "no single PyTorch call computes a BGK collision"}
 
 
 def fail(msg: str) -> None:
@@ -106,9 +121,55 @@ def time_ms(fn, samples: int = 10, per_sample: int = 5) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, calls: int = 10) -> float:
+    """Host milliseconds to enqueue one call of ``fn`` (no synchronise
+    inside the window; the card drains the queue afterwards)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_profile(label: str, fn, top: int = 6) -> None:
+    """Print the device time of one call of ``fn`` by kernel, as
+    torch.profiler's CUDA activity records it, beside the call's
+    CUDA-event time; their difference is the card's idle time in the
+    call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    # device-side events only (kernels, copies, fills): a host op such as
+    # aten::roll also reports the time of the kernels it launched
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda e: e.device_time_total, reverse=True)
+    busy = sum(e.device_time_total for e in rows) / 1e3
+    print(f"profile: {label}: {start.elapsed_time(end):.3f} ms, device "
+          f"kernels {busy:.3f} ms in {sum(e.count for e in rows)} launches; "
+          + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms "
+                      f"x{e.count}" for e in rows[:top]))
+
+
 def check_close(what: str, got, want, rtol: float, atol: float) -> float:
     """Fail unless |got - want| <= atol + rtol * |want| everywhere and
-    every value is finite; returns the max abs error."""
+    every value is finite; returns the max abs error.  Callers pass logical
+    elements only: a padded LBM site's velocity is NaN by design."""
     import torch
 
     if got.shape != want.shape:
@@ -147,11 +208,15 @@ def main() -> int:
     from repro_torch.kernels.jacobi import kernel as jacobi_kernel
     from repro_torch.kernels.jacobi import ops as jacobi_ops
     from repro_torch.kernels.jacobi import ref as jacobi_ref
+    from repro_torch.kernels.lbm import kernel as lbm_kernel
+    from repro_torch.kernels.lbm import ops as lbm_ops
+    from repro_torch.kernels.lbm import ref as lbm_ref
     from repro_torch.kernels.stream import kernel as stream_kernel
     from repro_torch.kernels.stream import ops as stream_ops
     from repro_torch.kernels.triad import kernel as triad_kernel
     from repro_torch.kernels.triad import ops as triad_ops
     from repro_torch.core.layout import hopper_limits
+    from repro_torch.core.segmented import SegmentedArray
     from repro_torch.kernels.util import to_tiles
 
     # Full fp32 in the library yardstick's convolution (cuDNN would take
@@ -177,6 +242,8 @@ def main() -> int:
     secs = time.perf_counter() - t0
     print(f"build: {sorted(built) or 'cached'} for sm_90a in {secs:.1f} s "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
+    print(f"build: ptxas registers and spill-store bytes per source: "
+          f"{_build.PTXAS}")
 
     # ---- 3. the main path ----------------------------------------------
     counters = {
@@ -186,6 +253,8 @@ def main() -> int:
         "stream.triad": (stream_kernel.LAUNCHES, "triad"),
         "triad": (triad_kernel.LAUNCHES, "triad"),
         "jacobi": (jacobi_kernel.LAUNCHES, "jacobi"),
+        "lbm.soa": (lbm_kernel.LAUNCHES, "soa"),
+        "lbm.ivjk": (lbm_kernel.LAUNCHES, "ivjk"),
     }
     for table, key in counters.values():
         table[key] = 0
@@ -239,6 +308,47 @@ def main() -> int:
     print(f"main: jacobi_sweeps {GRID}x{GRID} fp32 x{SWEEPS}: "
           f"{sweeps_ms:.3f} ms, {mlups:.1f} MLUP/s (incl. the copy-in): ok")
 
+    def lattice(n, dtype, seed):
+        """The equilibrium shear flow with a +-2.5 % seeded perturbation,
+        made on the card."""
+        f = lbm_ops.init_equilibrium(n)
+        gen = torch.Generator(device=f.device).manual_seed(seed)
+        noise = torch.rand(f.shape, generator=gen, device=f.device)
+        return (f * (1 + 0.05 * (noise - 0.5))).to(dtype)
+
+    step_ms = {}
+    for n in LBM_SIZES:
+        f = lattice(n, torch.float32, n)
+        want = f
+        for _ in range(LBM_STEPS):
+            want = lbm_ref.lbm_step(want, OMEGA)
+        for layout in ("soa", "ivjk"):
+            lbm_ops.lbm_run(f, OMEGA, 1, layout=layout)   # warm-up
+            torch.cuda.synchronize()
+            start.record()
+            got = lbm_ops.lbm_run(f, OMEGA, LBM_STEPS, layout=layout)
+            end.record()
+            end.synchronize()
+            step_ms[layout, n] = start.elapsed_time(end) / LBM_STEPS
+            # multi-step tolerance of tests/test_kernels.py
+            check_close(f"lbm_run {layout} N={n} x{LBM_STEPS}", got, want,
+                        2e-4, 1e-6)
+            print(f"main: lbm_run {layout} N={n} fp32 x{LBM_STEPS}: "
+                  f"{step_ms[layout, n]:.3f} ms a step, "
+                  f"{n ** 3 / step_ms[layout, n] / 1e3:.1f} MLUP/s "
+                  f"(propagation and layout copies included): ok")
+            del got
+        del f, want
+
+    sb, sc, sd = stream_ops.random_vectors(N, 3, torch.float32, seed=8)
+    segs = [SegmentedArray.from_flat(v, SEGMENTS, align=128, shift=16)
+            for v in (torch.zeros_like(sb), sb, sc, sd)]
+    check_close("vector_triad_segmented vs flat triad",
+                triad_ops.vector_triad_segmented(*segs).to_flat(),
+                api.launch("triad", sb, sc, sd), 0.0, 0.0)
+    print(f"main: vector_triad_segmented n={N} fp32, {SEGMENTS} segments, "
+          f"phases {segs[0].phases}: equal to the flat triad: ok")
+
     launches = {name: table[key] for name, (table, key) in counters.items()}
     print(f"main: launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
@@ -284,6 +394,41 @@ def main() -> int:
             plain=lambda x=xs: triad_kernel.plain(*x),
             exact=False, dtype=dtype, bytes=4 * N * dtype.itemsize, ops=2 * N,
             library=lambda x=xs: torch.addcmul(*x))
+
+    def lbm_case(n, dtype, layout):
+        """The collision at the main path's shape: the propagated lattice
+        laid out by the plan (the input a step hands the kernel)."""
+        f = lattice(n, dtype, n + 1)
+        plan = api.plan_for(f"lbm.{layout}", f.shape, dtype)
+        flat, s = lbm_ops._flatten_pad(lbm_ref.propagate(f), plan)
+        if layout == "soa":
+            x = flat
+        else:
+            lanes = plan.padded_shape[2]
+            x = flat.view(19, -1, lanes).transpose(0, 1).contiguous()
+
+        def run():
+            if layout == "soa":
+                return lbm_kernel.collide_soa(x, OMEGA, bs=plan.block_cols)
+            return lbm_kernel.collide_ivjk(x, OMEGA, bsb=plan.block_rows)
+
+        def logical(y):
+            axis = lbm_kernel.V_AXIS[layout]
+            return y.movedim(axis, 0).reshape(19, -1)[:, :s]
+
+        sites = x.numel() // 19
+        return dict(
+            kernel=lambda: logical(run()),
+            plain=lambda: logical(lbm_kernel.plain(x, OMEGA, layout)),
+            exact=True, dtype=dtype, bytes=2 * x.numel() * dtype.itemsize,
+            ops=lbm_kernel.OPS_PER_SITE * sites, library=None,
+            # timed without the logical-site slice
+            run=run, plain_run=lambda: lbm_kernel.plain(x, OMEGA, layout))
+
+    for layout in ("soa", "ivjk"):
+        cases[f"lbm.{layout}"] = lbm_case(LBM_SIZES[0], torch.float32, layout)
+        cases[f"lbm.{layout}.bf16"] = lbm_case(LBM_BF16_N, torch.bfloat16,
+                                               layout)
     jplan = api.plan_for("jacobi", (GRID - 2, GRID), torch.float32)
     jsrc = jacobi_ops.pitched(grid, jplan)
     jdst = torch.empty_like(jsrc)
@@ -301,7 +446,11 @@ def main() -> int:
     for name, case in cases.items():
         got = case["kernel"]()
         want = case["plain"]()
-        rtol, atol = (0.0, 0.0) if case["exact"] else tol(case["dtype"])
+        # the LBM gate is tests/test_kernels.py's one-step tolerance
+        # (fp32 rtol 2e-5 / atol 1e-7, bf16 2e-2); bit-exact is expected
+        gate = ((2e-2, 2e-2) if case["dtype"] == torch.bfloat16 else
+                (2e-5, 1e-7)) if name.startswith("lbm") else (0.0, 0.0)
+        rtol, atol = gate if case["exact"] else tol(case["dtype"])
         errors[name] = check_close(f"{name} kernel vs plain", got, want, rtol,
                                    atol)
         print(f"check: {name} kernel vs plain: max abs err {errors[name]:.3g} "
@@ -315,16 +464,19 @@ def main() -> int:
     for name, case in cases.items():
         bound_bytes = case["bytes"] / bw * 1e3
         bound_ops = case["ops"] / fp32_rate * 1e3
+        library = case["library"]
         times[name] = {
-            "ms": time_ms(case["kernel"]),
-            "plain_ms": time_ms(case["plain"]),
-            "library_ms": time_ms(case["library"]),
+            "ms": time_ms(case.get("run", case["kernel"])),
+            "plain_ms": time_ms(case.get("plain_run", case["plain"])),
+            "library_ms": None if library is None else time_ms(library),
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         }
         t = times[name]
+        lib = (f"{t['library_ms']:.4f} ms" if library is not None else
+               f"none ({NO_LIBRARY[name.removesuffix('.bf16')]})")
         print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"{t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{case['bytes'] / t['ms'] / 1e6:.1f} GB/s effective")
 
@@ -343,13 +495,46 @@ def main() -> int:
               f"{ms:.4f} ms, {gbs:.1f} GB/s effective")
         del phased
 
+    # paper Fig. 7: the collision alone beside the whole step
+    for n in LBM_SIZES:
+        for layout in ("soa", "ivjk"):
+            case = (cases[f"lbm.{layout}"] if n == LBM_SIZES[0]
+                    else lbm_case(n, torch.float32, layout))
+            ms = (times[f"lbm.{layout}"]["ms"] if n == LBM_SIZES[0]
+                  else time_ms(case["run"]))
+            print(f"fig7: {layout} N={n} fp32: collide {ms:.4f} ms "
+                  f"({n ** 3 / ms / 1e3:.1f} MLUP/s, "
+                  f"{case['bytes'] / ms / 1e6:.1f} GB/s), whole step "
+                  f"{step_ms[layout, n]:.4f} ms "
+                  f"({n ** 3 / step_ms[layout, n] / 1e3:.1f} MLUP/s)")
+            del case
+
+    # paper Fig. 5: the segmented triad over the flat one
+    flat_ms = time_ms(lambda: api.launch("triad", sb, sc, sd))
+    seg_ms = time_ms(lambda: triad_ops.vector_triad_segmented(*segs))
+    print(f"fig5: triad n={N} fp32: flat {flat_ms:.4f} ms, {SEGMENTS} "
+          f"segments {seg_ms:.4f} ms, segmented/flat {seg_ms / flat_ms:.4f}; "
+          f"host enqueue a call: flat "
+          f"{host_ms(lambda: api.launch('triad', sb, sc, sd)):.4f} ms, "
+          f"segmented "
+          f"{host_ms(lambda: triad_ops.vector_triad_segmented(*segs)):.4f} ms")
+
+    # where the time of an LBM step and of the segmented triad goes
+    f = lattice(LBM_SIZES[0], torch.float32, 1)
+    for layout in ("soa", "ivjk"):
+        device_profile(f"lbm_run {layout} N={LBM_SIZES[0]} x2",
+                       lambda lay=layout: lbm_ops.lbm_run(f, OMEGA, 2,
+                                                          layout=lay))
+    del f
+    device_profile(f"vector_triad_segmented n={N}",
+                   lambda: triad_ops.vector_triad_segmented(*segs))
+
     kernels = []
-    for name in REPLACES:
-        src = "jacobi.cu" if name == "jacobi" else "stream.cu"
+    for name, (src, replaces) in KERNELS.items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": errors[name], **times[name],
         })
 

@@ -2,7 +2,8 @@
 Hopper.  Counterpart of the JAX package ``repro``; imports nothing of it.
 
 Subpackages: ``core`` (conflict model, analytic skews, Hopper layout
-planner), ``api`` (registry, PlanContext, ``launch``), ``kernels``
-(STREAM, vector triad, Jacobi: CUDA C++ kernels with plain PyTorch
-versions) and ``interop`` (numpy arrays and reference plans in).
+planner, segmented container), ``api`` (registry, PlanContext,
+``launch``), ``kernels`` (STREAM, vector triad, Jacobi, D3Q19 LBM: CUDA C++
+kernels with plain PyTorch versions) and ``interop`` (numpy arrays and
+reference plans in).
 """

@@ -30,6 +30,7 @@ FAMILY_MODULES: dict[str, str] = {
     "stream": "repro_torch.kernels.stream.ops",
     "triad": "repro_torch.kernels.triad.ops",
     "jacobi": "repro_torch.kernels.jacobi.ops",
+    "lbm": "repro_torch.kernels.lbm.ops",
 }
 
 

@@ -1,6 +1,6 @@
 """Core: the paper's analytic data-layout optimization on a Hopper machine
-model.  Counterpart of ``repro.core`` (single-device planner; the segmented
-iterator comes with its kernel in a later slice)."""
+model.  Counterpart of ``repro.core`` (single-device planner and the
+segmented container)."""
 from repro_torch.core.aliasing import InterleavedMemoryModel, Stream, analytic_skews
 from repro_torch.core.autotune import LayoutPlan, StreamSignature, plan_streams
 from repro_torch.core.layout import (
@@ -18,6 +18,13 @@ from repro_torch.core.planner import (
     plan_kernel,
     register_family,
 )
+from repro_torch.core.segmented import (
+    PageGeometry,
+    SegmentedArray,
+    seg_map,
+    seg_triad,
+    split_lengths,
+)
 
 __all__ = [
     "InterleavedMemoryModel", "Stream", "analytic_skews",
@@ -25,4 +32,5 @@ __all__ = [
     "LayoutPolicy", "PaddedDim", "hopper_limits", "round_up", "vector_unit",
     "KernelPlan", "plan_kernel", "plan_cache_info", "clear_plan_cache",
     "explain", "register_family",
+    "SegmentedArray", "PageGeometry", "seg_map", "seg_triad", "split_lengths",
 ]

@@ -7,7 +7,9 @@ element size) and the planner derives, in closed form and without search,
   * the padded *physical* shape: the minor dim a whole number of warp-wide
     16-B vector spans (``layout.vector_unit``), rows unpadded (row unit 1);
   * the block one CTA walks (``_fit_block``): in-flight bytes within the
-    per-CTA shared-memory budget, enough CTAs to fill every SM;
+    per-CTA shared-memory budget, enough CTAs to fill every SM; the LBM
+    collision holds no shared-memory tile, and its block is one site per
+    thread of a CTA (``_plan_lbm``);
   * the per-stream skews and segment shift (``plan_streams``), scored under
     the interleaved-memory conflict model.
 
@@ -25,6 +27,7 @@ import torch
 from repro_torch.core.aliasing import InterleavedMemoryModel, Stream
 from repro_torch.core.autotune import LayoutPlan, StreamSignature, plan_streams
 from repro_torch.core.layout import (
+    CTA_THREADS,
     cdiv,
     choose_block_shape,
     hopper_limits,
@@ -47,7 +50,13 @@ FAMILIES: dict[str, StreamSignature] = {
     "stream.triad": StreamSignature(n_read=2, n_write=1),
     "triad": StreamSignature(n_read=3, n_write=1),          # Schoenauer B+C*D
     "jacobi": StreamSignature(n_read=1, n_write=1),         # rows stream once
+    "lbm.soa": StreamSignature(n_read=19, n_write=19),      # D3Q19 collide
+    "lbm.ivjk": StreamSignature(n_read=19, n_write=19),
 }
+
+# D3Q19 direction count, needed for the LBM block geometry.  Kept local so
+# core never imports the kernels package.
+_LBM_Q = 19
 
 # In-flight row buffers per CTA when it differs from the stream count + 1:
 # a Jacobi output row needs the rows above, at and below it resident.
@@ -55,8 +64,9 @@ CTA_BUFFERS: dict[str, int] = {"jacobi": 4}
 
 # How many of a family's streams move a full planned array each launch;
 # absent families move one per signature stream.  Jacobi's neighbour rows
-# are re-read from cache, so the grid streams in once and out once.
-MAJOR_STREAMS: dict[str, int] = {"jacobi": 2}
+# are re-read from cache, so the grid streams in once and out once; the LBM
+# lattice already holds all 19 direction rows and is read and written once.
+MAJOR_STREAMS: dict[str, int] = {"jacobi": 2, "lbm.soa": 2, "lbm.ivjk": 2}
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -307,7 +317,9 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
     sig = dataclasses.replace(FAMILIES[kernel], elem_bytes=size)
     n_buffers = CTA_BUFFERS.get(kernel, sig.n_streams + 1)
     unit = vector_unit(size)
-    if len(shape) == 1:
+    if kernel.startswith("lbm."):
+        padded, block = _plan_lbm(kernel, shape, unit)
+    elif len(shape) == 1:
         padded, block = _plan_1d(shape[0], size, unit, n_buffers, budget, sms)
     elif len(shape) == 2:
         padded, block = _plan_2d(shape, size, unit, n_buffers, budget, sms)
@@ -406,3 +418,34 @@ def _plan_2d(shape: tuple[int, ...], size: int, unit: int, n_buffers: int,
     rows, brows, bcols = _fit_block(max(int(r), 1), width, size, unit,
                                     n_buffers, budget, sms)
     return (rows, width), (brows, bcols)
+
+
+def _plan_lbm(kernel: str, shape: tuple[int, ...],
+              unit: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """D3Q19 collision layouts.  ``shape`` is the lattice (Q, X, Y, Z); its
+    S = X*Y*Z sites are cut into chunks of L = ``unit`` sites (the vector
+    unit: 128 at fp32), so a warp's 32 neighbouring sites of one direction
+    are one coalesced line walk in either layout.
+
+    soa : f stored (Q, S_pad)        -- block (Q, bsb*L);
+    ivjk: f stored (S_pad/L, Q, L)   -- directions interleaved every L
+                                        sites; block (bsb, Q, L).
+
+    The collision keeps one site per thread in registers and holds no
+    shared-memory tile, so the budget rule does not apply.  The block is
+    the fewest chunks that give each of a CTA's ``CTA_THREADS`` threads one
+    site, and the grid fills the SMs by count: S_pad / (bsb*L) CTAs, at
+    least CTAS_PER_SM per SM above 135,168 sites at fp32.  Small blocks
+    keep the last, partial wave of CTAs down to one block's sites, where a
+    grid of one block per resident CTA slot would leave a whole block to
+    run alone when the count misses a wave by one.  S_pad pads S up to a
+    block multiple, less than bsb*L sites."""
+    q = int(shape[0])
+    if q != _LBM_Q:
+        raise ValueError(f"{kernel}: leading dim must be Q={_LBM_Q}, got {q}")
+    sites = max(int(np.prod(shape[1:], dtype=np.int64)), 1)
+    bsb = max(CTA_THREADS // unit, 1)
+    chunks = round_up(cdiv(sites, unit), bsb)
+    if kernel == "lbm.soa":
+        return (q, chunks * unit), (q, bsb * unit)
+    return (chunks, q, unit), (bsb, q, unit)

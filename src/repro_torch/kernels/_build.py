@@ -5,7 +5,8 @@ into a shared library with a plain C interface,
 ``<repo>/build/repro_torch/<name>-<hash>.so``, and loaded with ``ctypes``.
 The hash covers the source, the shared headers and the flags, so an edit
 rebuilds and an unchanged tree reuses the library.  ``build()`` starts one
-``nvcc`` per missing library, all at once.
+``nvcc`` per missing library, all at once, and keeps what ptxas reports of
+registers and spills in ``PTXAS``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a nonzero code.  This module is imported only by the
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,10 +27,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+
+# What ptxas reported for each source built in this process: the registers
+# of each kernel instantiation and the spill-store bytes summed over them.
+PTXAS: dict[str, dict] = {}
 
 
 def sources() -> list[str]:
@@ -79,6 +85,12 @@ def build(names=None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, target)
+            PTXAS[name] = {
+                "registers": [int(r) for r in
+                              re.findall(r"Used (\d+) registers", out)],
+                "spill_bytes": sum(int(b) for b in
+                                   re.findall(r"(\d+) bytes spill stores", out)),
+            }
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

@@ -17,7 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels.stream.kernel import DTYPES
-from repro_torch.kernels.util import block_rows
+from repro_torch.kernels.util import block_rows, overlaps
 
 # launches of the CUDA kernel, counted where the wrapper launches it
 LAUNCHES = {"jacobi": 0}
@@ -59,10 +59,7 @@ def _check(src: torch.Tensor, dst: torch.Tensor, n_cols: int) -> None:
                          "dtype and device")
     if not 1 <= n_cols <= src.shape[1]:
         raise ValueError(f"n_cols {n_cols} outside [1, {src.shape[1]}]")
-    span = (src.shape[0] - 1) * src.stride(0) + src.shape[1]
-    size = src.element_size()
-    lo, hi = sorted((src.data_ptr(), dst.data_ptr()))
-    if hi < lo + span * size:
+    if overlaps(src, dst):
         raise ValueError("jacobi src and dst overlap")
 
 

@@ -18,7 +18,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.util import block_rows
+from repro_torch.kernels.util import block_rows, overlaps
 
 # launches of each CUDA kernel, counted where the wrapper launches it
 LAUNCHES = {"copy": 0, "scale": 0, "add": 0, "triad": 0}
@@ -64,9 +64,24 @@ def _entry():
     return lib, fn
 
 
-def launch_cuda(op: str, ins, s: float | None, brows: int | None) -> torch.Tensor:
-    """Launch ``csrc/stream.cu`` for ``op`` on CUDA tensors; returns the
-    output, laid out with the inputs' row pitch."""
+def check_out(out: torch.Tensor, ins) -> None:
+    """Raise unless ``out`` shares shape, strides, dtype and device with
+    the inputs and overlaps none of them."""
+    x = ins[0]
+    if (out.shape != x.shape or out.stride() != x.stride()
+            or out.dtype != x.dtype or out.device != x.device):
+        raise ValueError("stream kernel out must share shape, strides, dtype "
+                         "and device with the inputs")
+    if any(overlaps(out, t) for t in ins):
+        raise ValueError("stream kernel out overlaps an input")
+
+
+def launch_cuda(op: str, ins, s: float | None, brows: int | None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``csrc/stream.cu`` for ``op`` on CUDA tensors; writes ``out``
+    when given (same shape, strides, dtype and device as the inputs, no
+    overlap with them), else a new tensor laid out with the inputs' row
+    pitch.  Returns the output."""
     from repro_torch.kernels import _build
 
     x = ins[0]
@@ -85,8 +100,11 @@ def launch_cuda(op: str, ins, s: float | None, brows: int | None) -> torch.Tenso
                              "shape and strides")
     rows, width = x.shape
     pitch = x.stride(0)
-    out = torch.empty_strided((rows, width), (pitch, 1), dtype=x.dtype,
-                              device=x.device)
+    if out is None:
+        out = torch.empty_strided((rows, width), (pitch, 1), dtype=x.dtype,
+                                  device=x.device)
+    else:
+        check_out(out, ins)
     brows = brows or block_rows(rows)
     ptrs = [t.data_ptr() for t in ins] + [None] * (3 - len(ins))
     lib, fn = _entry()

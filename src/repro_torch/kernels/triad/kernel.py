@@ -8,7 +8,8 @@ aligned planner tiles, or each stream at its own element phase.
 On CUDA tensors ``triad2d`` launches the kernel and counts the launch in
 ``LAUNCHES``; on CPU tensors it returns the plain PyTorch version
 (``plain``): inputs widened to fp32, one rounded multiply and add, one
-rounding to the array dtype.
+rounding to the array dtype.  Either writes into a caller's ``out`` tile
+when one is given (the segmented triad writes each segment in place).
 """
 from __future__ import annotations
 
@@ -27,9 +28,16 @@ def plain(b: torch.Tensor, c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
 
 
 def triad2d(b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
-            brows: int | None = None) -> torch.Tensor:
+            brows: int | None = None,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """A = B + C * D on (rows, width) tiles; writes ``out`` when given
+    (checked as ``stream.kernel.launch_cuda`` checks it), else a new
+    tensor; returns it."""
     if b.device.type == "cpu":
-        return plain(b, c, d)
-    out = stream_kernel.launch_cuda("vtriad", [b, c, d], None, brows)
+        if out is None:
+            return plain(b, c, d)
+        stream_kernel.check_out(out, [b, c, d])
+        return out.copy_(plain(b, c, d))
+    out = stream_kernel.launch_cuda("vtriad", [b, c, d], None, brows, out)
     LAUNCHES["triad"] += 1
     return out

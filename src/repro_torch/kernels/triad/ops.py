@@ -1,13 +1,16 @@
-"""Vector triad: registry entry plus the phased experiment variant.
+"""Vector triad: registry entry plus the segmented and phased experiment
+variants.
 
 Counterpart of ``repro.kernels.triad.ops``.
 ``repro_torch.api.launch("triad", b, c, d)`` is the planner-driven aligned
-case.  ``vector_triad_phased`` is the paper's offset experiment: stream k
-is read from ``phase[k]`` elements into its own padded buffer, so its base
-address is off the 16-B vector grid unless the phase is a multiple of
-16 / itemsize.  The TPU reference pads and slices back, which lets the
-compiler realign the data; here the kernel reads the unaligned bases as
-they are (its scalar path), which is what the paper measured.
+case.  ``vector_triad_segmented`` runs it once per segment of a
+``SegmentedArray`` (paper Fig. 5).  ``vector_triad_phased`` is the paper's
+offset experiment: stream k is read from ``phase[k]`` elements into its own
+padded buffer, so its base address is off the 16-B vector grid unless the
+phase is a multiple of 16 / itemsize.  The TPU reference pads and slices
+back, which lets the compiler realign the data; here the kernel reads the
+unaligned bases as they are (its scalar path), which is what the paper
+measured.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from repro_torch.api import dispatch
 from repro_torch.api.registry import Partitioning, register_kernel
 from repro_torch.core.autotune import StreamSignature
 from repro_torch.core.planner import KernelPlan
+from repro_torch.core.segmented import SegmentedArray, seg_map_into
 from repro_torch.kernels.triad import kernel, ref
 from repro_torch.kernels.util import from_tiles, plan_args_1d, to_tiles
 
@@ -27,12 +31,25 @@ from repro_torch.kernels.util import from_tiles, plan_args_1d, to_tiles
                  # its own slice
                  partitioning=Partitioning(in_axes=(("batch",),) * 3,
                                            out_axes=("batch",)))
-def _launch_triad(plan, b, c, d):
-    """Schoenauer vector triad A = B + C * D (paper SS2.2)."""
+def _launch_triad(plan, b, c, d, *, out=None):
+    """Schoenauer vector triad A = B + C * D (paper SS2.2).  With ``out``
+    (a 1-D tensor of the inputs' length) the result is written there: in
+    place when ``out`` fills the plan's tiles exactly, else through one
+    copy of the ragged result."""
     b2, n = to_tiles(b, plan)
     c2, _ = to_tiles(c, plan)
     d2, _ = to_tiles(d, plan)
-    return from_tiles(kernel.triad2d(b2, c2, d2, brows=plan.block_rows), n)
+    if out is None:
+        return from_tiles(kernel.triad2d(b2, c2, d2, brows=plan.block_rows), n)
+    if out.shape != b.shape:
+        raise ValueError(f"triad out has shape {tuple(out.shape)}, inputs "
+                         f"{tuple(b.shape)}")
+    if n == plan.rows * plan.width and out.is_contiguous():
+        kernel.triad2d(b2, c2, d2, brows=plan.block_rows,
+                       out=out.view(plan.rows, plan.width))
+        return out
+    res = kernel.triad2d(b2, c2, d2, brows=plan.block_rows)
+    return out.copy_(from_tiles(res, n))
 
 
 def phased_tiles(x: torch.Tensor, phase: int, plan: KernelPlan) -> torch.Tensor:
@@ -67,6 +84,20 @@ def vector_triad_phased(
     tiles = [phased_tiles(x, p, plan) for x, p in zip((b, c, d), phases)]
     out = kernel.triad2d(*tiles, brows=plan.block_rows)
     return from_tiles(out, b.shape[0])
+
+
+def vector_triad_segmented(
+    a: SegmentedArray, b: SegmentedArray, c: SegmentedArray, d: SegmentedArray
+) -> SegmentedArray:
+    """Segmented-iterator port: one ``api.launch("triad", ...)`` per
+    segment, each planned on its own logical length, each writing straight
+    into the logical slice of a fresh block that carries ``a``'s padding.
+    ``a``..``d`` are never written."""
+
+    def _one(bb, cc, dd, *, out):
+        dispatch.launch("triad", bb, cc, dd, out=out)
+
+    return seg_map_into(_one, a, b, c, d)
 
 
 def triad_bytes(n: int, elem_bytes: int = 8, *, rfo: bool = True) -> int:

@@ -63,6 +63,20 @@ def plan_args_1d(a: torch.Tensor, *_rest, **_scalars):
     return tuple(a.shape), a.dtype
 
 
+def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory spans of two strided tensors intersect (each span
+    runs from the first to the last element the tensor can address)."""
+    def span(t):
+        lo = t.data_ptr()
+        if t.numel() == 0:
+            return lo, lo
+        last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+        return lo, lo + (last + 1) * t.element_size()
+
+    (a0, a1), (b0, b1) = span(a), span(b)
+    return a0 < b1 and b0 < a1
+
+
 def block_rows(rows: int, target: int = 4) -> int:
     """Rows per CTA when a kernel wrapper is called without a plan: the
     largest divisor of ``rows`` not above ``target``."""

@@ -9,14 +9,23 @@ Tolerances: fp32 copy/scale/add and the Jacobi sweep round at most once and
 must be bit-exact; both triads round the product and the sum separately on
 both sides, so they are expected bit-exact, and the stated tolerance (fp32
 rtol 1e-5 / atol 1e-6, bf16 2e-2, as tests/test_kernels.py) only allows for
-a compiler contracting them into an FMA.
+a compiler contracting them into an FMA.  The LBM collision and its plain
+version do the same rounded operations in the same order in fp32 and round
+once to the array dtype, so they must agree bit for bit at both dtypes, on
+the logical sites (a padded site's velocity is NaN by design).
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch import api
 from repro_torch.kernels.jacobi import kernel as jkernel
+from repro_torch.core.layout import round_up
+from repro_torch.core.segmented import SegmentedArray
 from repro_torch.kernels.jacobi import ops as jops
+from repro_torch.kernels.lbm import kernel as lkernel
+from repro_torch.kernels.lbm import ops as lops
 from repro_torch.kernels.stream import kernel as skernel
 from repro_torch.kernels.stream import ops as sops
 from repro_torch.kernels.triad import kernel as tkernel
@@ -97,6 +106,63 @@ def test_jacobi_kernel_matches_plain(shape, dtype):
           jops.jacobi_sweeps(grid.cpu(), 10).to(grid.device))
 
 
+def reference_geometry(plan):
+    """The plan with the JAX package's LBM geometry: interleave width 128
+    at every dtype, and blocks that are not one site per thread."""
+    sites = round_up(plan.logical_elems // 19, 16 * 128)
+    if plan.kernel == "lbm.soa":
+        return dataclasses.replace(plan, padded_shape=(19, sites),
+                                   block_shape=(19, 16 * 128), minor_unit=128)
+    return dataclasses.replace(plan, padded_shape=(sites // 128, 19, 128),
+                               block_shape=(16, 19, 128), minor_unit=128)
+
+
+def lattice(n, dtype, seed):
+    f = lops.init_equilibrium(n, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.rand(f.shape, generator=gen, device="cuda")
+    return (f * (1 + 0.05 * (noise - 0.5))).to(dtype)
+
+
+@pytest.mark.parametrize("geometry", ["port", "reference"])
+@pytest.mark.parametrize("layout", ["soa", "ivjk"])
+@pytest.mark.parametrize("n", [7, 12, 37, 50])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lbm_kernels_match_plain(dtype, n, layout, geometry):
+    f = lattice(n, dtype, seed=n)
+    plan = api.plan_for(f"lbm.{layout}", f.shape, dtype)
+    if geometry == "reference":
+        plan = reference_geometry(plan)
+    flat, s = lops._flatten_pad(f, plan)
+    before = lkernel.LAUNCHES[layout]
+    if layout == "soa":
+        x = flat
+        got = lkernel.collide_soa(x, 1.2, bs=plan.block_cols)
+    else:
+        lanes = plan.padded_shape[2]
+        x = flat.view(19, -1, lanes).transpose(0, 1).contiguous()
+        got = lkernel.collide_ivjk(x, 1.2, bsb=plan.block_rows)
+    assert lkernel.LAUNCHES[layout] == before + 1
+    want = lkernel.plain(x, 1.2, layout)
+    axis = lkernel.V_AXIS[layout]
+    exact(got.movedim(axis, 0).reshape(19, -1)[:, :s],
+          want.movedim(axis, 0).reshape(19, -1)[:, :s])
+    # a whole step through the launch path, against the CPU's plain step
+    step = api.launch(f"lbm.{layout}", f, omega=1.2, plan=plan)
+    exact(step, api.launch(f"lbm.{layout}", f.cpu(), omega=1.2).to(f.device))
+
+
+@pytest.mark.parametrize("n", [1 << 20, 100_003])
+def test_segmented_triad_matches_flat_triad(n):
+    b, c, d = sops.random_vectors(n, 3, torch.float32, seed=9)
+    segs = [SegmentedArray.from_flat(v, 8, align=128, shift=16)
+            for v in (torch.zeros_like(b), b, c, d)]
+    before = tkernel.LAUNCHES["triad"]
+    out = tops.vector_triad_segmented(*segs)
+    assert tkernel.LAUNCHES["triad"] == before + 8
+    exact(out.to_flat(), api.launch("triad", b, c, d))
+
+
 def test_wrappers_refuse_what_the_kernel_does_not_take():
     x = torch.zeros(4, 128, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -106,3 +172,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         skernel.add2d(y, torch.zeros(4, 256, device="cuda")[:, :128])
     with pytest.raises(ValueError):
         jkernel.sweep(y, y, n_cols=128)
+    with pytest.raises(ValueError, match="overlaps"):
+        tkernel.triad2d(y, y.clone(), y.clone(), out=y)
+    lat = torch.zeros(19, 256, device="cuda")
+    with pytest.raises(ValueError, match="overlap"):
+        lkernel.collide_soa(lat, 1.0, out=lat)
+    with pytest.raises(TypeError):
+        lkernel.collide_soa(lat.half(), 1.0)

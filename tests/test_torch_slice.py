@@ -25,11 +25,13 @@ from repro.core.aliasing import Stream as JStream
 from repro.core.autotune import StreamSignature as JSig
 from repro.core.autotune import plan_streams as jplan_streams
 from repro.kernels.jacobi import ops as jjops
+from repro.kernels.lbm import ops as jlops
 from repro.kernels.triad import ops as jtops
 from repro_torch import api, interop
 from repro_torch.core.aliasing import InterleavedMemoryModel, Stream
 from repro_torch.core.autotune import StreamSignature, plan_streams
 from repro_torch.kernels.jacobi import ops as jops
+from repro_torch.kernels.lbm import ops as lops
 from repro_torch.kernels.triad import ops as tops
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -74,7 +76,7 @@ def test_every_ported_kernel_matches_reference():
     calls = {"stream.copy": (1, {}), "stream.scale": (1, {"s": 2.5}),
              "stream.add": (2, {}), "stream.triad": (2, {"s": 2.5}),
              "triad": (3, {})}
-    assert sorted([*calls, "jacobi"]) == api.list_kernels()
+    assert sorted([*calls, "jacobi", "lbm.soa", "lbm.ivjk"]) == api.list_kernels()
     for name, (arity, kw) in calls.items():
         np.testing.assert_allclose(
             interop.to_numpy(api.launch(name, *t[:arity], **kw)),
@@ -84,6 +86,14 @@ def test_every_ported_kernel_matches_reference():
         interop.to_numpy(jops.jacobi_sweeps(interop.to_torch(grid, device="cpu"),
                                             5)),
         np.asarray(jjops.jacobi_sweeps(jnp.asarray(grid), 5)), **FP32)
+    lattice = np.asarray(jlops.init_equilibrium(10, jnp.float32))
+    for layout in ("soa", "ivjk"):
+        np.testing.assert_allclose(
+            interop.to_numpy(lops.lbm_run(
+                interop.to_torch(lattice, device="cpu"), 1.2, 2, layout=layout)),
+            np.asarray(jlops.lbm_run(jnp.asarray(lattice), 1.2, 2,
+                                     layout=layout)),
+            rtol=2e-4, atol=1e-6)
 
 
 def test_interop_carries_bf16_like_jax():
