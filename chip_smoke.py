@@ -17,6 +17,17 @@ Phases, each fatal on failure:
      segments (paper Fig. 5); launch counters are zeroed just before and
      read just after, and every output is checked against the registered
      plain oracle (or the flat triad) on the card;
+  3b. serving at full Qwen3-4B width (bf16, seeded weights, one card):
+     ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
+     serves 16 seeded requests (prompts 32-256 tokens, 16-64 new tokens)
+     with the paged KV cache and again with the dense one; fatal unless
+     every request completes, paged tokens equal dense tokens, two requests
+     re-run alone in the same slot geometry give the same tokens, and the
+     rmsnorm launch counter, zeroed just before and read just after, is at
+     least 73 (2 x 36 layers + the final norm) a decode step.  One
+     ``make_prefill_step`` forward at B = 4, S = 512 (rmsnorm on 2048 x
+     2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``,
+     the gated kernel's only entry point, runs at (2048, 4096);
   4. each kernel against its plain PyTorch version on the same inputs at
      the main path's shapes, with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
@@ -24,6 +35,10 @@ Phases, each fatal on failure:
      function, beside the least time the card could take (``bound_ms``);
      the LBM collision's time per layout and size apart from the whole
      step, and the segmented triad's time over the flat triad's.
+
+A ``serve:`` line gives requests, generated tokens, seconds, tokens/s,
+ticks, preemptions and the page size, and a ``profile:`` line where the
+device time of one decode tick goes.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, the ``kernels`` JSON object and
@@ -52,6 +67,13 @@ LBM_STEPS = 20
 LBM_BF16_N = 64
 OMEGA = 1.2
 SEGMENTS = 8               # segmented triad: 8 segments, align 128, shift 16
+# serving at full Qwen3-4B width
+SERVE_ARCH = "qwen3-4b"
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 16
+SERVE_PROMPT, SERVE_GEN = (32, 256), (16, 64)
+PREFILL_B, PREFILL_S = 4, 512
+GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
+SEED = 0
 
 # Data-sheet rates (NVIDIA H100/H200 data sheets): device-memory bytes/s and
 # fp32 operations/s outside the tensor cores.  Matched on the card's name.
@@ -73,9 +95,13 @@ KERNELS = {
     "jacobi": ("jacobi.cu", "src/repro/kernels/jacobi/kernel.py:31"),
     "lbm.soa": ("lbm.cu", "src/repro/kernels/lbm/kernel.py:51"),
     "lbm.ivjk": ("lbm.cu", "src/repro/kernels/lbm/kernel.py:57"),
+    "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:29"),
+    "rmsnorm.gated": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:34"),
 }
 NO_LIBRARY = {"lbm.soa": "no single PyTorch call computes a BGK collision",
-              "lbm.ivjk": "no single PyTorch call computes a BGK collision"}
+              "lbm.ivjk": "no single PyTorch call computes a BGK collision",
+              "rmsnorm.gated": "no single PyTorch call gates x by silu(z) "
+                               "before an RMSNorm"}
 
 
 def fail(msg: str) -> None:
@@ -97,11 +123,18 @@ def datasheet(name: str) -> tuple[float, float]:
     fail(f"no data-sheet rates for {name!r}")
 
 
+# GPU cycles the card spins before each timing window (about 2 ms at the
+# H100's boost clock): longer than the host takes to enqueue a window of
+# microsecond kernels, so the window times the card, not the host.
+SPIN_CYCLES = 4_000_000
+
+
 def time_ms(fn, samples: int = 10, per_sample: int = 5) -> float:
     """Median ms per call of ``fn`` over ``samples`` CUDA-event windows of
-    ``per_sample`` calls each, after a warm-up.  An untimed call is queued
-    before each window so the card is busy while the window's calls are
-    enqueued."""
+    ``per_sample`` calls each, after a warm-up.  An untimed call and a spin
+    of ``SPIN_CYCLES`` are queued before each window so the card is busy
+    while the window's calls are enqueued: the window holds the calls back
+    to back on the card, whatever the host's cost of a call."""
     import torch
 
     for _ in range(3):
@@ -112,6 +145,7 @@ def time_ms(fn, samples: int = 10, per_sample: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         fn()
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(per_sample):
             fn()
@@ -195,6 +229,131 @@ def tol(dtype) -> tuple[float, float]:
     return (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-6)
 
 
+def serving_phase() -> dict[str, int]:
+    """Phase 3b: continuous-batching serving at full Qwen3-4B width, a
+    prefill forward, and the gated norm's launch path.  Each rmsnorm
+    counter is zeroed just before a run and read just after; returns the
+    launches of each kernel over the phase."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.parallel.steps import make_prefill_step
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    params = model.init(SEED)
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
+                         SERVE_GEN, SEED)
+    per_step = 2 * cfg.n_layers + 1      # ln1 + ln2 a layer, the final norm
+    counts = {"rmsnorm": 0, "rmsnorm.gated": 0}
+
+    def serve(kv, subset):
+        batcher = ContinuousBatcher(model, params, slots=SERVE_SLOTS,
+                                    max_len=SERVE_MAX_LEN, kv_cache=kv,
+                                    prefill_chunk=SERVE_CHUNK)
+        torch.cuda.synchronize()
+        rms_kernel.LAUNCHES["plain"] = 0
+        t0 = time.perf_counter()
+        out = batcher.run([Request(r.rid, list(r.prompt), r.max_new_tokens)
+                           for r in subset])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = rms_kernel.LAUNCHES["plain"]
+        counts["rmsnorm"] += launched
+        for r in subset:
+            if len(out.get(r.rid, ())) != r.max_new_tokens:
+                fail(f"serve {kv}: request {r.rid} did not complete")
+        if launched < per_step * batcher.micro_steps:
+            fail(f"serve {kv}: {launched} rmsnorm launches for "
+                 f"{batcher.micro_steps} decode steps (< {per_step} a step)")
+        return batcher, out, secs, launched
+
+    runs = {}
+    for kv in ("paged", "dense"):
+        batcher, out, secs, launched = serve(kv, reqs)
+        runs[kv] = (batcher, out)
+        tokens = sum(len(v) for v in out.values())
+        page = batcher.geometry.page_len if batcher.geometry else None
+        print(f"serve: {SERVE_ARCH} bf16 {kv}: {len(out)} requests, "
+              f"{tokens} generated tokens in {secs:.3f} s, "
+              f"{tokens / secs:.2f} tokens/s, {batcher.ticks} ticks, "
+              f"{batcher.micro_steps} decode steps "
+              f"({secs / batcher.micro_steps * 1e3:.2f} ms a step), "
+              f"{len(batcher.preemption_log)} preemptions, page {page}, "
+              f"rmsnorm launches {launched}")
+    if runs["paged"][1] != runs["dense"][1]:
+        bad = [r.rid for r in reqs
+               if runs["paged"][1][r.rid] != runs["dense"][1][r.rid]]
+        fail(f"serve: paged tokens differ from dense for requests {bad}")
+    print(f"serve: paged tokens equal dense tokens for all "
+          f"{SERVE_REQUESTS} requests")
+    for rid in (0, 1):
+        _, alone, _, _ = serve("paged", [reqs[rid]])
+        if alone[rid] != runs["paged"][1][rid]:
+            fail(f"serve: request {rid} alone gave other tokens than batched")
+    print("serve: requests 0 and 1 re-run alone in the same slot geometry "
+          "give the batched tokens")
+
+    # where the device time of one decode tick goes (all slots stepping)
+    batcher = runs["paged"][0]
+    feed = torch.ones((batcher.padded_slots, 1), dtype=torch.int32,
+                      device="cuda")
+
+    def tick():
+        with torch.inference_mode():
+            batcher.decode(params, batcher.cache, feed)
+
+    device_profile(f"decode tick {SERVE_ARCH} {SERVE_SLOTS} slots paged "
+                   f"max_len {SERVE_MAX_LEN}", tick, top=8)
+    del runs, batcher
+
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    rms_kernel.LAUNCHES["plain"] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        start.record()
+        logits = prefill(params, {"tokens": tokens})
+        end.record()
+    end.synchronize()
+    launched = rms_kernel.LAUNCHES["plain"]
+    counts["rmsnorm"] += launched
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab_size):
+        fail(f"prefill: logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("prefill: non-finite logits")
+    if launched != per_step:
+        fail(f"prefill: {launched} rmsnorm launches, want {per_step}")
+    print(f"prefill: {SERVE_ARCH} bf16 B={PREFILL_B} S={PREFILL_S} "
+          f"(rmsnorm on {PREFILL_B * PREFILL_S} x {cfg.d_model} rows): "
+          f"{start.elapsed_time(end):.3f} ms, logits finite, rmsnorm "
+          f"launches {launched}")
+    del model, params, logits
+
+    x, z = (torch.randn(GATED_SHAPE, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    scale = (torch.randn(GATED_SHAPE[-1:], generator=gen, device="cuda")
+             + 1).to(torch.bfloat16)
+    rms_kernel.LAUNCHES["gated"] = 0
+    y = api.launch("rmsnorm.gated", x, z, scale)
+    counts["rmsnorm.gated"] = rms_kernel.LAUNCHES["gated"]
+    err = check_close(f"rmsnorm.gated {GATED_SHAPE} bf16", y,
+                      api.ref("rmsnorm.gated", x, z, scale),
+                      *tol(torch.bfloat16))
+    print(f"main: rmsnorm.gated {GATED_SHAPE} bf16 through api.launch vs "
+          f"its oracle: max abs err {err:.3g}: ok")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -217,6 +376,7 @@ def main() -> int:
     from repro_torch.kernels.triad import ops as triad_ops
     from repro_torch.core.layout import hopper_limits
     from repro_torch.core.segmented import SegmentedArray
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.util import to_tiles
 
     # Full fp32 in the library yardstick's convolution (cuDNN would take
@@ -349,7 +509,9 @@ def main() -> int:
     print(f"main: vector_triad_segmented n={N} fp32, {SEGMENTS} segments, "
           f"phases {segs[0].phases}: equal to the flat triad: ok")
 
+    serve_launches = serving_phase()
     launches = {name: table[key] for name, (table, key) in counters.items()}
+    launches.update(serve_launches)
     print(f"main: launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -429,6 +591,48 @@ def main() -> int:
         cases[f"lbm.{layout}"] = lbm_case(LBM_SIZES[0], torch.float32, layout)
         cases[f"lbm.{layout}.bf16"] = lbm_case(LBM_BF16_N, torch.bfloat16,
                                                layout)
+    def rms_case(shape, dtype, gated, seed):
+        """A norm at a main-path shape, through the wrapper as
+        ``api.launch`` calls it (the scale in x's dtype)."""
+        rows, d = shape
+        name = "rmsnorm.gated" if gated else "rmsnorm"
+        plan = api.plan_for(name, shape, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x, z = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        s = (torch.randn(d, generator=gen, device="cuda") + 1).to(dtype)
+
+        def run():
+            if gated:
+                return rms_kernel.gated_rmsnorm2d(x, z, s, d_logical=d,
+                                                  brows=plan.block_rows)
+            return rms_kernel.rmsnorm2d(x, s, d_logical=d,
+                                        brows=plan.block_rows)
+
+        def plain():
+            return rms_kernel.plain(x, s, d, 1e-6, z if gated else None)
+
+        def library():
+            return F.rms_norm(x, (d,), weight=s, eps=1e-6)
+
+        # x (and z) read once, y written once; squares, sums and two scalings
+        # an element, and for the gate a sigmoid (exp, add, divide) and two
+        # products more
+        return dict(kernel=run, plain=plain, exact=False, dtype=dtype,
+                    bytes=(3 if gated else 2) * rows * d * dtype.itemsize,
+                    ops=(9 if gated else 4) * rows * d,
+                    library=None if gated else library)
+
+    # B9 at the decode shape (the JSON row: most launches) and the prefill
+    # shape; B10 at (2048, 4096).  bf16 is the serving dtype.
+    for dtype in (torch.bfloat16, torch.float32):
+        suffix = "" if dtype == torch.bfloat16 else ".fp32"
+        cases["rmsnorm" + suffix] = rms_case((SERVE_SLOTS, 2560), dtype,
+                                             False, 10)
+        cases["rmsnorm.prefill" + suffix] = rms_case(
+            (PREFILL_B * PREFILL_S, 2560), dtype, False, 11)
+        cases["rmsnorm.gated" + suffix] = rms_case(GATED_SHAPE, dtype, True,
+                                                   12)
     jplan = api.plan_for("jacobi", (GRID - 2, GRID), torch.float32)
     jsrc = jacobi_ops.pitched(grid, jplan)
     jdst = torch.empty_like(jsrc)
@@ -473,12 +677,21 @@ def main() -> int:
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         }
         t = times[name]
+        base = name.removesuffix(".bf16").removesuffix(".fp32")
         lib = (f"{t['library_ms']:.4f} ms" if library is not None else
-               f"none ({NO_LIBRARY[name.removesuffix('.bf16')]})")
+               f"none ({NO_LIBRARY[base.replace('.prefill', '')]})")
         print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
               f"{case['bytes'] / t['ms'] / 1e6:.1f} GB/s effective")
+
+    # the host's cost of one call: what a decode step pays 73 times
+    for name in ("rmsnorm", "rmsnorm.prefill", "rmsnorm.gated"):
+        lib = cases[name]["library"]
+        extra = (f", {host_ms(lib, 100):.4f} ms for the library call"
+                 if lib else "")
+        print(f"host: {name} bf16: {host_ms(cases[name]['kernel'], 100):.4f} "
+              f"ms to enqueue one wrapper call{extra}")
 
     print(f"time: jacobi kernel "
           f"{jacobi_ops.mlups(GRID, GRID, times['jacobi']['ms'] / 1e3):.1f} "

@@ -11,7 +11,7 @@ from repro_torch.api.context import (
     current_context,
     plan_context,
 )
-from repro_torch.api.dispatch import explain, launch, plan_for, ref
+from repro_torch.api.dispatch import explain, launch, plan_for, plan_tile, ref
 from repro_torch.api.registry import (
     FAMILY_MODULES,
     KernelEntry,
@@ -23,7 +23,7 @@ from repro_torch.api.registry import (
 
 __all__ = [
     "PlanContext", "plan_context", "current_context",
-    "launch", "plan_for", "explain", "ref",
+    "launch", "plan_for", "plan_tile", "explain", "ref",
     "register_kernel", "resolve", "list_kernels",
     "KernelEntry", "FAMILY_MODULES", "Partitioning",
 ]

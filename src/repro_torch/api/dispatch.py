@@ -17,7 +17,7 @@ from repro_torch.api import context as context_lib
 from repro_torch.api import registry as registry_lib
 from repro_torch.core.planner import KernelPlan, dtype_name, plan_kernel
 
-__all__ = ["launch", "plan_for", "explain", "ref"]
+__all__ = ["launch", "plan_for", "plan_tile", "explain", "ref"]
 
 
 def plan_for(kernel: str, shape, dtype, *, ctx=None) -> KernelPlan:
@@ -38,6 +38,26 @@ def plan_for(kernel: str, shape, dtype, *, ctx=None) -> KernelPlan:
         smem_budget=ctx.smem_budget,
         sm_count=ctx.sm_count,
     )
+
+
+def plan_tile(kernel: str, shape, dtype, *, smem_budget: int | None = None,
+              ctx=None) -> KernelPlan:
+    """Tile-size plan query: the plan of ``kernel`` over ``shape`` with an
+    explicit per-tile ``smem_budget`` layered onto the ambient (or given)
+    context.  The serving paged KV cache sizes its pages from the returned
+    plan's ``block_rows`` (``serving.paged_cache.plan_page_geometry``), so
+    cache pages and kernel blocks follow one layout policy.
+
+    A tile is sized by its budget, not by a grid: the query plans for one
+    SM, so the planner's fill rule (``layout.CTAS_PER_SM`` CTAs on every SM)
+    does not cut the tile down to a row.  The reference's TPU planner has
+    no fill rule either (its grid runs in order on one core), and there the
+    same query takes ``vmem_budget``."""
+    ctx = ctx or context_lib.current_context()
+    ctx = ctx.evolve(sm_count=1)
+    if smem_budget is not None:
+        ctx = ctx.evolve(smem_budget=int(smem_budget))
+    return plan_for(kernel, shape, dtype, ctx=ctx)
 
 
 def _matches(entry, plan: KernelPlan, shape, dtype) -> bool:

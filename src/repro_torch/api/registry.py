@@ -31,6 +31,7 @@ FAMILY_MODULES: dict[str, str] = {
     "triad": "repro_torch.kernels.triad.ops",
     "jacobi": "repro_torch.kernels.jacobi.ops",
     "lbm": "repro_torch.kernels.lbm.ops",
+    "rmsnorm": "repro_torch.kernels.rmsnorm.ops",
 }
 
 

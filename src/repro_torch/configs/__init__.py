@@ -1,0 +1,69 @@
+"""Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
+
+Counterpart of ``repro.configs``.  The port carries the configurations of
+the dense family it runs, as data (``qwen3-4b``, ``qwen2-0.5b``); every
+other architecture of the reference's pool is known by name and family and
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig, require_ported
+
+_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+    "qwen2-0.5b": "qwen2_0p5b",
+}
+
+# architectures of the reference's pool not ported yet, by family
+_UNPORTED = {
+    "zamba2-1.2b": "hybrid",
+    "minicpm-2b": "dense",
+    "qwen3-14b": "dense",
+    "pixtral-12b": "vlm",
+    "xlstm-1.3b": "ssm",
+    "grok-1-314b": "moe",
+    "qwen3-moe-30b-a3b": "moe",
+    "whisper-tiny": "encdec",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in _UNPORTED:
+        require_ported(_UNPORTED[name], name)
+        raise NotImplementedError(
+            f"{name}: its configuration is not carried into the port yet "
+            f"(ported: {sorted(_MODULES)})")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted([*_MODULES, *_UNPORTED])}")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").CONFIG
+
+
+def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
+    """Same family/block structure, laptop-sized dims: the reference's
+    reduced shapes (``repro.configs.reduce_for_smoke``)."""
+    require_ported(cfg.family, cfg.name)
+    heads = min(cfg.n_heads, 4)
+    kv = max(1, min(cfg.n_kv_heads, heads))
+    kw: dict = dict(
+        n_layers=min(cfg.n_layers, 4),
+        d_model=128,
+        n_heads=heads,
+        n_kv_heads=kv,
+        d_ff=min(cfg.d_ff, 256) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        dtype="float32",
+        remat=False,
+        fsdp=False,
+    )
+    if cfg.head_dim:
+        kw["head_dim"] = 32
+    if cfg.vocab_logical:
+        kw["vocab_logical"] = 0
+    return dataclasses.replace(cfg, **kw)

@@ -33,6 +33,7 @@ VEC_BYTES = 16       # widest per-thread vector load/store
 LINE_BYTES = 128     # L2 <-> device-memory line
 CTAS_PER_SM = 4      # grid target: at least this many CTAs per SM
 CTA_THREADS = 256    # threads per CTA of every kernel (kThreads, csrc/common.cuh)
+ROW_UNIT = 1         # rows pad to no tile: Hopper has no sublane tile
 
 # Data-sheet defaults for an H100 SXM, used when no CUDA device is present.
 H100_SMEM_PER_CTA = 232_448   # 227 KiB opt-in shared memory per block

@@ -2,9 +2,10 @@
 
 The JAX package and the port meet only through numpy: ``to_torch`` turns a
 numpy array (a JAX array's ``np.asarray``) into a port tensor on a given
-device and dtype, and ``plan_from_dict`` turns a reference ``KernelPlan``'s
+device and dtype, ``plan_from_dict`` turns a reference ``KernelPlan``'s
 fields (``dataclasses.asdict``) into a port plan, so a test can pin the
-same geometry on both sides.
+same geometry on both sides, and ``params_from_jax`` turns a reference
+model's parameter tree (as numpy arrays) into the port's.
 
 numpy has no bf16 of its own: a bf16 array (``ml_dtypes.bfloat16``, as JAX
 returns it) goes through float32, which holds every bf16 value exactly, and
@@ -72,3 +73,38 @@ def plan_from_dict(fields: Mapping[str, Any]) -> KernelPlan:
         minor_unit=math.gcd(padded[-1], vector_unit(itemsize(name))),
         provenance=f"reference:{fields.get('provenance', 'analytic')}",
     )
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
+                    dtype=None) -> dict:
+    """The port's parameter tree for model config ``cfg`` holding the
+    reference's parameters ``tree`` (a nested dict of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``), on ``device`` (CUDA unless
+    named), converted to ``dtype`` when given.
+
+    The two trees share names and shapes leaf for leaf (stacked stages
+    included); every reference leaf must land exactly once, with its shape
+    unchanged, or this raises naming the leaves that do not."""
+    from repro_torch.models import transformer
+    from repro_torch.models.params import leaves
+
+    device = resolve_device(device)
+    want = dict(leaves(transformer.param_defs(cfg)))
+    got = dict(leaves(tree))
+    missing = sorted("/".join(p) for p in want.keys() - got.keys())
+    extra = sorted("/".join(p) for p in got.keys() - want.keys())
+    if missing or extra:
+        raise ValueError(f"parameter trees differ: missing {missing}, "
+                         f"not in the port {extra}")
+    bad = [f"{'/'.join(p)} {np.shape(got[p])} != {d.shape}"
+           for p, d in want.items() if tuple(np.shape(got[p])) != d.shape]
+    if bad:
+        raise ValueError(f"parameter shapes differ: {bad}")
+    out: dict = {}
+    for path, d in want.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_torch(got[path], device=device,
+                                  dtype=dtype or d.dtype)
+    return out

@@ -1,0 +1,422 @@
+"""Shared transformer building blocks: norms, RoPE, GQA attention, MLP.
+
+Counterpart of ``repro.models.blocks``: plain functions over dicts of
+tensors described by ``ParamDef``s.  Softmax and norm statistics are
+computed in fp32 whatever the activation dtype.  RMSNorm launches the
+registered kernel (``api.launch("rmsnorm")``, the hand-written CUDA kernel
+on the card); attention and the projections are plain PyTorch, as the JAX
+package leaves them to XLA.  The reference's activation-sharding
+annotations (``parallel.rules.shard``) have no counterpart until the SPMD
+slice (ROADMAP A11).
+
+Two decisions of the port, for its bit-exact serving contracts:
+
+  * **The KV caches are written in place.**  ``_cache_put`` and
+    ``_paged_put`` write the new position into the cache tensor they are
+    given (the reference returns a new array), so a decode step moves one
+    position per row and layer instead of copying the cache.  A row whose
+    ``act`` is 0 writes back what it found (dense) or writes into the null
+    page (paged), so a frozen row's state is bit-identical to not having
+    stepped -- what the reference gets by restoring after the step.
+  * **One layout into the attention products.**  Every KV view reaches the
+    products as a contiguous (B, KH, S, D) tensor (a no-op for the default
+    ``bhsd`` slab, a copy for ``bshd`` and for the page gather), so the
+    dense slab, the other layout and the paged pool run the same GEMMs on
+    the same bytes and give bit-identical token streams.
+
+Out-of-range dense writes are clamped to the last position, as the
+reference's ``dynamic_update_slice`` clamps them (idle slots keep stepping).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.api import dispatch
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import ParamDef
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def norm_defs(cfg: ModelConfig, d: int | None = None) -> dict:
+    d = d or cfg.d_model
+    out = {"scale": ParamDef((d,), (None,), init="ones", dtype=cfg.adtype)}
+    if cfg.norm == "layernorm":
+        out["bias"] = ParamDef((d,), (None,), init="zeros", dtype=cfg.adtype)
+    return out
+
+
+def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm through the registered kernel (the port is single-device,
+    where the reference always launches it too); LayerNorm stays plain."""
+    if cfg.norm == "layernorm":
+        xf = x.to(torch.float32)
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+        return y.to(x.dtype)
+    return dispatch.launch("rmsnorm", x, p["scale"], eps=cfg.norm_eps)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Per-head RMSNorm over the last (head_dim) axis (qwen3 qk_norm)."""
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Llama-style rotary embedding. x: (..., S, H, D), positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # theta as a device fill, not a host tensor: a host-to-device copy
+    # would synchronise the stream at every layer
+    freqs = torch.exp(-torch.log(torch.full((), theta, **f32))
+                      * torch.arange(0, half, **f32) / half)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional qk-norm / bias / softcap / cross)
+# ---------------------------------------------------------------------------
+
+
+def attention_defs(cfg: ModelConfig) -> dict:
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dt = cfg.adtype
+    defs = {
+        "wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim"), dtype=dt),
+        "wk": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
+        "wv": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
+        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed"), dtype=dt),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((h, hd), ("heads", "head_dim"), init="zeros", dtype=dt)
+        for name in ("bk", "bv"):
+            defs[name] = ParamDef((kh, hd), ("kv_heads", "head_dim"),
+                                  init="zeros", dtype=dt)
+    if cfg.qk_norm:
+        defs["q_norm"] = ParamDef((hd,), (None,), init="ones", dtype=dt)
+        defs["k_norm"] = ParamDef((hd,), (None,), init="ones", dtype=dt)
+    return defs
+
+
+def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
+                 cfg: ModelConfig):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x_kv, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x_kv, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    return q, k, v
+
+
+def _heads_major(kv: torch.Tensor) -> torch.Tensor:
+    """(B, S, KH, D) -> contiguous (B, KH, S, D), the one layout the
+    attention products take (a view of a ``bhsd`` slab needs no copy)."""
+    return kv.transpose(1, 2).contiguous()
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """q: (B,Sq,H,D), k: (B,Sk,KH,D) -> scores (B,KH,G,Sq,Sk) in fp32."""
+    b, sq, h, dhd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qg = q.reshape(b, sq, kh, g, dhd).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(b, kh, g * sq, dhd)
+    scores = torch.matmul(qg, _heads_major(k).transpose(-1, -2))
+    scores = scores.reshape(b, kh, g, sq, -1).to(torch.float32)
+    scores = scores / math.sqrt(dhd)
+    if cfg.attn_softcap:
+        cap = cfg.attn_softcap
+        scores = cap * torch.tanh(scores / cap)
+    return scores
+
+
+def _gqa_out(probs: torch.Tensor, v: torch.Tensor, p: dict,
+             dtype: torch.dtype) -> torch.Tensor:
+    """probs: (B,KH,G,Sq,Sk), v: (B,Sk,KH,D) -> (B,Sq,d_model)."""
+    b, kh, g, sq, sk = probs.shape
+    ctx = torch.matmul(probs.to(v.dtype).reshape(b, kh, g * sq, sk),
+                       _heads_major(v))                      # (B,KH,G*Sq,D)
+    dhd = ctx.shape[-1]
+    ctx = ctx.reshape(b, kh, g, sq, dhd).permute(0, 3, 1, 2, 4)
+    ctx = ctx.reshape(b, sq, kh * g, dhd)
+    out = torch.einsum("bqhd,hdm->bqm", ctx, p["wo"])
+    return out.to(dtype)
+
+
+ATTN_BLOCK = 512  # KV tile length for the chunked (online-softmax) path
+
+
+def _chunked_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cfg: ModelConfig, q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                 causal: bool, block: int = ATTN_BLOCK) -> torch.Tensor:
+    """Flash-style attention: a loop over KV tiles with running (m, l, acc).
+
+    Never materializes (Sq, Sk) scores; the working set is one
+    (B, KH, G, Sq, block) tile (the reference's ``lax.scan`` body)."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    sk = k.shape[1]
+    pad = (-sk) % block
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    nk = (sk + pad) // block
+    qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).to(torch.float32)
+    qg = qg / math.sqrt(d)
+    kb = k.reshape(b, nk, block, kh, d).permute(1, 0, 3, 2, 4)  # (nk,B,KH,L,D)
+    vb = v.reshape(b, nk, block, kh, d).permute(1, 0, 3, 2, 4)
+    pb = kv_pos.reshape(b, nk, block).permute(1, 0, 2)          # (nk,B,L)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    m = torch.full((b, kh, g, sq), NEG_INF, **f32)
+    l = torch.zeros((b, kh, g, sq), **f32)
+    acc = torch.zeros((b, kh, g, sq, d), **f32)
+    for i in range(nk):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kb[i].to(torch.float32))
+        if cfg.attn_softcap:
+            cap = cfg.attn_softcap
+            s = cap * torch.tanh(s / cap)
+        pt = pb[i]
+        valid = (pt >= 0)[:, None, None, None, :]
+        if causal:
+            valid = valid & (q_pos[:, None, None, :, None]
+                             >= pt[:, None, None, None, :])
+        s = torch.where(valid, s, NEG_INF)
+        mn = torch.maximum(m, s.amax(-1))
+        pmat = torch.where(s <= -1e29, 0.0, torch.exp(s - mn[..., None]))
+        alpha = torch.exp(m - mn)
+        l = l * alpha + pmat.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", pmat, vb[i].to(torch.float32))
+        m = mn
+    out = acc / torch.clamp(l, min=1e-9)[..., None]              # (B,KH,G,Sq,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d)
+
+
+def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, causal: bool = True,
+              x_kv: torch.Tensor | None = None,
+              kv_positions: torch.Tensor | None = None,
+              use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence attention (prefill / encoder / cross)."""
+    cross = x_kv is not None
+    x_kv = x if x_kv is None else x_kv
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(p, x, x_kv, cfg)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
+    if k.shape[1] > ATTN_BLOCK:  # chunked path: anything beyond one tile
+        ctx = _chunked_gqa(q, k, v, cfg, positions, kv_positions,
+                           causal and not cross)
+        return torch.einsum("bqhd,hdm->bqm", ctx.to(x.dtype), p["wo"])
+    scores = _gqa_scores(q, k, cfg)
+    if causal and not cross:
+        mask = positions[:, None, :, None] >= kv_positions[:, None, None, :]
+        scores = torch.where(mask[:, :, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, v, p, x.dtype)
+
+
+# ---- decode with KV cache -------------------------------------------------
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n: int) -> dict:
+    """Stacked (n-layer) KV cache in the configured layout."""
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    if cfg.kv_cache_layout == "bhsd":
+        shape = (n, batch, kh, max_len, hd)
+        axes = ("layers", "batch", "kv_heads", "cache_seq", None)
+    else:  # bshd
+        shape = (n, batch, max_len, kh, hd)
+        axes = ("layers", "batch", "cache_seq", "kv_heads", None)
+    return {
+        "k": ParamDef(shape, axes, init="zeros", dtype=cfg.adtype),
+        "v": ParamDef(shape, axes, init="zeros", dtype=cfg.adtype),
+    }
+
+
+def _rows_idx(idx: torch.Tensor, b: int) -> torch.Tensor:
+    return torch.as_tensor(idx, dtype=torch.int64).expand(b)
+
+
+def _cache_put(cache_kv: torch.Tensor, new: torch.Tensor, idx: torch.Tensor,
+               layout: str, act: torch.Tensor | None = None) -> torch.Tensor:
+    """Write (B, 1, KH, D) into one layer's cache at per-row position
+    ``idx`` (B,), in place; returns the cache.  ``act`` (B,) masks rows: an
+    inactive row writes back what the cache held there."""
+    b = new.shape[0]
+    seq = cache_kv.shape[2] if layout == "bhsd" else cache_kv.shape[1]
+    pos = _rows_idx(idx, b).clamp(0, seq - 1)
+    rows = torch.arange(b, device=cache_kv.device)
+    val = new[:, 0]                                       # (B, KH, D)
+    if layout == "bhsd":
+        if act is not None:
+            val = torch.where(act[:, None, None] > 0, val, cache_kv[rows, :, pos])
+        cache_kv[rows, :, pos] = val
+    else:
+        if act is not None:
+            val = torch.where(act[:, None, None] > 0, val, cache_kv[rows, pos])
+        cache_kv[rows, pos] = val
+    return cache_kv
+
+
+def _cache_kv_view(cache_kv: torch.Tensor, layout: str) -> torch.Tensor:
+    """Return the (B, S, KH, D) view of one layer's cache."""
+    if layout == "bhsd":
+        return cache_kv.transpose(1, 2)
+    return cache_kv
+
+
+def _decode_attend(p, q, kv_k, kv_v, idx, cfg, dtype):
+    scores = _gqa_scores(q, kv_k, cfg)                     # (B,KH,G,1,S)
+    s = kv_k.shape[1]
+    valid = (torch.arange(s, device=q.device)[None, :]
+             <= idx[:, None])[:, None, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return _gqa_out(probs, kv_v, p, dtype)
+
+
+def _decode_qkv(p, x, idx, cfg, use_rope):
+    q, k, v = _project_qkv(p, x, x, cfg)
+    if use_rope:
+        pos = idx[:, None]
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, idx: torch.Tensor,
+                     cfg: ModelConfig, *, act: torch.Tensor | None = None,
+                     use_rope: bool = True):
+    """One-token decode step.  x: (B, 1, d); idx per-slot (B,) (or a scalar).
+    Writes the caches in place; returns (out, cache_k, cache_v)."""
+    idx = _rows_idx(idx, x.shape[0])
+    layout = cfg.kv_cache_layout
+    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope)
+    _cache_put(cache_k, k, idx, layout, act)
+    _cache_put(cache_v, v, idx, layout, act)
+    out = _decode_attend(p, q, _cache_kv_view(cache_k, layout),
+                         _cache_kv_view(cache_v, layout), idx, cfg, x.dtype)
+    return out, cache_k, cache_v
+
+
+# ---- paged KV cache (serving) ---------------------------------------------
+#
+# The serving scheduler stores KV in a shared physical pool of fixed-size
+# pages: each batch row owns a page table mapping logical position p to
+# physical page table[p // P] at offset p % P (core.segmented.PageGeometry).
+# Page 0 is the reserved null page: empty table rows point at it and masked
+# writes land in it, so a scatter over a partially occupied batch never
+# touches live data.  Rows writing the null page in one step may collide;
+# which value lands there is undefined, and the null page is only ever read
+# at positions the validity mask drops.
+
+
+def paged_kv_pool_defs(cfg: ModelConfig, n_pages: int, page_len: int,
+                       n: int) -> dict:
+    """Stacked (n-layer) paged KV pool of (page_len, KH, D) pages shared by
+    all slots; there is no batch axis -- placement is the page table's job."""
+    shape = (n, n_pages, page_len, cfg.n_kv_heads, cfg.hd)
+    axes = ("layers", None, None, "kv_heads", None)
+    return {
+        "k": ParamDef(shape, axes, init="zeros", dtype=cfg.adtype),
+        "v": ParamDef(shape, axes, init="zeros", dtype=cfg.adtype),
+    }
+
+
+def _paged_put(pool: torch.Tensor, new: torch.Tensor, pages: torch.Tensor,
+               idx: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+    """Write (B, 1, KH, D) at per-row logical position ``idx`` through the
+    page table, in place; inactive rows (``act`` 0) write the null page."""
+    p = pool.shape[1]
+    b = new.shape[0]
+    idx = _rows_idx(idx, b)
+    lp = torch.clamp(idx // p, 0, pages.shape[1] - 1)
+    phys = torch.gather(pages, 1, lp[:, None].to(torch.int64))[:, 0]
+    live = act > 0
+    phys = torch.where(live, phys, 0).to(torch.int64)
+    off = torch.where(live, idx % p, 0)
+    pool[phys, off] = new[:, 0]
+    return pool
+
+
+def _paged_view(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """Gather (B, max_pages * page_len, KH, D): the bshd view of each row's
+    page table; unmapped entries read the null page (masked by the caller)."""
+    g = pool[pages.to(torch.int64)]                        # (B, MP, P, KH, D)
+    b, mp, p = g.shape[:3]
+    return g.reshape(b, mp * p, *g.shape[3:])
+
+
+def paged_decode_attention(p: dict, x: torch.Tensor, pool_k: torch.Tensor,
+                           pool_v: torch.Tensor, pages: torch.Tensor,
+                           idx: torch.Tensor, act: torch.Tensor,
+                           cfg: ModelConfig, *, use_rope: bool = True):
+    """One-token decode against the paged pool: same math as
+    ``decode_attention``, the write scattered through the page table and the
+    KV view gathered from it.  Returns (out, pool_k, pool_v)."""
+    idx = _rows_idx(idx, x.shape[0])
+    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope)
+    _paged_put(pool_k, k, pages, idx, act)
+    _paged_put(pool_v, v, pages, idx, act)
+    out = _decode_attend(p, q, _paged_view(pool_k, pages),
+                         _paged_view(pool_v, pages), idx, cfg, x.dtype)
+    return out, pool_k, pool_v
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = cfg.adtype
+    return {
+        "wi": ParamDef((d, f), ("embed", "mlp"), dtype=dt),
+        "wg": ParamDef((d, f), ("embed", "mlp"), dtype=dt),
+        "wo": ParamDef((f, d), ("mlp", "embed"), dtype=dt),
+    }
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = torch.matmul(x, p["wi"])
+    g = torch.matmul(x, p["wg"])
+    # jax.nn.gelu defaults to the tanh approximation
+    act = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
+    return torch.matmul(act * h, p["wo"])

@@ -1,0 +1,110 @@
+"""Model configuration: one dataclass covers the reference's whole pool.
+
+Counterpart of ``repro.models.config``.  ``ModelConfig`` carries the
+logical dimensions; ``adtype`` is a ``torch.dtype``.  The port runs the
+dense family (``stages()``); the other families raise
+``NotImplementedError`` naming the ROADMAP item that brings them, before
+any parameter is made.  The mesh-padding engine (``padded_for_mesh``) goes
+with the SPMD slice (ROADMAP A11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
+
+# The ROADMAP item that ports each family the port does not run yet.
+UNPORTED_FAMILIES = {
+    "moe": "ROADMAP A9 (moe.py)",
+    "hybrid": "ROADMAP A9 (mamba2.py)",
+    "ssm": "ROADMAP A9 (xlstm.py)",
+    "encdec": "ROADMAP A9 (encdec.py)",
+    "vlm": "ROADMAP A9 (prefix embeddings)",
+}
+
+
+def require_ported(family: str, name: str = "") -> None:
+    """Raise unless the port runs ``family``."""
+    if family in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{name or 'model'}: the {family} family is not ported yet; the "
+            f"port runs the dense family ({UNPORTED_FAMILIES[family]})")
+    if family != "dense":
+        raise ValueError(f"unknown model family {family!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int | None = None          # explicit; else d_model // n_heads
+    # attention options
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    attn_softcap: float | None = None
+    logit_softcap: float | None = None
+    kv_cache_layout: Literal["bhsd", "bshd"] = "bhsd"
+    # mlp
+    act: Literal["silu", "gelu"] = "silu"
+    # scaling tricks (minicpm mup-like)
+    tie_embeddings: bool = False
+    embed_scale: float = 1.0
+    residual_scale: float = 1.0
+    logit_scale: float = 1.0
+    # norm
+    norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
+    norm_eps: float = 1e-6
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    moe_groups: int = 1
+    skewed_experts: bool = True
+    # SSM / Mamba2 (zamba2)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    shared_attn_period: int = 0
+    # xLSTM
+    slstm_every: int = 0
+    # enc-dec (whisper)
+    n_enc_layers: int = 0
+    n_frames: int = 1500
+    # vlm (pixtral)
+    n_img_tokens: int = 0
+    # numerics
+    dtype: str = "bfloat16"
+    remat: bool = True
+    unroll: bool = False
+    vocab_logical: int = 0
+    # distribution hints (consumed by the SPMD slice)
+    fsdp: bool = False
+    expert_tp: bool = False
+    parallelism: str = "tp"
+
+    # ---- derived ---------------------------------------------------------
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def adtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def stages(self) -> list[tuple[str, int]]:
+        """Homogeneous layer runs, each one stacked stage."""
+        require_ported(self.family, self.name)
+        return [("dense", self.n_layers)]

@@ -1,0 +1,130 @@
+"""Parameter definition trees: one source of truth for shapes and init.
+
+Counterpart of ``repro.models.params``.  Every model builds a nested dict
+of ``ParamDef``s; from it come the materialized tensors (``init_params``)
+and the meta-device shapes (``abstract_params``, no allocation).  The
+logical axes stay on every definition: the serving scheduler reads each
+cache leaf's batch axis from them.
+
+Initialisation draws each leaf from its own ``torch.Generator``, seeded
+from the base seed and a CRC-32 of the leaf's path, so a leaf's values do
+not depend on the order of the tree or on the process.  PyTorch's and
+JAX's generators differ, so a seed gives other numbers than the reference;
+parity tests carry the weights across (``repro_torch.interop``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.kernels.util import resolve_device
+
+Tree = dict  # nested dict[str, ParamDef | Tree]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declarative parameter: shape + logical axes + init recipe."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]          # logical axis names, len == ndim
+    init: str = "normal"                  # normal | zeros | ones | embed
+    scale: float | None = None            # stddev override (normal/embed)
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+    @property
+    def fan_in(self) -> int:
+        return self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+
+    def materialize(self, gen: torch.Generator,
+                    device: torch.device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=self.dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=self.dtype, device=device)
+        if self.init == "neg_inf":
+            return torch.full(self.shape, -1e30, dtype=self.dtype,
+                              device=device)
+        std = self.scale
+        if std is None:
+            std = 0.02 if self.init == "embed" else 1.0 / math.sqrt(self.fan_in)
+        x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return x.mul_(std).to(self.dtype)
+
+    def abstract(self) -> torch.Tensor:
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def is_def(x: Any) -> bool:
+    return isinstance(x, ParamDef)
+
+
+def map_tree(fn: Callable[[ParamDef], Any], tree: Tree) -> Tree:
+    """Map a function over every ParamDef in a nested dict."""
+    return {k: fn(v) if is_def(v) else map_tree(fn, v)
+            for k, v in tree.items()}
+
+
+def path_seed(seed: int, path: tuple[str, ...]) -> int:
+    """The generator seed of the leaf at ``path``: stable across processes
+    (CRC-32, not Python's salted ``hash``)."""
+    return (int(seed) * 1_000_003 + zlib.crc32("/".join(path).encode())) \
+        & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def init_params(seed: int, tree: Tree, *, device=None) -> Tree:
+    """Materialize every ParamDef on ``device`` (CUDA unless named), each
+    leaf from a generator seeded by ``path_seed(seed, path)``."""
+    dev = resolve_device(device)
+
+    def rec(t: Tree, path: tuple[str, ...]) -> Tree:
+        out = {}
+        for k, v in t.items():
+            p = path + (k,)
+            if is_def(v):
+                gen = torch.Generator(device=dev).manual_seed(path_seed(seed, p))
+                out[k] = v.materialize(gen, dev)
+            else:
+                out[k] = rec(v, p)
+        return out
+
+    return rec(tree, ())
+
+
+def abstract_params(tree: Tree) -> Tree:
+    return map_tree(lambda d: d.abstract(), tree)
+
+
+def stack_defs(tree: Tree, n: int, axis_name: str | None = "layers") -> Tree:
+    """Prepend a stacked-layer dimension to every ParamDef."""
+    return map_tree(
+        lambda d: dataclasses.replace(
+            d, shape=(n, *d.shape), axes=(axis_name, *d.axes)),
+        tree,
+    )
+
+
+def leaves(tree: Tree, path: tuple[str, ...] = ()):
+    """``(path, leaf)`` for every leaf of a nested dict, in key order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def map_leaves(fn: Callable, *trees: Tree) -> Tree:
+    """``fn`` over the corresponding leaves of trees of one structure."""
+    first = trees[0]
+    return {k: (map_leaves(fn, *(t[k] for t in trees))
+                if isinstance(first[k], dict) else fn(*(t[k] for t in trees)))
+            for k in first}

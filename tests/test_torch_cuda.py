@@ -12,7 +12,11 @@ rtol 1e-5 / atol 1e-6, bf16 2e-2, as tests/test_kernels.py) only allows for
 a compiler contracting them into an FMA.  The LBM collision and its plain
 version do the same rounded operations in the same order in fp32 and round
 once to the array dtype, so they must agree bit for bit at both dtypes, on
-the logical sites (a padded site's velocity is NaN by design).
+the logical sites (a padded site's velocity is NaN by design).  The RMSNorm
+kernels sum the squares in another order than their plain versions, so they
+are held to the tolerance (fp32 rtol 1e-5 / atol 1e-6, bf16 2e-2), not bit
+for bit.  The reduced serving run holds the paged stream to the dense one
+bit for bit (same tokens).
 """
 import dataclasses
 
@@ -24,7 +28,11 @@ from repro_torch.kernels.jacobi import kernel as jkernel
 from repro_torch.core.layout import round_up
 from repro_torch.core.segmented import SegmentedArray
 from repro_torch.kernels.jacobi import ops as jops
+from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels.lbm import kernel as lkernel
+from repro_torch.kernels.rmsnorm import kernel as rkernel
+from repro_torch.models import build_model
+from repro_torch.serving import ContinuousBatcher, Request
 from repro_torch.kernels.lbm import ops as lops
 from repro_torch.kernels.stream import kernel as skernel
 from repro_torch.kernels.stream import ops as sops
@@ -179,3 +187,74 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         lkernel.collide_soa(lat, 1.0, out=lat)
     with pytest.raises(TypeError):
         lkernel.collide_soa(lat.half(), 1.0)
+
+
+@pytest.mark.parametrize("width", [96, 2304, 2561, 40_000])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernels_match_plain(width, gated, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(width)
+    x, z = (torch.randn(3, 5, width, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = (torch.randn(width, generator=gen, device="cuda") + 1).to(dtype)
+    name = "rmsnorm.gated" if gated else "rmsnorm"
+    args = (x, z, scale) if gated else (x, scale)
+    variant = "gated" if gated else "plain"
+    before = rkernel.LAUNCHES[variant]
+    got = api.launch(name, *args)
+    assert rkernel.LAUNCHES[variant] == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    torch.testing.assert_close(got, api.ref(name, *args), **tol(dtype))
+    # the kernel on the padded block against its plain version there
+    plan = api.plan_for(name, (15, width), dtype)
+    pad = [torch.nn.functional.pad(t.reshape(15, width),
+                                   (0, plan.width - width)) for t in (x, z)]
+    sp = torch.nn.functional.pad(scale, (0, plan.width - width))
+    if gated:
+        got = rkernel.gated_rmsnorm2d(*pad, sp, d_logical=width)
+        want = rkernel.plain(pad[0], sp, width, 1e-6, pad[1])
+    else:
+        got = rkernel.rmsnorm2d(pad[0], sp, d_logical=width)
+        want = rkernel.plain(pad[0], sp, width, 1e-6)
+    torch.testing.assert_close(got, want, **tol(dtype))
+
+
+def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(4, 256, device="cuda")
+    s = torch.ones(256, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        rkernel.rmsnorm2d(torch.zeros(256, 4, device="cuda").T, s,
+                          d_logical=256)
+    with pytest.raises(ValueError, match="scale"):
+        rkernel.rmsnorm2d(x, s.cpu(), d_logical=256)
+    with pytest.raises(ValueError, match="gate"):
+        rkernel.gated_rmsnorm2d(x, x.cpu(), s, d_logical=256)
+    with pytest.raises(ValueError, match="gate"):
+        rkernel.gated_rmsnorm2d(x, torch.zeros(256, 8, device="cuda").T, s,
+                                d_logical=256)
+    with pytest.raises(TypeError):
+        rkernel.rmsnorm2d(x.half(), s.half(), d_logical=256)
+    with pytest.raises(ValueError, match="16-B"):
+        rkernel.rmsnorm2d(torch.zeros(4, 6, device="cuda"),
+                          torch.ones(6, device="cuda"), d_logical=6)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b"])
+def test_reduced_serving_paged_equals_dense(arch):
+    # the reduced configs run in fp32: full-precision matmuls (the default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(reduce_for_smoke(get_config(arch)))
+    params = model.init(0)
+    rng = torch.Generator().manual_seed(0)
+    reqs = [(torch.randint(1, model.cfg.vocab_size, (3 + 5 * i,),
+                           generator=rng).tolist(), 4 + 3 * i)
+            for i in range(5)]
+    before = rkernel.LAUNCHES["plain"]
+    out = {}
+    for kv in ("dense", "paged"):
+        b = ContinuousBatcher(model, params, slots=2, max_len=48,
+                              kv_cache=kv, prefill_chunk=4)
+        out[kv] = b.run([Request(i, p, n) for i, (p, n) in enumerate(reqs)])
+        assert sorted(out[kv]) == list(range(5))
+    assert out["paged"] == out["dense"]
+    assert rkernel.LAUNCHES["plain"] > before

@@ -1,0 +1,238 @@
+"""The port's dense model stack against the JAX package, on the CPU.
+
+Reduced qwen3-4b (qk-norm, untied head) and qwen2-0.5b (QKV bias, tied
+embeddings, GQA) -- ``reduce_for_smoke`` on both sides, fp32.  The weights
+are made once with numpy from a seed and carried into both packages
+(``interop.params_from_jax`` for the port), since the two frameworks'
+generators differ.  Every leaf is drawn at random, biases and norm scales
+included, so each parameter reaches the logits.  Tolerance: fp32 rtol 1e-4 /
+atol 1e-5 on the logits; both sides compute in fp32 with other summation
+orders, and the RMSNorm runs as Pallas in interpret mode on the JAX side and
+as the kernel's plain version on the port's.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduce_for_smoke as jreduce
+from repro.models import blocks as jblocks
+from repro.models import build_model as jbuild_model
+from repro.models.params import init_params as jinit_params
+from repro.models.params import is_def as jis_def
+from repro_torch import interop
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.models import blocks, build_model
+from repro_torch.models.params import init_params, leaves
+
+ARCHS = ["qwen3-4b", "qwen2-0.5b"]
+LOGITS = dict(rtol=1e-4, atol=1e-5)
+
+
+def numpy_params(defs, seed):
+    """A numpy tree for a reference ParamDef tree: normal leaves at their
+    init std, ones as 1 + 0.1 noise, zeros as 0.02 noise."""
+    rng = np.random.default_rng(seed)
+
+    def rec(tree):
+        out = {}
+        for key in sorted(tree):
+            d = tree[key]
+            if not jis_def(d):
+                out[key] = rec(d)
+                continue
+            noise = rng.standard_normal(d.shape)
+            if d.init == "ones":
+                a = 1.0 + 0.1 * noise
+            elif d.init == "zeros":
+                a = 0.02 * noise
+            else:
+                std = d.scale or (0.02 if d.init == "embed"
+                                  else 1.0 / math.sqrt(d.fan_in))
+                a = std * noise
+            out[key] = a.astype(np.float32)
+        return out
+
+    return rec(defs)
+
+
+def pair(arch, seed=0, **changes):
+    """(jax model, jax params, port model, port params) for a reduced
+    ``arch`` with the same numpy weights."""
+    jcfg = dataclasses.replace(jreduce(jget_config(arch)), **changes)
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), **changes)
+    jmodel, model = jbuild_model(jcfg), build_model(cfg)
+    tree = numpy_params(jmodel.param_defs(), seed)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    return jmodel, jparams, model, interop.params_from_jax(tree, cfg,
+                                                           device="cpu")
+
+
+def to_np(t):
+    return interop.to_numpy(t)
+
+
+def test_reduced_configs_match_the_reference():
+    for arch in ARCHS:
+        jcfg, cfg = jreduce(jget_config(arch)), reduce_for_smoke(get_config(arch))
+        for f in dataclasses.fields(cfg):
+            want = getattr(jcfg, f.name)
+            assert getattr(cfg, f.name) == want, (arch, f.name)
+        assert cfg.adtype == torch.float32 and cfg.hd == jcfg.hd
+        assert cfg.stages() == jcfg.stages()
+    full = get_config("qwen3-4b")
+    assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+            full.hd, full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128,
+                                                     9728, 151936)
+    assert full.adtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b", "grok-1-314b",
+                                  "whisper-tiny", "pixtral-12b"])
+def test_unported_families_raise_before_any_work(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+    jcfg = jget_config(arch)
+    cfg = dataclasses.replace(
+        reduce_for_smoke(get_config("qwen2-0.5b")), family=jcfg.family)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_logits_match_reference(arch):
+    jmodel, jparams, model, params = pair(arch)
+    tokens = np.random.default_rng(1).integers(0, 512, size=(2, 12))
+    want, _ = jax.jit(jmodel.forward)(jparams, jnp.asarray(tokens, jnp.int32))
+    got, aux = model(params, torch.as_tensor(tokens))
+    assert got.shape == (2, 12, 512) and got.dtype == torch.float32
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **LOGITS)
+
+
+def test_chunked_attention_matches_reference():
+    """Past one 512-position tile, attention takes the online-softmax loop
+    (``_chunked_gqa``) on both sides.  The output sums terms as large as
+    its largest entries, so the absolute tolerance is scaled to them (fp32
+    cancellation leaves errors relative to that scale, not to each entry)."""
+    jmodel, jparams, model, params = pair("qwen2-0.5b")
+    s = blocks.ATTN_BLOCK + 9
+    x = np.random.default_rng(2).standard_normal((1, s, 128)).astype(np.float32)
+    pos = np.arange(s, dtype=np.int32)[None]
+    p = {k: v[0] for k, v in params["s00_dense"]["attn"].items()}
+    jp = jax.tree.map(lambda a: a[0], jparams["s00_dense"]["attn"])
+    got = blocks.attention(p, torch.as_tensor(x), model.cfg,
+                           positions=torch.as_tensor(pos))
+    want = jblocks.attention(jp, jnp.asarray(x), jmodel.cfg,
+                             positions=jnp.asarray(pos))
+    want = np.asarray(want)
+    np.testing.assert_allclose(to_np(got), want, rtol=1e-4,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def paged_caches(jmodel, model, batch, max_len, page_len):
+    """Paged caches of both packages with each row owning its own pages."""
+    mp = -(-max_len // page_len)
+    n_pages = 1 + batch * mp
+    jcache = jinit_params(jax.random.PRNGKey(0), jmodel.paged_cache_defs(
+        batch, max_len, n_pages, page_len))
+    cache = init_params(0, model.paged_cache_defs(batch, max_len, n_pages,
+                                                  page_len), device="cpu")
+    table = 1 + np.arange(batch * mp, dtype=np.int32).reshape(batch, mp)
+    jcache["pages"] = jnp.asarray(table)
+    cache["pages"] = torch.as_tensor(table)
+    return jcache, cache
+
+
+@pytest.mark.parametrize("arch,cache", [("qwen3-4b", "bhsd"),
+                                        ("qwen3-4b", "bshd"),
+                                        ("qwen3-4b", "paged"),
+                                        ("qwen2-0.5b", "bhsd"),
+                                        ("qwen2-0.5b", "paged")])
+def test_decode_step_logits_match_reference(arch, cache):
+    layout = "bshd" if cache == "bshd" else "bhsd"
+    jmodel, jparams, model, params = pair(arch, kv_cache_layout=layout)
+    batch, max_len = 2, 16
+    if cache == "paged":
+        jc, tc = paged_caches(jmodel, model, batch, max_len, page_len=4)
+    else:
+        jc = jinit_params(jax.random.PRNGKey(0),
+                          jmodel.cache_defs(batch, max_len))
+        tc = init_params(0, model.cache_defs(batch, max_len), device="cpu")
+    # rows at different depths: continuous batching's ragged co-residency
+    start = np.array([0, 3], np.int32)
+    jc["idx"], tc["idx"] = jnp.asarray(start), torch.as_tensor(start)
+    feed = np.random.default_rng(3).integers(0, 512, size=(6, batch, 1))
+    jstep = jax.jit(jmodel.decode_step)
+    for t, tok in enumerate(feed):
+        want, jc = jstep(jparams, jc, jnp.asarray(tok, jnp.int32))
+        got, tc = model.decode_step(params, tc, torch.as_tensor(tok))
+        np.testing.assert_allclose(to_np(got), np.asarray(want), **LOGITS,
+                                   err_msg=f"{arch} {cache} step {t}")
+        np.testing.assert_array_equal(to_np(tc["idx"]), np.asarray(jc["idx"]))
+
+
+def test_params_from_jax_maps_every_leaf_exactly_once():
+    jmodel, _, model, _ = pair("qwen2-0.5b")
+    tree = numpy_params(jmodel.param_defs(), 4)
+    params = interop.params_from_jax(tree, model.cfg, device="cpu")
+    ref_leaves = dict(leaves(tree))
+    port_leaves = dict(leaves(params))
+    assert ref_leaves.keys() == port_leaves.keys()
+    assert len(port_leaves) == len({id(t) for t in port_leaves.values()})
+    for path, arr in ref_leaves.items():
+        t = port_leaves[path]
+        assert tuple(t.shape) == arr.shape, path
+        np.testing.assert_array_equal(to_np(t), arr)
+    # a missing, an extra and a reshaped leaf are each refused
+    broken = numpy_params(jmodel.param_defs(), 4)
+    del broken["final_norm"]["scale"]
+    with pytest.raises(ValueError, match="missing"):
+        interop.params_from_jax(broken, model.cfg, device="cpu")
+    broken = numpy_params(jmodel.param_defs(), 4)
+    broken["lm_head"] = np.zeros((128, 512), np.float32)
+    with pytest.raises(ValueError, match="lm_head"):
+        interop.params_from_jax(broken, model.cfg, device="cpu")
+    broken = numpy_params(jmodel.param_defs(), 4)
+    broken["embed"] = broken["embed"][:, :64]
+    with pytest.raises(ValueError, match="embed"):
+        interop.params_from_jax(broken, model.cfg, device="cpu")
+    bf16 = interop.params_from_jax(tree, model.cfg, device="cpu",
+                                   dtype="bfloat16")
+    assert all(t.dtype == torch.bfloat16 for _, t in leaves(bf16))
+
+
+def test_init_is_seeded_and_stable_across_processes():
+    """The port's init draws each leaf from a generator seeded by a CRC-32
+    of its path, so it does not depend on Python's salted str hash (the
+    reference's ``init_params`` folds ``hash(path)`` into its key)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    model = build_model(reduce_for_smoke(get_config("qwen3-4b")))
+    a = model.init(7, device="cpu")
+    b = model.init(7, device="cpu")
+    c = model.init(8, device="cpu")
+    for (path, x), (_, y), (_, z) in zip(leaves(a), leaves(b), leaves(c)):
+        assert torch.equal(x, y), path
+        if path[-1] in ("wq", "embed"):
+            assert not torch.equal(x, z), path
+    code = ("from repro_torch.configs import get_config, reduce_for_smoke\n"
+            "from repro_torch.models import build_model\n"
+            "p = build_model(reduce_for_smoke(get_config('qwen3-4b')))"
+            ".init(7, device='cpu')\n"
+            "print(float(p['embed'].double().sum()))\n")
+    root = Path(__file__).resolve().parents[1]
+    sums = {subprocess.run([sys.executable, "-c", code], check=True,
+                           capture_output=True, text=True, timeout=120,
+                           env={**os.environ, "PYTHONPATH": str(root / "src"),
+                                "PYTHONHASHSEED": seed}).stdout
+            for seed in ("1", "2")}
+    assert sums == {f"{float(a['embed'].double().sum())}\n"}

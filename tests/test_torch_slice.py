@@ -76,7 +76,8 @@ def test_every_ported_kernel_matches_reference():
     calls = {"stream.copy": (1, {}), "stream.scale": (1, {"s": 2.5}),
              "stream.add": (2, {}), "stream.triad": (2, {"s": 2.5}),
              "triad": (3, {})}
-    assert sorted([*calls, "jacobi", "lbm.soa", "lbm.ivjk"]) == api.list_kernels()
+    assert sorted([*calls, "jacobi", "lbm.soa", "lbm.ivjk", "rmsnorm",
+                   "rmsnorm.gated"]) == api.list_kernels()
     for name, (arity, kw) in calls.items():
         np.testing.assert_allclose(
             interop.to_numpy(api.launch(name, *t[:arity], **kw)),
@@ -86,6 +87,20 @@ def test_every_ported_kernel_matches_reference():
         interop.to_numpy(jops.jacobi_sweeps(interop.to_torch(grid, device="cpu"),
                                             5)),
         np.asarray(jjops.jacobi_sweeps(jnp.asarray(grid), 5)), **FP32)
+    x, z = (rng.standard_normal((3, 7, 96)).astype(np.float32)
+            for _ in range(2))
+    scale = rng.standard_normal(96).astype(np.float32) + 1
+    np.testing.assert_allclose(
+        interop.to_numpy(api.launch("rmsnorm", *(interop.to_torch(a, device="cpu")
+                                                 for a in (x, scale)))),
+        np.asarray(japi.launch("rmsnorm", jnp.asarray(x), jnp.asarray(scale))),
+        **FP32)
+    np.testing.assert_allclose(
+        interop.to_numpy(api.launch("rmsnorm.gated",
+                                    *(interop.to_torch(a, device="cpu")
+                                      for a in (x, z, scale)))),
+        np.asarray(japi.launch("rmsnorm.gated", jnp.asarray(x), jnp.asarray(z),
+                               jnp.asarray(scale))), **FP32)
     lattice = np.asarray(jlops.init_equilibrium(10, jnp.float32))
     for layout in ("soa", "ivjk"):
         np.testing.assert_allclose(
