@@ -28,6 +28,20 @@ Phases, each fatal on failure:
      ``make_prefill_step`` forward at B = 4, S = 512 (rmsnorm on 2048 x
      2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``,
      the gated kernel's only entry point, runs at (2048, 4096);
+  3c. training at full Qwen2-0.5B width (24 layers, d_model 896, 14/2
+     heads, d_ff 4864, vocab 151936, tied embeddings, QKV bias; bf16 with
+     an fp32 master, remat on, seeded weights, one card): first the
+     reduced fp32 model's loss and every gradient leaf on the card against
+     the CPU, and the full model's first backward (every leaf finite and
+     nonzero somewhere); then ``Trainer`` runs 8 AdamW steps on
+     ``DataConfig(151936, seq_len 512, batch 8)`` (4096 tokens a step,
+     cosine schedule, peak 3e-4, warmup 2) with a checkpoint every 4 steps
+     (keep 1) under build/, fatal unless every loss is finite, the last is
+     below the first, the cross-entropy kernel ran once a step and RMSNorm
+     at least 49 times; a fresh ``Trainer`` restores step 4, whose state
+     must equal the one saved bit for bit, and replays steps 4-7: step 4's
+     loss must equal the uninterrupted run's bit for bit, later ones to a
+     stated tolerance.  The checkpoints are deleted at the end;
   4. each kernel against its plain PyTorch version on the same inputs at
      the main path's shapes, with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
@@ -38,7 +52,10 @@ Phases, each fatal on failure:
 
 A ``serve:`` line gives requests, generated tokens, seconds, tokens/s,
 ticks, preemptions and the page size, and a ``profile:`` line where the
-device time of one decode tick goes.
+device time of one decode tick goes; ``train:`` lines the loss at each
+step, ms a step (median of steps 1-7), tokens/s and the peak of
+``torch.cuda.max_memory_allocated``, and a ``profile:`` line one train
+step.
 
 The last three lines are the card's name and power limit as nvidia-smi
 reports them, the ``kernels`` JSON object and
@@ -47,6 +64,7 @@ reports them, the ``kernels`` JSON object and
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -74,6 +92,16 @@ SERVE_PROMPT, SERVE_GEN = (32, 256), (16, 64)
 PREFILL_B, PREFILL_S = 4, 512
 GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
 SEED = 0
+# training at full Qwen2-0.5B width
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 512, 8, 8, 4
+TRAIN_PEAK, TRAIN_WARMUP = 3e-4, 2
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+# a replayed step after the first: a backward that sums with atomics may
+# change the last bits of a gradient, and a bf16 weight whose fp32 master
+# crosses a rounding boundary then moves by one bf16 ulp
+REPLAY_RTOL = 1e-3
+XENT_RAGGED = (1000, 32_008, 32_000)   # (tokens, width, logical vocab) bf16
 
 # Data-sheet rates (NVIDIA H100/H200 data sheets): device-memory bytes/s and
 # fp32 operations/s outside the tensor cores.  Matched on the card's name.
@@ -97,11 +125,14 @@ KERNELS = {
     "lbm.ivjk": ("lbm.cu", "src/repro/kernels/lbm/kernel.py:57"),
     "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:29"),
     "rmsnorm.gated": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:34"),
+    "xent": ("xent.cu", "src/repro/kernels/xent/kernel.py:25"),
 }
 NO_LIBRARY = {"lbm.soa": "no single PyTorch call computes a BGK collision",
               "lbm.ivjk": "no single PyTorch call computes a BGK collision",
               "rmsnorm.gated": "no single PyTorch call gates x by silu(z) "
-                               "before an RMSNorm"}
+                               "before an RMSNorm",
+              "xent.ragged": "F.cross_entropy does not mask padded vocab "
+                             "columns"}
 
 
 def fail(msg: str) -> None:
@@ -194,8 +225,10 @@ def device_profile(label: str, fn, top: int = 6) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: e.device_time_total, reverse=True)
     busy = sum(e.device_time_total for e in rows) / 1e3
-    print(f"profile: {label}: {start.elapsed_time(end):.3f} ms, device "
-          f"kernels {busy:.3f} ms in {sum(e.count for e in rows)} launches; "
+    wall = start.elapsed_time(end)
+    print(f"profile: {label}: {wall:.3f} ms, device kernels {busy:.3f} ms "
+          f"(busy {busy / wall:.1%}) in {sum(e.count for e in rows)} "
+          f"launches; "
           + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms "
                       f"x{e.count}" for e in rows[:top]))
 
@@ -354,6 +387,231 @@ def serving_phase() -> dict[str, int]:
     return counts
 
 
+def numpy_weights(model, seed: int) -> dict:
+    """A numpy tree for the model's parameter definitions, made from
+    ``seed``: normal leaves at their init std, ones as 1 + 0.1 noise, zeros
+    as 0.02 noise, so every bias and norm scale reaches the loss."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def rec(tree):
+        out = {}
+        for key in sorted(tree):
+            d = tree[key]
+            if isinstance(d, dict):
+                out[key] = rec(d)
+                continue
+            noise = rng.standard_normal(d.shape)
+            if d.init == "ones":
+                a = 1.0 + 0.1 * noise
+            elif d.init == "zeros":
+                a = 0.02 * noise
+            else:
+                std = d.scale or (0.02 if d.init == "embed"
+                                  else 1.0 / math.sqrt(d.fan_in))
+                a = std * noise
+            out[key] = a.astype(np.float32)
+        return out
+
+    return rec(model.param_defs())
+
+
+def training_phase() -> dict[str, int]:
+    """Phase 3c: training at full Qwen2-0.5B width, with a checkpoint round
+    trip.  Each kernel counter is zeroed just before a training run and
+    read just after; returns the launches of each kernel over the runs."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config, get_schedule, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.xent import kernel as xent_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.params import leaves, map_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import make_schedule
+    from repro_torch.parallel import steps
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    cfg = get_config(TRAIN_ARCH)
+
+    # the reduced fp32 model: the card (B9/B11 under their autograd
+    # Functions, remat on) against the CPU (their plain versions), the same
+    # numpy weights on both.  Loss rtol 1e-5; each gradient leaf rtol 1e-4
+    # with an atol of 1e-2 of its scale: the reduced qwen2-0.5b amplifies
+    # fp32 reordering (its CPU gradients lie 2.3e-3 of a leaf's scale from
+    # a float64 run; the card's differed from the CPU's by 6.3e-3 on an
+    # NVIDIA H100 80GB HBM3 at 700 W; tests/test_torch_train.py,
+    # tests/test_torch_cuda.py).
+    small = build_model(dataclasses.replace(reduce_for_smoke(cfg), remat=True))
+    tree = numpy_weights(small, SEED)
+    data = DataConfig(vocab_size=small.cfg.vocab_size, seq_len=64,
+                      global_batch=4)
+    loss, grads = steps.value_and_grad(
+        small, interop.params_from_jax(tree, small.cfg), make_batch(data, 0))
+    want, want_g = steps.value_and_grad(
+        small, interop.params_from_jax(tree, small.cfg, device="cpu"),
+        make_batch(data, 0, device="cpu"))
+    check_close("reduced train step loss, card vs cpu", loss.cpu(), want,
+                1e-5, 0.0)
+    worst = 0.0
+    for (path, g), (_, w) in zip(leaves(grads), leaves(want_g)):
+        name = "/".join(path)
+        if not bool(g.abs().max() > 0):
+            fail(f"reduced train step: gradient of {name} is zero")
+        scale = float(w.abs().max())
+        err = check_close(f"reduced train step grad {name}, card vs cpu",
+                          g.cpu(), w, 1e-4, 1e-2 * scale)
+        worst = max(worst, err / scale)
+    print(f"train: reduced {TRAIN_ARCH} fp32 (remat on): loss "
+          f"{float(loss)!r} on the card, {float(want)!r} on the cpu; every "
+          f"one of {len(list(leaves(grads)))} gradient leaves nonzero and "
+          f"within rtol 1e-4 / atol 1e-2 of its scale (worst {worst:.3g} "
+          f"of scale): ok")
+    del grads, want_g
+
+    model = build_model(cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+
+    def trainer(directory):
+        return Trainer(
+            model, data, AdamWConfig(),
+            make_schedule(get_schedule(TRAIN_ARCH), peak=TRAIN_PEAK,
+                          warmup=TRAIN_WARMUP, total=TRAIN_STEPS),
+            TrainerConfig(n_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                          ckpt_dir=str(directory), keep=1, log_every=1))
+
+    # the first backward at full width: every leaf finite, nonzero somewhere
+    params = model.init(SEED)
+    n_params = sum(t.numel() for _, t in leaves(params))
+    _, grads = steps.value_and_grad(model, params, make_batch(data, 0))
+    for path, g in leaves(grads):
+        if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            fail(f"train: first backward: gradient of {'/'.join(path)} is "
+                 f"not finite or is zero")
+    print(f"train: {TRAIN_ARCH} bf16, {n_params} parameters: the first "
+          f"backward gives every one of {len(list(leaves(grads)))} leaves a "
+          f"finite gradient, nonzero somewhere: ok")
+    del params, grads
+
+    # the uninterrupted run; before step 4 its state (the one the step-4
+    # checkpoint holds) is copied to the host, off the card's peak memory,
+    # and the checkpoint linked aside for the replay (keep 1 deletes it at
+    # step 8)
+    run = trainer(TRAIN_DIR / "run")
+    replay_dir = TRAIN_DIR / "replay"
+    saved = {}
+
+    def keep_step(step):
+        if step != TRAIN_CKPT_EVERY:
+            return
+        saved["state"] = map_leaves(lambda t: t.to("cpu", copy=True),
+                                    run.state)
+        run.ckpt.wait()
+        name = f"step_{step:08d}"
+        (replay_dir / name).mkdir(parents=True)
+        for f in os.listdir(TRAIN_DIR / "run" / name):
+            os.link(TRAIN_DIR / "run" / name / f, replay_dir / name / f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rms_kernel.LAUNCHES["plain"] = 0
+    xent_kernel.LAUNCHES["xent"] = 0
+    metrics = run.train(SEED, fail_injector=keep_step)
+    launched = {"rmsnorm": rms_kernel.LAUNCHES["plain"],
+                "xent": xent_kernel.LAUNCHES["xent"]}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(TRAIN_STEPS)):
+        fail(f"train: steps run {[m['step'] for m in metrics]}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the last loss {losses[-1]} is not below the first "
+             f"{losses[0]}")
+    if launched["xent"] != TRAIN_STEPS:
+        fail(f"train: {launched['xent']} xent launches for {TRAIN_STEPS} "
+             f"steps (want one a step)")
+    if launched["rmsnorm"] < (2 * cfg.n_layers + 1) * TRAIN_STEPS:
+        fail(f"train: {launched['rmsnorm']} rmsnorm launches for "
+             f"{TRAIN_STEPS} steps (< {2 * cfg.n_layers + 1} a step)")
+    step_ms = statistics.median(m["step_s"] for m in metrics[1:]) * 1e3
+    print(f"train: {TRAIN_ARCH} bf16 + fp32 master, remat, {tokens} tokens "
+          f"a step (batch {TRAIN_BATCH} x seq {TRAIN_SEQ}): losses "
+          f"{[round(v, 4) for v in losses]}")
+    print(f"train: {step_ms:.1f} ms a step (median of steps 1-"
+          f"{TRAIN_STEPS - 1}), {tokens / step_ms * 1e3:.0f} tokens/s, "
+          f"steps {[round(m['step_s'] * 1e3, 1) for m in metrics]} ms, peak "
+          f"memory {peak / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated), launches {launched} "
+          f"({launched['rmsnorm'] / TRAIN_STEPS:.0f} rmsnorm a step, remat "
+          f"recompute included)")
+
+    # one step, profiled
+    state = run.state
+    batch = make_batch(data, TRAIN_STEPS)
+    device_profile(f"train step {TRAIN_ARCH} {tokens} tokens",
+                   lambda: run.step_fn(state, batch), top=8)
+    del run, state, batch
+    torch.cuda.empty_cache()
+
+    # the round trip: a fresh Trainer restores step 4 and replays 4..7
+    again = trainer(replay_dir)
+
+    def compare_restored(step):
+        if step != TRAIN_CKPT_EVERY:
+            return
+        for (path, got), (_, want) in zip(leaves(again.state),
+                                          leaves(saved["state"])):
+            if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+                fail(f"train: restored {'/'.join(path)} differs from the "
+                     f"saved state")
+        saved.clear()
+
+    rms_kernel.LAUNCHES["plain"] = 0
+    xent_kernel.LAUNCHES["xent"] = 0
+    replayed = again.train(SEED, fail_injector=compare_restored)
+    launched["rmsnorm"] += rms_kernel.LAUNCHES["plain"]
+    launched["xent"] += xent_kernel.LAUNCHES["xent"]
+    if saved:
+        fail("train: the restored state was never compared")
+    if [m["step"] for m in replayed] != list(range(TRAIN_CKPT_EVERY,
+                                                   TRAIN_STEPS)):
+        fail(f"train: replayed steps {[m['step'] for m in replayed]}")
+    first = replayed[0]["loss"]
+    if first != losses[TRAIN_CKPT_EVERY]:
+        fail(f"train: replayed step {TRAIN_CKPT_EVERY} loss {first!r} != "
+             f"{losses[TRAIN_CKPT_EVERY]!r}")
+    diffs = []
+    for m in replayed[1:]:
+        want = losses[m["step"]]
+        diffs.append(abs(m["loss"] - want) / abs(want))
+        if diffs[-1] > REPLAY_RTOL:
+            fail(f"train: replayed step {m['step']} loss {m['loss']!r} vs "
+                 f"{want!r} beyond rtol {REPLAY_RTOL}")
+    print(f"train: restored step {TRAIN_CKPT_EVERY} into a fresh Trainer: "
+          f"the state equals the saved one bit for bit; replayed step "
+          f"{TRAIN_CKPT_EVERY} loss {first!r} equals the uninterrupted "
+          f"run's bit for bit; steps {TRAIN_CKPT_EVERY + 1}-"
+          f"{TRAIN_STEPS - 1} relative differences {diffs} (rtol "
+          f"{REPLAY_RTOL}): ok")
+    del again
+    shutil.rmtree(TRAIN_DIR)
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -378,6 +636,7 @@ def main() -> int:
     from repro_torch.core.segmented import SegmentedArray
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.util import to_tiles
+    from repro_torch.kernels.xent import kernel as xent_kernel
 
     # Full fp32 in the library yardstick's convolution (cuDNN would take
     # TF32 by default) and in any matmul.
@@ -510,8 +769,11 @@ def main() -> int:
           f"phases {segs[0].phases}: equal to the flat triad: ok")
 
     serve_launches = serving_phase()
+    train_launches = training_phase()
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
+    launches["rmsnorm"] += train_launches["rmsnorm"]
+    launches["xent"] = train_launches["xent"]
     print(f"main: launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -633,6 +895,35 @@ def main() -> int:
             (PREFILL_B * PREFILL_S, 2560), dtype, False, 11)
         cases["rmsnorm.gated" + suffix] = rms_case(GATED_SHAPE, dtype, True,
                                                    12)
+    def xent_case(t, v, logical_v, dtype, seed):
+        """B11 at a main-path shape, through the wrapper as ``_launch_xent``
+        calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the
+        first ``logical_v`` columns, labels in [0, logical_v)."""
+        plan = api.plan_for("xent", (t, v), dtype)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = (3 * torch.randn((t, v), generator=gen, device="cuda")).to(dtype)
+        labels = torch.randint(0, logical_v, (t,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        labels64 = labels.to(torch.int64)
+
+        def run():
+            return xent_kernel.xent_nll(x, labels, logical_v=logical_v,
+                                        brows=plan.block_rows)
+
+        # the logits read once, the labels read and the NLL written once;
+        # a max, a subtract, an exp and an add an element
+        return dict(kernel=run,
+                    plain=lambda: xent_kernel.plain(x, labels, logical_v),
+                    exact=False, dtype=dtype, tol=(1e-5, 1e-5),
+                    bytes=t * v * dtype.itemsize + 8 * t, ops=4 * t * v,
+                    library=(lambda: F.cross_entropy(x, labels64))
+                    if logical_v == v else None)
+
+    # B11 at the training step's (4096, 151936) fp32 logits, and bf16 logits
+    # of a padded vocab (logical_v < width)
+    cases["xent"] = xent_case(TRAIN_SEQ * TRAIN_BATCH, 151936, 151936,
+                              torch.float32, 13)
+    cases["xent.ragged.bf16"] = xent_case(*XENT_RAGGED, torch.bfloat16, 14)
     jplan = api.plan_for("jacobi", (GRID - 2, GRID), torch.float32)
     jsrc = jacobi_ops.pitched(grid, jplan)
     jdst = torch.empty_like(jsrc)
@@ -654,7 +945,8 @@ def main() -> int:
         # (fp32 rtol 2e-5 / atol 1e-7, bf16 2e-2); bit-exact is expected
         gate = ((2e-2, 2e-2) if case["dtype"] == torch.bfloat16 else
                 (2e-5, 1e-7)) if name.startswith("lbm") else (0.0, 0.0)
-        rtol, atol = gate if case["exact"] else tol(case["dtype"])
+        rtol, atol = case.get("tol") or (
+            gate if case["exact"] else tol(case["dtype"]))
         errors[name] = check_close(f"{name} kernel vs plain", got, want, rtol,
                                    atol)
         print(f"check: {name} kernel vs plain: max abs err {errors[name]:.3g} "

@@ -32,6 +32,7 @@ FAMILY_MODULES: dict[str, str] = {
     "jacobi": "repro_torch.kernels.jacobi.ops",
     "lbm": "repro_torch.kernels.lbm.ops",
     "rmsnorm": "repro_torch.kernels.rmsnorm.ops",
+    "xent": "repro_torch.kernels.xent.ops",
 }
 
 
@@ -69,10 +70,11 @@ def register_kernel(
     plan_args: Callable,
     partitioning: Partitioning | None = None,
     cta_buffers: int | None = None,
+    col_tiled: bool = False,
 ):
     """Decorator: declare a kernel family's streams and launch body.
 
-    ``cta_buffers`` feeds the planner's block geometry
+    ``cta_buffers`` and ``col_tiled`` feed the planner's block geometry
     (``core.planner.register_family``).  A name registered again by another
     function raises instead of replacing the kernel.
     """
@@ -95,7 +97,8 @@ def register_kernel(
                 f"kernel {name!r}: partitioning must be a Partitioning, "
                 f"got {type(partitioning).__name__}"
             )
-        planner_lib.register_family(name, signature, cta_buffers=cta_buffers)
+        planner_lib.register_family(name, signature, cta_buffers=cta_buffers,
+                                    col_tiled=col_tiled)
         _REGISTRY[name] = KernelEntry(
             name=name,
             signature=signature,

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
 Counterpart of ``repro.configs``.  The port carries the configurations of
-the dense family it runs, as data (``qwen3-4b``, ``qwen2-0.5b``); every
+the dense family it runs, as data (``qwen3-4b``, ``qwen2-0.5b``) with their
+schedule kinds (``get_schedule``); every
 other architecture of the reference's pool is known by name and family and
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
@@ -43,6 +44,14 @@ def get_config(name: str) -> ModelConfig:
                        f"{sorted([*_MODULES, *_UNPORTED])}")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[name]}").CONFIG
+
+
+def get_schedule(name: str) -> str:
+    """The learning-rate schedule kind of arch ``name``
+    (``optim.schedules.make_schedule``)."""
+    get_config(name)
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").SCHEDULE
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

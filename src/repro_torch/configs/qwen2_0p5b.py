@@ -9,3 +9,4 @@ CONFIG = ModelConfig(
     qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0,
     parallelism="zero3",
 )
+SCHEDULE = "cosine"

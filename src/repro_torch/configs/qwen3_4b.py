@@ -8,3 +8,4 @@ CONFIG = ModelConfig(
     d_ff=9728, vocab_size=151936, head_dim=128,
     qk_norm=True, rope_theta=1_000_000.0,
 )
+SCHEDULE = "cosine"

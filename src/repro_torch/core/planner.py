@@ -9,7 +9,9 @@ element size) and the planner derives, in closed form and without search,
   * the block one CTA walks (``_fit_block``): in-flight bytes within the
     per-CTA shared-memory budget, enough CTAs to fill every SM; the LBM
     collision holds no shared-memory tile, and its block is one site per
-    thread of a CTA (``_plan_lbm``);
+    thread of a CTA (``_plan_lbm``); a column-tiled family (``COL_TILED``,
+    the cross-entropy) walks whole rows in passes of its CTA's threads
+    (``_plan_col_tiled``);
   * the per-stream skews and segment shift (``plan_streams``), scored under
     the interleaved-memory conflict model.
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+from typing import Callable
 
 import numpy as np
 import torch
@@ -28,6 +31,8 @@ from repro_torch.core.aliasing import InterleavedMemoryModel, Stream
 from repro_torch.core.autotune import LayoutPlan, StreamSignature, plan_streams
 from repro_torch.core.layout import (
     CTA_THREADS,
+    CTAS_PER_SM,
+    VEC_BYTES,
     cdiv,
     choose_block_shape,
     hopper_limits,
@@ -65,8 +70,29 @@ CTA_BUFFERS: dict[str, int] = {"jacobi": 4}
 # How many of a family's streams move a full planned array each launch;
 # absent families move one per signature stream.  Jacobi's neighbour rows
 # are re-read from cache, so the grid streams in once and out once; the LBM
-# lattice already holds all 19 direction rows and is read and written once.
-MAJOR_STREAMS: dict[str, int] = {"jacobi": 2, "lbm.soa": 2, "lbm.ivjk": 2}
+# lattice already holds all 19 direction rows and is read and written once;
+# the cross-entropy reads its logits once, and its labels and per-token NLL
+# are row-sized side streams (``MINOR_STREAM_BYTES``).
+MAJOR_STREAMS: dict[str, int] = {"jacobi": 2, "lbm.soa": 2, "lbm.ivjk": 2,
+                                 "xent": 1}
+
+# Side-operand bytes per launch beside the major streams: (rows, width,
+# element bytes) -> bytes.  Labels are int32 and the NLL fp32 whatever the
+# logits' dtype.
+MINOR_STREAM_BYTES: dict[str, Callable[[int, int, int], int]] = {
+    "xent": lambda rows, width, eb: rows * 4 + rows * 4,
+}
+
+# Families whose kernels tile the minor dim too.  Every other 2-D kernel
+# streams full-width row blocks, so its rows are charged against the whole
+# padded width; a column-tiled kernel (online softmax) folds a row in passes
+# and holds one pass of it at a time (``_plan_col_tiled``).
+COL_TILED = {"xent"}
+
+# A column-tiled CTA walks rows until it has streamed at least this many
+# bytes, so a narrow row does not pay a CTA's reduction and launch alone;
+# a row this wide or wider is one CTA's block.
+COL_TILED_CTA_BYTES = 64 * 1024
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -90,13 +116,15 @@ def itemsize(dtype) -> int:
 
 
 def register_family(name: str, signature: StreamSignature, *,
-                    cta_buffers: int | None = None) -> None:
+                    cta_buffers: int | None = None,
+                    col_tiled: bool = False) -> None:
     """Declare (or re-assert) a kernel family's stream signature.
 
     The registry calls this when a kernel registers, so the planner's table
     and the registered kernels cannot drift: a second declaration with a
     different signature or buffer count is a shadowed name and raises.  A
-    first ``cta_buffers`` declaration drops the family's cached plans.
+    declaration that brings new block geometry (a first ``cta_buffers``, or
+    ``col_tiled`` newly set) drops the family's cached plans.
     """
     cur = FAMILIES.get(name)
     if cur is not None and (cur.n_read, cur.n_write) != (
@@ -117,6 +145,9 @@ def register_family(name: str, signature: StreamSignature, *,
         geometry_changed = prev is None
         CTA_BUFFERS[name] = cta_buffers
     FAMILIES[name] = signature
+    if col_tiled and name not in COL_TILED:
+        COL_TILED.add(name)
+        geometry_changed = True
     if geometry_changed:
         with _LOCK:
             for key in [k for k in _CACHE if k[0] == name]:
@@ -192,21 +223,26 @@ class KernelPlan:
         return self.layout.predicted_balance
 
     # ---- predicted traffic ----------------------------------------------
-    def _traffic_bytes(self, elems: int) -> int:
+    def _traffic_bytes(self, elems: int, shape: tuple[int, ...]) -> int:
         major = MAJOR_STREAMS.get(self.kernel, self.signature.n_streams)
-        return major * elems * self.elem_bytes
+        total = major * elems * self.elem_bytes
+        minor = MINOR_STREAM_BYTES.get(self.kernel)
+        if minor is not None:
+            total += minor(int(shape[0]), int(shape[-1]), self.elem_bytes)
+        return total
 
     @property
     def predicted_hbm_bytes(self) -> int:
         """Device-memory traffic per launch at the planned physical
-        footprint: every major stream moves one padded array."""
-        return self._traffic_bytes(self.padded_elems)
+        footprint: every major stream moves one padded array, plus the
+        family's side operands."""
+        return self._traffic_bytes(self.padded_elems, self.padded_shape)
 
     @property
     def predicted_logical_bytes(self) -> int:
         """The same traffic at the logical footprint; the difference to
         ``predicted_hbm_bytes`` is what the padding costs per launch."""
-        return self._traffic_bytes(self.logical_elems)
+        return self._traffic_bytes(self.logical_elems, self.logical_shape)
 
     def explain(self) -> str:
         """Human-readable report: predicted balance, waste, block geometry."""
@@ -319,6 +355,9 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
     unit = vector_unit(size)
     if kernel.startswith("lbm."):
         padded, block = _plan_lbm(kernel, shape, unit)
+    elif kernel in COL_TILED:
+        padded, block = _plan_col_tiled(kernel, shape, size, sms)
+        unit = VEC_BYTES // size
     elif len(shape) == 1:
         padded, block = _plan_1d(shape[0], size, unit, n_buffers, budget, sms)
     elif len(shape) == 2:
@@ -342,8 +381,9 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
     # 128 multiple can pad more bytes at bf16.  The fp32 geometry is legal
     # at bf16 (128 bf16 elements = 256 B keeps every row 16-B aligned) and
     # costs exactly itemsize/4 of the fp32 padding bytes, so take the
-    # cheaper of the two.
-    if size < 4:
+    # cheaper of the two.  A column-tiled plan pads under one 16-B vector a
+    # row at every dtype, and the fp32 geometry is not 16-B aligned at bf16.
+    if size < 4 and kernel not in COL_TILED:
         f32 = plan_kernel(kernel, shape, torch.float32, model=model,
                           smem_budget=budget, sm_count=sms)
         if plan.waste_bytes * 4 > f32.waste_bytes * size:
@@ -449,3 +489,31 @@ def _plan_lbm(kernel: str, shape: tuple[int, ...],
     if kernel == "lbm.soa":
         return (q, chunks * unit), (q, bsb * unit)
     return (chunks, q, unit), (bsb, q, unit)
+
+
+def _plan_col_tiled(kernel: str, shape: tuple[int, ...], size: int,
+                    sms: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(rows, cols) online-softmax layout: a CTA owns whole rows and folds
+    each in passes of its ``CTA_THREADS`` threads, one 16-B vector a thread.
+
+    * width: cols rounded up to whole 16-B vectors (4 fp32, 8 bf16), so
+      every row starts 16-B aligned; a width already a whole number of
+      vectors is not padded, and the caller's tensor reaches the kernel
+      without a copy.  Rows are not padded either: the kernel stops at the
+      last row.
+    * block: (rows a CTA walks, the columns one pass covers).  A CTA holds
+      one pass in flight whatever its row count, so no shared-memory budget
+      bounds the rows; they are the fewest that stream
+      ``COL_TILED_CTA_BYTES``, capped so the grid keeps ``CTAS_PER_SM``
+      CTAs on every SM where the rows allow.  On the TPU the block was a
+      (rows, vocab-tile) VMEM tile with the vocab axis a sequential grid
+      dimension; here the loop inside the CTA takes that axis."""
+    if len(shape) != 2:
+        raise ValueError(f"{kernel}: needs a (rows, cols) shape, got {shape}")
+    rows, cols = max(int(shape[0]), 1), max(int(shape[1]), 1)
+    width = round_up(cols, VEC_BYTES // size)
+    fill = rows // (CTAS_PER_SM * sms)
+    want = cdiv(COL_TILED_CTA_BYTES, width * size)
+    brows = max(1, min(want, fill, rows))
+    bcols = min(CTA_THREADS * (VEC_BYTES // size), width)
+    return (int(shape[0]), width), (brows, bcols)

@@ -4,8 +4,10 @@ The JAX package and the port meet only through numpy: ``to_torch`` turns a
 numpy array (a JAX array's ``np.asarray``) into a port tensor on a given
 device and dtype, ``plan_from_dict`` turns a reference ``KernelPlan``'s
 fields (``dataclasses.asdict``) into a port plan, so a test can pin the
-same geometry on both sides, and ``params_from_jax`` turns a reference
-model's parameter tree (as numpy arrays) into the port's.
+same geometry on both sides, ``params_from_jax`` turns a reference
+model's parameter tree (as numpy arrays) into the port's, and
+``train_state_from_jax`` a reference train state (parameters and AdamW
+state) into the port's.
 
 numpy has no bf16 of its own: a bf16 array (``ml_dtypes.bfloat16``, as JAX
 returns it) goes through float32, which holds every bf16 value exactly, and
@@ -34,7 +36,8 @@ def to_torch(x, *, device=None, dtype=None) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        # a read-only array (a JAX array's view) is copied, not shared
+        t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
     if dtype is not None:
         t = t.to(torch_dtype(dtype))
     return t.to(dev)
@@ -108,3 +111,23 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
         node[path[-1]] = to_torch(got[path], device=device,
                                   dtype=dtype or d.dtype)
     return out
+
+
+def train_state_from_jax(state: Mapping[str, Any], cfg, *,
+                         device=None) -> dict:
+    """The port's train state ``{"params", "opt"}`` for model config
+    ``cfg`` holding a reference train state (``steps.init_train_state``'s
+    tree, or a trained one, as numpy arrays): the parameters as
+    ``params_from_jax`` carries them, the AdamW ``step``, moments ``m``/``v``
+    and fp32 ``master`` copy leaf for leaf with their dtypes, on ``device``
+    (CUDA unless named)."""
+    device = resolve_device(device)
+
+    def tree(t):
+        return {k: tree(v) if isinstance(v, Mapping)
+                else to_torch(v, device=device) for k, v in t.items()}
+
+    params = params_from_jax(state["params"], cfg, device=device)
+    opt = {k: tree(v) if isinstance(v, Mapping) else to_torch(v, device=device)
+           for k, v in state["opt"].items()}
+    return {"params": params, "opt": opt}

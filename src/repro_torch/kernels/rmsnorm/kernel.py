@@ -6,7 +6,9 @@
     g = x * silu(z), rounded to x's dtype before the statistics.
 
 On CUDA tensors both launch ``csrc/rmsnorm.cu`` (one kernel, the gate and
-the dtype template parameters) and count the launch in ``LAUNCHES``; on CPU
+the dtype template parameters) and count the launch in ``LAUNCHES``; the
+kernel's output has no autograd history, so with grad mode on an input that
+requires grad raises (``models.blocks.RMSNormFn`` differentiates it); on CPU
 tensors they return the plain PyTorch version (``plain``), which computes
 what the TPU kernel computes on the padded block: fp32 statistics over the
 logical columns (padding masked by column index), one rounding to x's
@@ -22,7 +24,7 @@ import functools
 import torch
 
 from repro_torch.kernels.stream.kernel import DTYPES
-from repro_torch.kernels.util import block_rows
+from repro_torch.kernels.util import block_rows, refuse_autograd
 
 # launches of the CUDA kernel per variant, counted where the wrapper launches it
 LAUNCHES = {"plain": 0, "gated": 0}
@@ -83,6 +85,8 @@ def _run(variant: str, x: torch.Tensor, z: torch.Tensor | None,
         return plain(x, scale, d_logical, eps, z)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm kernel needs CUDA tensors, got {x.device}")
+    refuse_autograd("rmsnorm", "repro_torch.models.blocks.RMSNormFn", x, z,
+                    scale)
     if x.dtype not in DTYPES:
         raise TypeError(f"rmsnorm kernel supports {list(DTYPES)}, got {x.dtype}")
     if x.shape[-1] * x.element_size() % 16:

@@ -84,3 +84,17 @@ def block_rows(rows: int, target: int = 4) -> int:
     while rows % b:
         b -= 1
     return b
+
+
+def refuse_autograd(kernel: str, function: str, *tensors) -> None:
+    """Raise when a CUDA kernel would drop a gradient: with grad mode on and
+    an input that requires grad, its output (filled outside autograd) would
+    carry no ``grad_fn`` and the gradient would vanish without an error.
+    ``function`` names the ``torch.autograd.Function`` to call instead;
+    inside its ``forward`` grad mode is off and the kernel runs."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} kernel got an input that requires grad with grad mode "
+            f"on; its output would have no gradient.  Call it through "
+            f"{function}, or under torch.no_grad()")

@@ -4,8 +4,8 @@ Counterpart of ``repro.models.blocks``: plain functions over dicts of
 tensors described by ``ParamDef``s.  Softmax and norm statistics are
 computed in fp32 whatever the activation dtype.  RMSNorm launches the
 registered kernel (``api.launch("rmsnorm")``, the hand-written CUDA kernel
-on the card); attention and the projections are plain PyTorch, as the JAX
-package leaves them to XLA.  The reference's activation-sharding
+on the card), differentiated by ``RMSNormFn`` under autograd; attention and
+the projections are plain PyTorch, as the JAX package leaves them to XLA.  The reference's activation-sharding
 annotations (``parallel.rules.shard``) have no counterpart until the SPMD
 slice (ROADMAP A11).
 
@@ -53,9 +53,43 @@ def norm_defs(cfg: ModelConfig, d: int | None = None) -> dict:
     return out
 
 
+def _rms_ref(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """RMSNorm through the registered kernel, differentiable: the forward
+    is ``dispatch.launch("rmsnorm")`` (B9 on the card, whose output carries
+    no autograd history), the backward the gradient of the plain math
+    ``_rms_ref`` with respect to x and the scale, taken in fp32 and cast to
+    each input's dtype -- the counterpart of the reference's ``_rms_fused``
+    ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return dispatch.launch("rmsnorm", x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            ss = scale.detach().requires_grad_(True)
+            gx, gs = torch.autograd.grad(_rms_ref(xx, ss, ctx.eps), (xx, ss),
+                                         g)
+        return gx, gs, None
+
+
 def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """RMSNorm through the registered kernel (the port is single-device,
-    where the reference always launches it too); LayerNorm stays plain."""
+    where the reference always launches it too): through ``RMSNormFn`` when
+    autograd records (grad mode on and an input requires grad), straight
+    through ``dispatch.launch`` otherwise, so serving pays no autograd
+    cost.  LayerNorm stays plain."""
     if cfg.norm == "layernorm":
         xf = x.to(torch.float32)
         mu = xf.mean(-1, keepdim=True)
@@ -63,7 +97,10 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
         y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
         return y.to(x.dtype)
-    return dispatch.launch("rmsnorm", x, p["scale"], eps=cfg.norm_eps)
+    scale = p["scale"]
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFn.apply(x, scale, cfg.norm_eps)
+    return dispatch.launch("rmsnorm", x, scale, eps=cfg.norm_eps)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,

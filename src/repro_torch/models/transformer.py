@@ -2,10 +2,16 @@
 
 Layers are grouped into homogeneous stages (``cfg.stages()``); a stage's
 per-layer parameters stay stacked along a leading layer axis, as in the
-reference, and a Python loop over the layer index takes the place of
-``lax.scan``.  The other families (MoE, Mamba2, xLSTM, enc-dec, VLM) raise
-``NotImplementedError`` before any parameter is made (ROADMAP A9), and the
-training loss ``lm_loss`` comes with the training slice.
+reference, and a Python loop over the layers (``layers``: one ``unbind`` a
+stage) takes the place of ``lax.scan``.  With ``cfg.remat`` and autograd
+recording, each layer runs under ``torch.utils.checkpoint`` (non-reentrant),
+the counterpart of the reference's ``jax.checkpoint`` of the scan body: its
+activations are recomputed in the backward pass instead of kept.  The other
+families (MoE, Mamba2, xLSTM, enc-dec, VLM) raise ``NotImplementedError``
+before any parameter is made (ROADMAP A9).
+
+``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
+(B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch.
 
 ``decode_step`` writes the KV caches in place (``models.blocks``) and
 returns the cache dict with ``idx`` advanced; callers that need the old
@@ -14,7 +20,9 @@ cache keep a copy.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.api import dispatch
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.params import (
@@ -22,6 +30,7 @@ from repro_torch.models.params import (
     Tree,
     abstract_params,
     init_params,
+    leaves,
     map_leaves,
     stack_defs,
 )
@@ -65,9 +74,14 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> Tree:
     return init_params(seed, param_defs(cfg), device=device)
 
 
-def layer(tree: Tree, i: int) -> Tree:
-    """Layer ``i`` of a stacked stage tree (views, no copy)."""
-    return map_leaves(lambda a: a[i], tree)
+def layers(tree: Tree) -> list[Tree]:
+    """The layers of a stacked stage tree (views, no copy), one ``unbind``
+    a leaf.  Under autograd, indexing ``a[i]`` a layer would give each
+    stacked leaf one full-sized zero-filled gradient a layer; ``unbind``'s
+    backward stacks the layers' gradients once."""
+    split = map_leaves(lambda a: a.unbind(0), tree)
+    count = len(next(iter(leaves(split)))[1])
+    return [map_leaves(lambda parts: parts[i], split) for i in range(count)]
 
 
 def _scalar(value: float, dtype: torch.dtype) -> float:
@@ -121,12 +135,79 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, (kind, count) in enumerate(cfg.stages()):
-        stage = params[stage_name(i, kind)]
-        for li in range(count):
-            x = _apply_block(kind, layer(stage, li), x, cfg, positions)
+        for lp in layers(params[stage_name(i, kind)]):
+            if remat:
+                x = checkpoint(_apply_block, kind, lp, x, cfg, positions,
+                               use_reentrant=False)
+            else:
+                x = _apply_block(kind, lp, x, cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params, x, cfg), aux
+
+
+def _xent_ref(logits: torch.Tensor, labels: torch.Tensor,
+              logical_v: int) -> torch.Tensor:
+    """Mean NLL over rows, the plain math the xent kernel fuses (padded
+    vocab columns masked by column index, the label logit extracted by an
+    index == label reduction)."""
+    lf = logits.to(torch.float32)
+    viota = torch.arange(lf.shape[-1], device=lf.device)
+    if logical_v < lf.shape[-1]:
+        lf = lf + torch.where(viota >= logical_v, -1e30, 0.0)
+    m = lf.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    label_logit = torch.where(viota == labels[..., None], lf, 0.0).sum(-1)
+    return (lse - label_logit).mean()
+
+
+class XentFn(torch.autograd.Function):
+    """Cross-entropy through the registered kernel, differentiable: the
+    forward is ``dispatch.launch("xent")`` (B11 on the card, whose output
+    carries no autograd history), the backward ``kernels.xent.ops
+    .xent_grad`` -- the counterpart of the reference's ``_xent_fused``
+    ``custom_vjp``.  Labels get no gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, logical_v):
+        ctx.save_for_backward(logits, labels)
+        ctx.logical_v = logical_v
+        return dispatch.launch("xent", logits, labels, logical_v=logical_v)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.kernels.xent import ops as xent_ops
+
+        logits, labels = ctx.saved_tensors
+        return (xent_ops.xent_grad(logits, labels, g,
+                                   logical_v=ctx.logical_v), None, None)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy of (..., V) fp32 logits against integer labels.
+
+    Unmasked, the (T, V) rows go through ``XentFn`` (the registered
+    ``xent`` kernel forward, ``xent_grad`` backward), as the reference
+    launches its Pallas kernel on one device.  Masked, the plain math: a
+    masked mean cannot be recovered from the kernel's all-token mean.
+    Padded vocab columns (``cfg.vocab_logical``) are masked by index."""
+    v = logits.shape[-1]
+    logical = getattr(cfg, "vocab_logical", 0) or cfg.vocab_size
+    if mask is None:
+        return XentFn.apply(logits.reshape(-1, v),
+                            labels.reshape(-1).to(torch.int32), logical)
+    lf = logits.to(torch.float32)
+    viota = torch.arange(v, device=lf.device)
+    if logical < v:
+        lf = lf + torch.where(viota >= logical, -1e30, 0.0)
+    m = lf.amax(-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(-1)) + m[..., 0]
+    label_logit = torch.where(viota == labels[..., None], lf, 0.0).sum(-1)
+    ll = label_logit - lse
+    maskf = mask.to(torch.float32)
+    return -(ll * maskf).sum() / torch.clamp(maskf.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -203,9 +284,8 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
             new_cache[key] = cache[key]
     for i, (kind, count) in enumerate(cfg.stages()):
         nm = stage_name(i, kind)
-        for li in range(count):
-            x, _ = _decode_block(kind, layer(params[nm], li),
-                                 layer(cache[nm], li), x, idx, cfg, pages, act)
+        for lp, lc in zip(layers(params[nm]), layers(cache[nm])):
+            x, _ = _decode_block(kind, lp, lc, x, idx, cfg, pages, act)
         new_cache[nm] = cache[nm]
     return unembed(params, x, cfg), new_cache
 
@@ -218,8 +298,8 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
 class LM(torch.nn.Module):
     """The decoder-only LM over an explicit parameter tree (a nested dict
     of tensors, as the reference's pytree): ``init`` makes one,
-    ``forward(params, tokens)`` and ``decode_step(params, cache, tokens)``
-    run it.  Constructing it for a family the port does not run raises."""
+    ``forward(params, tokens)``, ``loss(params, batch)`` and
+    ``decode_step(params, cache, tokens)`` run it.  Constructing it for a family the port does not run raises."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -238,6 +318,12 @@ class LM(torch.nn.Module):
 
     def forward(self, params, tokens, prefix_embeds=None):
         return forward(params, tokens, self.cfg, prefix_embeds)
+
+    def loss(self, params, batch) -> torch.Tensor:
+        logits, aux = forward(params, batch["tokens"], self.cfg,
+                              batch.get("img_embeds"))
+        return lm_loss(logits, batch["labels"], self.cfg,
+                       batch.get("mask")) + aux
 
     def cache_defs(self, batch: int, max_len: int) -> Tree:
         return cache_defs(self.cfg, batch, max_len)

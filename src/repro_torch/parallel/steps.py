@@ -1,9 +1,9 @@
-"""Step functions: prefill / decode / chunked decode.
+"""Step functions: train / eval / prefill / decode / chunked decode.
 
-Counterpart of the inference steps of ``repro.parallel.steps``; the train
-and eval steps come with the training slice.  PyTorch runs eagerly, so a
-step is a plain function (the reference wraps them in ``jax.jit``), and
-the chunk step's ``lax.scan`` over micro-steps is a Python loop.
+Counterpart of ``repro.parallel.steps`` (single device).  PyTorch runs
+eagerly, so a step is a plain function (the reference wraps them in
+``jax.jit``), and a ``lax.scan`` (over microbatches, over the chunk step's
+micro-steps) is a Python loop.
 """
 from __future__ import annotations
 
@@ -11,7 +11,93 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.params import map_leaves
+from repro_torch.models.params import leaves, map_leaves
+from repro_torch.optim import adamw
+
+
+def _tree(pairs) -> dict:
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def value_and_grad(model, params: dict, batch: dict):
+    """``(loss, grads)`` of ``model.loss`` at ``params``: the counterpart of
+    ``jax.value_and_grad(model.loss, allow_int=True)``.  Every floating
+    leaf is differentiated (a leaf the loss does not reach gets zeros); an
+    integer leaf's gradient is ``None``.  ``params`` are left as they are:
+    the loss runs on detached views that require grad."""
+    flat = list(leaves(params))
+    live = [p.detach().requires_grad_(True) if p.is_floating_point() else p
+            for _, p in flat]
+    loss = model.loss(_tree((path, t) for (path, _), t in zip(flat, live)),
+                      batch)
+    wrt = [t for t in live if t.is_floating_point()]
+    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True,
+                                   materialize_grads=True))
+    grads = _tree((path, next(got) if t.is_floating_point() else None)
+                  for (path, _), t in zip(flat, live))
+    return loss.detach(), grads
+
+
+def make_train_step(model, opt_cfg: adamw.AdamWConfig, schedule: Callable, *,
+                    microbatches: int = 1) -> Callable:
+    """Train step with optional gradient accumulation.
+
+    With ``microbatches > 1`` the global batch is processed as micro-slices
+    along its leading axis with fp32 gradient accumulation (the optimizer
+    still sees the full-batch gradient, up to fp32 summation order).
+    ``train_step(state, batch) -> (state, metrics)`` with ``state`` =
+    ``{"params", "opt"}`` and metrics ``loss``, ``lr`` and ``grad_norm`` as
+    0-d tensors; the input state is left as it was."""
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params = state["params"]
+        if microbatches == 1:
+            loss, grads = value_and_grad(model, params, batch)
+        else:
+            split = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                                  *v.shape[1:]) for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32)
+            grads = None
+            for i in range(microbatches):
+                mloss, mgrads = value_and_grad(
+                    model, params, {k: v[i] for k, v in split.items()})
+                loss = loss.to(mloss.device) + mloss.to(torch.float32)
+                grads = map_leaves(
+                    lambda g: None if g is None else g.to(torch.float32),
+                    mgrads) if grads is None else map_leaves(
+                    lambda a, g: a if g is None else a + g.to(torch.float32),
+                    grads, mgrads)
+            inv = 1.0 / microbatches
+            loss = loss * inv
+            grads = map_leaves(lambda g: None if g is None else g * inv, grads)
+        lr = schedule(state["opt"]["step"])
+        with torch.no_grad():
+            params, opt, metrics = adamw.apply_updates(
+                params, grads, state["opt"], lr, opt_cfg)
+        return {"params": params, "opt": opt}, {"loss": loss, "lr": lr,
+                                                **metrics}
+
+    return train_step
+
+
+def make_eval_step(model) -> Callable:
+    def eval_step(params: dict, batch: dict) -> torch.Tensor:
+        with torch.no_grad():
+            return model.loss(params, batch)
+
+    return eval_step
+
+
+def init_train_state(model, opt_cfg: adamw.AdamWConfig, seed: int = 0, *,
+                     device=None) -> dict:
+    params = model.init(seed, device=device)
+    return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
 
 
 def make_prefill_step(model) -> Callable:

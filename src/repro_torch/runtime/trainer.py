@@ -1,0 +1,171 @@
+"""Fault-tolerant training loop.
+
+Counterpart of ``repro.runtime.trainer`` (single device).  Checkpoints
+every ``ckpt_every`` steps (async, atomic); a *transient* exception in a
+step restores the latest checkpoint and replays from its step with
+exponential backoff (the data pipeline is a pure function of the step, so
+the replay is exact), while a persistent failure -- a ``DeviceLossError``
+-- propagates at once.  ``fail_injector`` lets tests inject failures at
+chosen steps; a step whose wall time blows past ``straggler_factor`` times
+the step-time EMA is reported to the log.
+
+The reference also emits each step, checkpoint and degradation as a typed
+event on its ``obs`` bus; the port has no bus yet (ROADMAP A7), so the
+metrics go to ``Trainer.metrics`` and the log.  ``Trainer.state`` is the
+latest train state (``{"params", "opt"}``), there for a caller that
+inspects or snapshots it between steps (``fail_injector`` runs before
+each step).
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch import api
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.kernels.util import resolve_device
+from repro_torch.optim import adamw
+from repro_torch.parallel import steps as steps_lib
+from repro_torch.runtime.faults import DeviceLossError
+
+log = logging.getLogger("repro_torch.trainer")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    n_steps: int = 20
+    ckpt_every: int = 5
+    ckpt_dir: str = "build/repro_torch_ckpt"
+    max_retries: int = 3
+    log_every: int = 1
+    # Exponential backoff between transient-failure retries:
+    # base * 2**(retry-1), capped.
+    backoff_base_s: float = 0.05
+    backoff_max_s: float = 5.0
+    # A step slower than straggler_factor x the step-time EMA is logged as
+    # a straggler once history exists (>= 3 steps).  0 disables detection.
+    straggler_factor: float = 4.0
+    # complete checkpoints kept on disk
+    keep: int = 3
+
+
+class Trainer:
+    def __init__(self, model, data_cfg: DataConfig, opt_cfg: adamw.AdamWConfig,
+                 schedule, tcfg: TrainerConfig, *, microbatches: int = 1,
+                 device=None):
+        self.model = model
+        self.data_cfg = data_cfg
+        self.opt_cfg = opt_cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self.step_fn = steps_lib.make_train_step(model, opt_cfg, schedule,
+                                                 microbatches=microbatches)
+        self.metrics: list[dict] = []
+        self.kernel_plans: dict[str, object] = {}
+        self.state: dict | None = None
+
+    def plan_hot_kernels(self) -> dict[str, object]:
+        """This run's hot-kernel plans: the per-token norm over (tokens,
+        d_model) in the activation dtype and the loss over (tokens, vocab)
+        in fp32 (the logits' dtype).  Memoized in the plan cache, so the
+        launches of every step find them."""
+        d = self.data_cfg
+        cfg = self.model.cfg
+        tokens = max(d.global_batch * d.seq_len, 1)
+        plans = {
+            "rmsnorm": api.plan_for("rmsnorm", (tokens, cfg.d_model),
+                                    cfg.adtype),
+            "xent": api.plan_for("xent", (tokens, cfg.vocab_size),
+                                 torch.float32),
+        }
+        for name, plan in plans.items():
+            log.debug("kernel plan %s:\n%s", name, plan.explain())
+        self.kernel_plans = plans
+        return plans
+
+    def init_or_restore(self, seed: int = 0) -> tuple[int, dict]:
+        state = steps_lib.init_train_state(self.model, self.opt_cfg, seed,
+                                           device=self.device)
+        restored = self.ckpt.restore_latest(state)
+        if restored is not None:
+            step, state = restored
+            log.info("restored checkpoint at step %d", step)
+            return step, state
+        return 0, state
+
+    def _note_straggler(self, step: int, step_s: float, ema: float | None,
+                        n_hist: int) -> None:
+        factor = self.tcfg.straggler_factor
+        if factor <= 0 or ema is None or n_hist < 3:
+            return
+        if step_s > factor * ema:
+            log.warning("step %d straggled: %.3fs vs EMA %.3fs (x%.1f)",
+                        step, step_s, ema, step_s / ema)
+
+    def _backoff(self, retries: int) -> None:
+        base = self.tcfg.backoff_base_s
+        if base <= 0:
+            return
+        delay = min(base * 2 ** (retries - 1), self.tcfg.backoff_max_s)
+        log.info("backing off %.2fs before retry %d", delay, retries)
+        time.sleep(delay)
+
+    def train(self, seed: int = 0, *,
+              fail_injector: Callable[[int], None] | None = None
+              ) -> list[dict]:
+        """Run to ``n_steps`` from the latest checkpoint (or a fresh init
+        from ``seed``); returns ``metrics``, one dict a completed step."""
+        self.plan_hot_kernels()
+        step, self.state = self.init_or_restore(seed)
+        retries = 0
+        ema: float | None = None
+        n_hist = 0
+        while step < self.tcfg.n_steps:
+            try:
+                if fail_injector is not None:
+                    fail_injector(step)
+                t0 = time.perf_counter()
+                batch = make_batch(self.data_cfg, step, device=self.device)
+                self.state, metrics = self.step_fn(self.state, batch)
+                # float() waits for the device, so the wall time spans the
+                # whole step, not just its enqueue
+                loss = float(metrics["loss"])
+                grad_norm = float(metrics["grad_norm"])
+                step_s = time.perf_counter() - t0
+                self._note_straggler(step, step_s, ema, n_hist)
+                ema = step_s if ema is None else 0.7 * ema + 0.3 * step_s
+                n_hist += 1
+                self.metrics.append({"step": step, "loss": loss,
+                                     "grad_norm": grad_norm,
+                                     "lr": float(metrics["lr"]),
+                                     "step_s": step_s})
+                if step % self.tcfg.log_every == 0:
+                    log.info("step %d loss %.4f", step, loss)
+                step += 1
+                retries = 0
+                if step % self.tcfg.ckpt_every == 0:
+                    self.ckpt.save(step, self.state, meta={"loss": loss})
+            except DeviceLossError:
+                # Persistent: retrying cannot bring the device back.
+                raise
+            except Exception as e:  # noqa: BLE001 -- the whole point
+                retries += 1
+                if retries > self.tcfg.max_retries:
+                    raise
+                log.warning("step %d failed (%s); restoring (retry %d/%d)",
+                            step, e, retries, self.tcfg.max_retries)
+                self._backoff(retries)
+                restored = self.ckpt.restore_latest(self.state)
+                if restored is not None:
+                    step, self.state = restored
+                # else: replay from the current state (failure before the
+                # first checkpoint)
+        self.ckpt.save(step, self.state, meta={"final": True})
+        self.ckpt.wait()
+        return self.metrics

@@ -43,15 +43,15 @@ def test_families_resolve_lazily():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert set(registry.FAMILY_MODULES) == {"stream", "triad", "jacobi", "lbm",
-                                            "rmsnorm"}
+                                            "rmsnorm", "xent"}
     assert all(m.startswith("repro_torch.kernels.")
                for m in registry.FAMILY_MODULES.values())
     assert api.list_kernels() == ["jacobi", "lbm.ivjk", "lbm.soa",
                                   "rmsnorm", "rmsnorm.gated",
                                   "stream.add", "stream.copy", "stream.scale",
-                                  "stream.triad", "triad"]
+                                  "stream.triad", "triad", "xent"]
     with pytest.raises(KeyError):
-        api.resolve("xent")
+        api.resolve("no_such_family")
 
 
 def test_shadowed_names_are_refused():

@@ -77,7 +77,7 @@ def test_every_ported_kernel_matches_reference():
              "stream.add": (2, {}), "stream.triad": (2, {"s": 2.5}),
              "triad": (3, {})}
     assert sorted([*calls, "jacobi", "lbm.soa", "lbm.ivjk", "rmsnorm",
-                   "rmsnorm.gated"]) == api.list_kernels()
+                   "rmsnorm.gated", "xent"]) == api.list_kernels()
     for name, (arity, kw) in calls.items():
         np.testing.assert_allclose(
             interop.to_numpy(api.launch(name, *t[:arity], **kw)),
@@ -101,6 +101,14 @@ def test_every_ported_kernel_matches_reference():
                                       for a in (x, z, scale)))),
         np.asarray(japi.launch("rmsnorm.gated", jnp.asarray(x), jnp.asarray(z),
                                jnp.asarray(scale))), **FP32)
+    logits = 3 * rng.standard_normal((37, 501)).astype(np.float32)
+    labels = rng.integers(0, 480, size=37).astype(np.int32)
+    np.testing.assert_allclose(
+        float(api.launch("xent", interop.to_torch(logits, device="cpu"),
+                         interop.to_torch(labels, device="cpu"),
+                         logical_v=480)),
+        float(japi.launch("xent", jnp.asarray(logits), jnp.asarray(labels),
+                          logical_v=480)), **FP32)
     lattice = np.asarray(jlops.init_equilibrium(10, jnp.float32))
     for layout in ("soa", "ivjk"):
         np.testing.assert_allclose(
