@@ -11,11 +11,11 @@ from repro_torch.api.context import (
     current_context,
     plan_context,
 )
+from repro_torch.api.spmd import SCALAR, Partitioning, ShardContext, spmd_mesh
 from repro_torch.api.dispatch import explain, launch, plan_for, plan_tile, ref
 from repro_torch.api.registry import (
     FAMILY_MODULES,
     KernelEntry,
-    Partitioning,
     list_kernels,
     register_kernel,
     resolve,
@@ -25,5 +25,6 @@ __all__ = [
     "PlanContext", "plan_context", "current_context",
     "launch", "plan_for", "plan_tile", "explain", "ref",
     "register_kernel", "resolve", "list_kernels",
-    "KernelEntry", "FAMILY_MODULES", "Partitioning",
+    "KernelEntry", "FAMILY_MODULES", "Partitioning", "SCALAR",
+    "ShardContext", "spmd_mesh",
 ]

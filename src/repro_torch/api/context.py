@@ -7,6 +7,9 @@ every loop kernel.  ``plan_context`` sets that policy for a scope:
     with plan_context(smem_budget=96 * 1024):
         api.launch("triad", b, c, d)
 
+    with plan_context(mesh=mesh):     # a launch.mesh.Mesh of ranks
+        trainer.train()               # every launch routes over the mesh
+
 Contexts nest; inner contexts inherit every field they do not override
 (``plan_overrides`` merge, inner wins).  The context is thread-local, and a
 process-wide default serves the outermost level.
@@ -40,6 +43,16 @@ class PlanContext:
         dtype)`` cell (the cell key wins).  A pin applies only at its
         plan's exact logical shape and dtype; other launches of the same
         kernel fall through to the planner.
+    mesh:
+        a ``launch.mesh.Mesh`` of ranks, an ``{axis: size}`` mapping, or
+        ``(axis, size)`` pairs.  It keys the plan cache and widens the
+        minor-dim padding of global plans over the model axis; only a
+        ``Mesh`` of more than one rank routes launches through the SPMD
+        path (``api.spmd``).  ``None`` plans for one device.
+    spmd:
+        whether ``launch`` may route over such a mesh;
+        ``plan_context(spmd=False)`` keeps the mesh for planning and forces
+        every launch in the scope to stay on the rank's own data.
     """
 
     smem_budget: int | None = None
@@ -48,6 +61,8 @@ class PlanContext:
     plan_overrides: Mapping[Any, KernelPlan] = dataclasses.field(
         default_factory=dict
     )
+    mesh: Any = None
+    spmd: bool = True
 
     def evolve(self, **changes) -> "PlanContext":
         """Derived context: fields passed as ``_UNSET`` keep this context's
@@ -87,13 +102,25 @@ def current_context() -> PlanContext:
 
 
 @contextlib.contextmanager
-def plan_context(*, smem_budget=_UNSET, sm_count=_UNSET, model=_UNSET,
-                 plan_overrides=_UNSET):
+def use_context(ctx: PlanContext):
+    """Enter ``ctx`` itself (a context captured on another thread, as an
+    autograd backward re-enters its forward's)."""
+    st = _stack()
+    st.append(ctx)
+    try:
+        yield ctx
+    finally:
+        st.pop()
+
+
+@contextlib.contextmanager
+def plan_context(mesh=_UNSET, *, smem_budget=_UNSET, sm_count=_UNSET,
+                 model=_UNSET, plan_overrides=_UNSET, spmd=_UNSET):
     """Enter a derived ``PlanContext``; unspecified fields inherit from the
     enclosing context (or the process default at the outermost level)."""
     ctx = current_context().evolve(
-        smem_budget=smem_budget, sm_count=sm_count, model=model,
-        plan_overrides=plan_overrides)
+        mesh=mesh, smem_budget=smem_budget, sm_count=sm_count, model=model,
+        plan_overrides=plan_overrides, spmd=spmd)
     st = _stack()
     st.append(ctx)
     try:

@@ -1,6 +1,6 @@
 """The kernel-launch path: ``launch(kernel, *tensors, **scalars)``.
 
-Counterpart of ``repro.api.dispatch`` (single-device path).
+Counterpart of ``repro.api.dispatch``.
 
     from repro_torch import api
     a = api.launch("stream.triad", b, c, s=3.0)
@@ -10,19 +10,35 @@ derives the logical planning shape from the tensors, asks the analytic
 planner for the memoized ``KernelPlan`` under the ambient ``PlanContext``,
 checks that the plan agrees with the tensors, and hands both to the
 registered body.  Every family therefore plans through one policy.
+
+When the ambient mesh is a ``launch.mesh.Mesh`` of more than one rank,
+``launch`` routes through the SPMD path instead (``api.spmd``): the tensors
+are this rank's shards, the kernel's ``Partitioning`` says how they were cut,
+and each rank plans its own local shape.  Single-rank programs, and scopes
+under ``plan_context(spmd=False)``, keep the direct path.
 """
 from __future__ import annotations
 
+import warnings
+
+import torch
+
 from repro_torch.api import context as context_lib
 from repro_torch.api import registry as registry_lib
+from repro_torch.api import spmd as spmd_lib
 from repro_torch.core.planner import KernelPlan, dtype_name, plan_kernel
 
 __all__ = ["launch", "plan_for", "plan_tile", "explain", "ref"]
 
 
-def plan_for(kernel: str, shape, dtype, *, ctx=None) -> KernelPlan:
+def plan_for(kernel: str, shape, dtype, *, ctx=None,
+             local: bool = False) -> KernelPlan:
     """The plan ``launch`` would use for ``kernel`` on (shape, dtype) under
-    the ambient (or given) ``PlanContext``.  Unknown kernels fail here."""
+    the ambient (or given) ``PlanContext``.  Unknown kernels fail here.
+
+    ``local=True`` plans one rank's launch on the SPMD path: the shape is
+    the rank's shard, so the minor dim is not widened again for the mesh's
+    model axis; the mesh still keys the memo entry."""
     entry = registry_lib.resolve(kernel)
     ctx = ctx or context_lib.current_context()
     # A (kernel, shape, dtype) cell key wins over a bare kernel-name pin.
@@ -34,9 +50,11 @@ def plan_for(kernel: str, shape, dtype, *, ctx=None) -> KernelPlan:
         return override
     return plan_kernel(
         entry.name, shape, dtype,
+        mesh=ctx.mesh,
         model=ctx.model,
         smem_budget=ctx.smem_budget,
         sm_count=ctx.sm_count,
+        local=local,
     )
 
 
@@ -85,18 +103,74 @@ def _validate(entry, plan: KernelPlan, shape, dtype) -> None:
         )
 
 
-def launch(kernel: str, *tensors, plan: KernelPlan | None = None, **scalars):
+def launch(kernel: str, *tensors, plan: KernelPlan | None = None,
+           global_shapes=None, **scalars):
     """Run a registered kernel on ``tensors`` under the ambient PlanContext.
 
-    ``plan`` pins an explicit ``KernelPlan`` (still validated); otherwise
-    the context's ``plan_overrides`` and then the memoized planner decide.
-    Scalars pass through as keywords to the registered body."""
+    Under an ambient mesh of ranks (and no pinned ``plan``) the tensors are
+    this rank's shards and the launch partitions over the mesh by the
+    kernel's ``Partitioning`` (``api.spmd.spmd_launch``); ``global_shapes``
+    gives the global extents the shards were cut from where the rank
+    cannot infer them (one tuple an operand, ``None`` for an extent to
+    infer).  Otherwise ``plan`` pins an explicit ``KernelPlan`` (still
+    validated), else the context's ``plan_overrides`` and then the memoized
+    planner decide.  Scalars pass through as keywords to the registered
+    body."""
     entry = registry_lib.resolve(kernel)
+    if plan is None:
+        mesh = spmd_lib.spmd_mesh()
+        if mesh is not None:
+            _warn_spmd_shadowed_overrides(entry, mesh, tensors, scalars,
+                                          global_shapes)
+            return spmd_lib.spmd_launch(entry, mesh, tensors, scalars,
+                                        global_shapes)
     shape, dtype = entry.plan_args(*tensors, **scalars)
     if plan is None:
         plan = plan_for(kernel, shape, dtype)
     _validate(entry, plan, shape, dtype)
     return entry.body(plan, *tensors, **scalars)
+
+
+_SPMD_OVERRIDE_WARNED: set[tuple] = set()
+
+
+def _warn_spmd_shadowed_overrides(entry, mesh, tensors, scalars,
+                                  global_shapes=None) -> None:
+    """Under the SPMD route plans resolve against each rank's *local*
+    shape, so a pin keyed at the global shape never matches.  Say so once
+    per (kernel, mesh), naming the offending cells; pins keyed at any other
+    shape are taken for per-shard cells and do not warn.  The global shape
+    comes from the shards as ``spmd_launch`` derives it."""
+    ctx = context_lib.current_context()
+    keys = [k for k in ctx.plan_overrides
+            if k == entry.name
+            or (isinstance(k, tuple) and k and k[0] == entry.name)]
+    if not keys:
+        return
+    part = spmd_lib.partitioning_for(entry, len(tensors))
+    *_, shapes = spmd_lib.shard_specs(mesh, part.in_axes, tensors,
+                                      global_shapes)
+    gshape = tuple(int(s) for s in entry.plan_args(
+        *(torch.empty(s, dtype=t.dtype, device="meta")
+          for t, s in zip(tensors, shapes)), **scalars)[0])
+    offending = sorted(
+        str(k) for k in keys
+        if (tuple(ctx.plan_overrides[k].logical_shape) == gshape
+            if k == entry.name else tuple(k[1]) == gshape))
+    if not offending:
+        return
+    mesh_key = (entry.name, tuple(mesh.axis_names), tuple(mesh.shape))
+    if mesh_key in _SPMD_OVERRIDE_WARNED:
+        return
+    _SPMD_OVERRIDE_WARNED.add(mesh_key)
+    warnings.warn(
+        f"plan override(s) for {entry.name!r} under SPMD mesh "
+        f"{mesh.axis_sizes}: overrides are matched against each rank's "
+        f"local shapes, and these cell key(s) are keyed at the launch's "
+        f"global shape {gshape} -- they stay inert unless a shard's local "
+        f"shape coincides with it (offending cell key(s): "
+        f"{', '.join(offending)}).  Pin plans at the per-shard shapes on "
+        f"SPMD runs", RuntimeWarning, stacklevel=3)
 
 
 def ref(kernel: str, *tensors, **scalars):

@@ -13,6 +13,11 @@ kernel cannot drift), the plain ``ref`` oracle with ``launch``'s calling
 convention, ``plan_args`` (the logical planning shape and dtype of a call)
 and the launch body, which takes the resolved ``KernelPlan`` first.
 
+A kernel also declares how it partitions over a mesh
+(``partitioning``, an ``api.spmd.Partitioning``) and, when its shards must
+talk, the shard body that does it (``spmd_body``, which takes an
+``api.spmd.ShardContext`` first).
+
 Entries resolve lazily: ``resolve("jacobi")`` imports
 ``repro_torch.kernels.jacobi.ops`` on first use.
 """
@@ -22,6 +27,7 @@ import dataclasses
 import importlib
 from typing import Callable
 
+from repro_torch.api.spmd import Partitioning
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.autotune import StreamSignature
 
@@ -37,17 +43,6 @@ FAMILY_MODULES: dict[str, str] = {
 
 
 @dataclasses.dataclass(frozen=True)
-class Partitioning:
-    """How a kernel partitions over a multi-device mesh: one logical-axis
-    template per operand and one for the output (``repro.api.spmd``'s
-    vocabulary).  Accepted and stored; the launch path is single-device
-    until the SPMD slice."""
-
-    in_axes: tuple[tuple, ...]
-    out_axes: tuple = (...,)
-
-
-@dataclasses.dataclass(frozen=True)
 class KernelEntry:
     """One registered kernel: analysis + oracle + launch body."""
 
@@ -57,6 +52,7 @@ class KernelEntry:
     plan_args: Callable      # (*arrays, **scalars) -> (shape, dtype)
     body: Callable           # (plan, *arrays, **scalars) -> result
     partitioning: Partitioning | None = None
+    spmd_body: Callable | None = None   # (ShardContext, *arrays, **scalars)
 
 
 _REGISTRY: dict[str, KernelEntry] = {}
@@ -71,12 +67,17 @@ def register_kernel(
     partitioning: Partitioning | None = None,
     cta_buffers: int | None = None,
     col_tiled: bool = False,
+    spmd_body: Callable | None = None,
 ):
     """Decorator: declare a kernel family's streams and launch body.
 
     ``cta_buffers`` and ``col_tiled`` feed the planner's block geometry
-    (``core.planner.register_family``).  A name registered again by another
-    function raises instead of replacing the kernel.
+    (``core.planner.register_family``).  ``partitioning`` is the SPMD
+    placement rule (omitted: replicated under a mesh); ``spmd_body`` the
+    kernel-owned shard body for partitionings that communicate, which needs
+    a ``partitioning`` to shard anything in the first place.  A name
+    registered again by another function raises instead of replacing the
+    kernel.
     """
 
     def deco(body: Callable) -> Callable:
@@ -97,6 +98,11 @@ def register_kernel(
                 f"kernel {name!r}: partitioning must be a Partitioning, "
                 f"got {type(partitioning).__name__}"
             )
+        if spmd_body is not None and partitioning is None:
+            raise TypeError(
+                f"kernel {name!r}: spmd_body without a partitioning is "
+                f"unreachable -- declare which axes shard first"
+            )
         planner_lib.register_family(name, signature, cta_buffers=cta_buffers,
                                     col_tiled=col_tiled)
         _REGISTRY[name] = KernelEntry(
@@ -106,6 +112,7 @@ def register_kernel(
             plan_args=plan_args,
             body=body,
             partitioning=partitioning,
+            spmd_body=spmd_body,
         )
         return body
 

@@ -13,6 +13,11 @@ cast back to the template's dtype on restore.
 The device-to-host copy happens on the caller's thread; the file write on
 a writer thread whose failure is re-raised from the next ``wait()``,
 ``save()`` or ``restore_latest()``.
+
+A checkpoint is always in the single-device layout.  On a mesh of ranks the
+trainer gathers the shards and one rank writes (``runtime.trainer``); a
+restore hands ``cut`` each global array to slice it to the restoring rank's
+block, so a checkpoint moves between a mesh and one device either way.
 """
 from __future__ import annotations
 
@@ -45,17 +50,20 @@ def _flatten(tree) -> dict[str, np.ndarray]:
     return out
 
 
-def _unflatten_into(tree, flat: dict[str, np.ndarray], path=()):
+def _unflatten_into(tree, flat: dict[str, np.ndarray], path=(), cut=None):
     """A tree shaped like ``tree`` holding the arrays of ``flat``, each
-    cast to its template leaf's dtype and shape and put on its device.  A
-    leaf the checkpoint lacks raises ``KeyError``."""
+    cut by ``cut(path, array)`` when given, cast to its template leaf's
+    dtype and shape and put on its device.  A leaf the checkpoint lacks
+    raises ``KeyError``."""
     out = {}
     for k, v in tree.items():
         p = path + (k,)
         if isinstance(v, dict):
-            out[k] = _unflatten_into(v, flat, p)
+            out[k] = _unflatten_into(v, flat, p, cut)
             continue
         arr = flat[_key(p)]
+        if cut is not None:
+            arr = cut(p, arr)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         out[k] = t.to(v.dtype).reshape(v.shape).to(v.device)
     return out
@@ -139,17 +147,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any) -> Any:
+    def restore(self, step: int, like: Any, *, cut=None) -> Any:
         """Restore into the structure, dtypes, shapes and devices of
-        ``like``."""
+        ``like``, each saved array first cut by ``cut(path, array)`` when
+        given (a rank's block of the single-device layout)."""
         self.wait()
         path = os.path.join(self.dir, f"step_{step:08d}",
                             f"shard_{PROCESS}.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
-        return _unflatten_into(like, flat)
+        return _unflatten_into(like, flat, cut=cut)
 
-    def restore_latest(self, like: Any) -> tuple[int, Any] | None:
+    def restore_latest(self, like: Any, *, cut=None
+                       ) -> tuple[int, Any] | None:
         # Settle an in-flight async save first: a save() scheduled before
         # this call must be selectable (the trainer's failure path restores
         # right after saves).
@@ -157,4 +167,4 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None
-        return step, self.restore(step, like)
+        return step, self.restore(step, like, cut=cut)

@@ -1,6 +1,6 @@
 """Core: the paper's analytic data-layout optimization on a Hopper machine
-model.  Counterpart of ``repro.core`` (single-device planner and the
-segmented container)."""
+model.  Counterpart of ``repro.core`` (the planner, with its mesh-aware and
+shard-local plans, and the segmented container)."""
 from repro_torch.core.aliasing import InterleavedMemoryModel, Stream, analytic_skews
 from repro_torch.core.autotune import LayoutPlan, StreamSignature, plan_streams
 from repro_torch.core.layout import (
@@ -14,6 +14,7 @@ from repro_torch.core.planner import (
     KernelPlan,
     clear_plan_cache,
     explain,
+    invalidate_mesh_plans,
     plan_cache_info,
     plan_kernel,
     register_family,
@@ -31,6 +32,6 @@ __all__ = [
     "LayoutPlan", "StreamSignature", "plan_streams",
     "LayoutPolicy", "PaddedDim", "hopper_limits", "round_up", "vector_unit",
     "KernelPlan", "plan_kernel", "plan_cache_info", "clear_plan_cache",
-    "explain", "register_family",
+    "explain", "register_family", "invalidate_mesh_plans",
     "SegmentedArray", "PageGeometry", "seg_map", "seg_triad", "split_lengths",
 ]

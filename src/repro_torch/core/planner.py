@@ -16,13 +16,20 @@ element size) and the planner derives, in closed form and without search,
     the interleaved-memory conflict model.
 
 Plans are memoized in a process-level cache keyed on
-``(kernel, shape, dtype, model, smem_budget, sm_count)``.
+``(kernel, shape, dtype, mesh, model, smem_budget, sm_count, local)``.
+
+Under a mesh (``api.plan_context(mesh=)``) a *global* plan widens the minor
+dim so every model-axis shard keeps whole 16-B vectors, and a *local* plan
+(``local=True``: one rank's shard under the SPMD path) pads to the plain
+vector width, since a shard has no shard boundary inside it.  A local plan
+also prices the collectives of its launch (``predicted_comm_bytes``, the
+ring cost model of ``COMM_MODEL``).
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -93,6 +100,43 @@ COL_TILED = {"xent"}
 # bytes, so a narrow row does not pay a CTA's reduction and launch alone;
 # a row this wide or wider is one CTA's block.
 COL_TILED_CTA_BYTES = 64 * 1024
+
+
+# ---------------------------------------------------------------------------
+# Predicted interconnect traffic (SPMD launches)
+# ---------------------------------------------------------------------------
+# Per-rank wire bytes one SPMD launch of a *local* plan moves, under the
+# ring cost model (the reference's formulas):
+#
+#     all-reduce           2 (N-1)/N x payload
+#
+# The mesh-axis names are the ``parallel.rules.DEFAULT_RULES`` targets the
+# kernels' partitionings resolve to ("batch" -> data, "vocab" -> model).
+# The model assumes the declared partitioning engaged; a divisibility
+# fallback to replication moves fewer bytes.  Families absent here
+# communicate nothing (batch-parallel shards are independent); the Jacobi
+# and LBM halo exchanges come with their shard bodies (ROADMAP A11).
+
+
+def _ring_all_reduce_bytes(payload: int, n: int) -> int:
+    return int(2 * (n - 1) / n * payload) if n > 1 else 0
+
+
+def _comm_xent(plan: "KernelPlan", sizes: Mapping[str, int]) -> int:
+    # Vocab-parallel lse combine: pmax(m) + psum(l) + psum(label logit),
+    # three fp32 vectors over the local token rows, all-reduced across the
+    # model axis; plus the 4-byte scalar pmean of the per-shard NLL over the
+    # batch axes.
+    mv = sizes.get("model", 1)
+    d = sizes.get("data", 1)
+    rows = int(plan.logical_shape[0])
+    return (_ring_all_reduce_bytes(3 * rows * 4, mv)
+            + _ring_all_reduce_bytes(4, d))
+
+
+COMM_MODEL: dict[str, Callable[["KernelPlan", Mapping[str, int]], int]] = {
+    "xent": _comm_xent,
+}
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -169,6 +213,13 @@ class KernelPlan:
     # Minor-dim unit the width is a multiple of: the dtype's vector unit,
     # or the fp32 unit when the narrow-dtype rule took the fp32 geometry.
     minor_unit: int = 128
+    # ((axis, size), ...) of the mesh the plan was made under; () for one
+    # device.
+    mesh: tuple[tuple[str, int], ...] = ()
+    # True for one rank's shard under the SPMD path (``plan_for(...,
+    # local=True)``): the minor dim was not widened for the model axis, and
+    # ``predicted_comm_bytes`` describes the shard's collectives.
+    local: bool = False
     # "analytic" (the closed form) or where a pinned plan came from.
     provenance: str = dataclasses.field(default="analytic", compare=False)
 
@@ -244,6 +295,17 @@ class KernelPlan:
         ``predicted_hbm_bytes`` is what the padding costs per launch."""
         return self._traffic_bytes(self.logical_elems, self.logical_shape)
 
+    @property
+    def predicted_comm_bytes(self) -> int:
+        """Per-rank interconnect bytes one SPMD launch of this plan moves
+        (ring cost model, ``COMM_MODEL``).  Nonzero only for *local* plans
+        under a mesh: a global plan describes the single-device path, which
+        communicates nothing."""
+        if not self.local or not self.mesh:
+            return 0
+        fn = COMM_MODEL.get(self.kernel)
+        return 0 if fn is None else fn(self, dict(self.mesh))
+
     def explain(self) -> str:
         """Human-readable report: predicted balance, waste, block geometry."""
         sig = self.signature
@@ -262,7 +324,11 @@ class KernelPlan:
             f" waste {self.waste:.1%}"
             f" ({self.padded_elems - self.logical_elems} pad elems)\n"
             f"  predicted traffic {self.predicted_hbm_bytes}B"
-            f" (logical {self.predicted_logical_bytes}B)"
+            f" (logical {self.predicted_logical_bytes}B,"
+            f" comm {self.predicted_comm_bytes}B)"
+            + ("" if not self.local
+               else f"\n  local shard plan for mesh "
+                    f"{dict(self.mesh) or '(none)'}")
             + ("" if self.provenance == "analytic"
                else f"\n  source: {self.provenance}")
         )
@@ -278,21 +344,41 @@ _LOCK = threading.RLock()
 _DEFAULT_MODEL = InterleavedMemoryModel()
 
 
+def _mesh_key(mesh) -> tuple[tuple[str, int], ...]:
+    """``((axis, size), ...)`` of a ``launch.mesh.Mesh``, a mapping or
+    pairs; () for none."""
+    if mesh is None:
+        return ()
+    if hasattr(mesh, "axis_names") and hasattr(mesh, "shape"):
+        return tuple((str(a), int(n)) for a, n in zip(mesh.axis_names,
+                                                      mesh.shape))
+    if isinstance(mesh, Mapping):
+        return tuple(sorted((str(k), int(v)) for k, v in mesh.items()))
+    return tuple((str(k), int(v)) for k, v in mesh)
+
+
 def plan_kernel(
     kernel: str,
     shape,
     dtype,
     *,
+    mesh=None,
     model: InterleavedMemoryModel | None = None,
     smem_budget: int | None = None,
     sm_count: int | None = None,
+    local: bool = False,
 ) -> KernelPlan:
     """Memoized analytic plan for ``kernel`` on a logical ``shape``/``dtype``.
 
     ``smem_budget`` (per-CTA bytes) and ``sm_count`` default to the current
     CUDA device's limits, or the H100 data sheet when there is none
     (``layout.hopper_limits``); both are normally supplied by the ambient
-    ``repro_torch.api.PlanContext``.
+    ``repro_torch.api.PlanContext``, as is ``mesh`` (a ``Mesh``, a mapping
+    or ``(axis, size)`` pairs), which widens a 2-D plan's minor dim so each
+    model-axis shard keeps whole vectors.  ``local=True`` plans one rank's
+    shard under the SPMD path: the shape is already a slice, so its minor
+    dim is not widened again; the mesh still keys the memo, so local plans
+    never collide with global plans of the same shape.
     """
     if kernel not in FAMILIES:
         raise KeyError(
@@ -309,14 +395,17 @@ def plan_kernel(
         raise ValueError(f"smem_budget must be positive, got {smem_budget}")
     if sms <= 0:
         raise ValueError(f"sm_count must be positive, got {sm_count}")
-    key = (kernel, tuple(int(s) for s in shape), name, model, budget, sms)
+    mesh_key = _mesh_key(mesh)
+    key = (kernel, tuple(int(s) for s in shape), name, mesh_key, model,
+           budget, sms, bool(local))
     with _LOCK:
         plan = _CACHE.get(key)
         if plan is not None:
             _STATS["hits"] += 1
             return plan
         _STATS["misses"] += 1
-        plan = _plan_uncached(kernel, key[1], name, model, budget, sms)
+        plan = _plan_uncached(kernel, key[1], name, model, budget, sms,
+                              mesh_key=mesh_key, local=bool(local))
         _CACHE[key] = plan
         return plan
 
@@ -333,12 +422,26 @@ def clear_plan_cache() -> None:
         _STATS["hits"] = _STATS["misses"] = 0
 
 
-def explain(kernel: str, shape, dtype, *,
+def invalidate_mesh_plans(mesh) -> int:
+    """Drop every memoized plan keyed to ``mesh`` (global and local cells);
+    returns the count.  Plans for other meshes and the single-device cells
+    survive: a topology change makes only its own mesh's plans stale."""
+    if mesh is None:
+        return 0
+    mesh_key = _mesh_key(mesh)
+    with _LOCK:
+        stale = [k for k in _CACHE if k[3] == mesh_key]
+        for k in stale:
+            del _CACHE[k]
+        return len(stale)
+
+
+def explain(kernel: str, shape, dtype, *, mesh=None,
             model: InterleavedMemoryModel | None = None,
             smem_budget: int | None = None,
             sm_count: int | None = None) -> str:
     """Convenience: plan and render the report in one call."""
-    return plan_kernel(kernel, shape, dtype, model=model,
+    return plan_kernel(kernel, shape, dtype, mesh=mesh, model=model,
                        smem_budget=smem_budget, sm_count=sm_count).explain()
 
 
@@ -348,20 +451,26 @@ def explain(kernel: str, shape, dtype, *,
 
 def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
                    model: InterleavedMemoryModel, budget: int,
-                   sms: int) -> KernelPlan:
+                   sms: int, *, mesh_key=(), local: bool = False
+                   ) -> KernelPlan:
     size = itemsize(name)
     sig = dataclasses.replace(FAMILIES[kernel], elem_bytes=size)
     n_buffers = CTA_BUFFERS.get(kernel, sig.n_streams + 1)
     unit = vector_unit(size)
+    # A shard-local plan pads the minor dim to the plain vector unit: the
+    # tensor-parallel widening aligns *global* arrays to their shard
+    # boundaries, and one rank's slice has no shard boundary in it.
+    tp = 1 if local else max(dict(mesh_key).get("model", 1), 1)
     if kernel.startswith("lbm."):
         padded, block = _plan_lbm(kernel, shape, unit)
     elif kernel in COL_TILED:
-        padded, block = _plan_col_tiled(kernel, shape, size, sms)
+        padded, block = _plan_col_tiled(kernel, shape, size, sms, tp)
         unit = VEC_BYTES // size
     elif len(shape) == 1:
         padded, block = _plan_1d(shape[0], size, unit, n_buffers, budget, sms)
     elif len(shape) == 2:
-        padded, block = _plan_2d(shape, size, unit, n_buffers, budget, sms)
+        padded, block = _plan_2d(shape, size, unit, n_buffers, budget, sms,
+                                 tp)
     else:
         raise ValueError(f"{kernel}: cannot plan rank-{len(shape)} shape {shape}")
     plan = KernelPlan(
@@ -374,6 +483,8 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
         layout=_plan_layout(sig, model),
         naive_balance=_naive_balance(sig, model),
         minor_unit=unit,
+        mesh=mesh_key,
+        local=local,
     )
     # Narrow-dtype waste guarantee: a bf16 plan never pays more padding
     # bytes than the fp32 plan of the same logical shape.  The bf16 vector
@@ -384,8 +495,9 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
     # cheaper of the two.  A column-tiled plan pads under one 16-B vector a
     # row at every dtype, and the fp32 geometry is not 16-B aligned at bf16.
     if size < 4 and kernel not in COL_TILED:
-        f32 = plan_kernel(kernel, shape, torch.float32, model=model,
-                          smem_budget=budget, sm_count=sms)
+        f32 = plan_kernel(kernel, shape, torch.float32, mesh=mesh_key,
+                          model=model, smem_budget=budget, sm_count=sms,
+                          local=local)
         if plan.waste_bytes * 4 > f32.waste_bytes * size:
             plan = dataclasses.replace(
                 plan, padded_shape=f32.padded_shape,
@@ -450,11 +562,13 @@ def _plan_1d(n: int, size: int, unit: int, n_buffers: int, budget: int,
 
 
 def _plan_2d(shape: tuple[int, ...], size: int, unit: int, n_buffers: int,
-             budget: int, sms: int) -> tuple[tuple[int, int], tuple[int, int]]:
+             budget: int, sms: int, tp: int = 1
+             ) -> tuple[tuple[int, int], tuple[int, int]]:
     """(rows, cols) kernel: rows as they are, cols padded to the vector
-    unit (the row pitch keeps every row 16-B aligned)."""
+    unit (the row pitch keeps every row 16-B aligned), times ``tp`` when
+    the minor dim shards over a model axis of that size."""
     r, c = shape
-    width = round_up(max(int(c), 1), unit)
+    width = round_up(max(int(c), 1), unit * tp)
     rows, brows, bcols = _fit_block(max(int(r), 1), width, size, unit,
                                     n_buffers, budget, sms)
     return (rows, width), (brows, bcols)
@@ -492,7 +606,8 @@ def _plan_lbm(kernel: str, shape: tuple[int, ...],
 
 
 def _plan_col_tiled(kernel: str, shape: tuple[int, ...], size: int,
-                    sms: int) -> tuple[tuple[int, int], tuple[int, int]]:
+                    sms: int, tp: int = 1
+                    ) -> tuple[tuple[int, int], tuple[int, int]]:
     """(rows, cols) online-softmax layout: a CTA owns whole rows and folds
     each in passes of its ``CTA_THREADS`` threads, one 16-B vector a thread.
 
@@ -500,7 +615,8 @@ def _plan_col_tiled(kernel: str, shape: tuple[int, ...], size: int,
       every row starts 16-B aligned; a width already a whole number of
       vectors is not padded, and the caller's tensor reaches the kernel
       without a copy.  Rows are not padded either: the kernel stops at the
-      last row.
+      last row.  Under a model axis of ``tp`` ranks the width pads to
+      ``tp`` whole vectors, so every vocab shard is whole vectors too.
     * block: (rows a CTA walks, the columns one pass covers).  A CTA holds
       one pass in flight whatever its row count, so no shared-memory budget
       bounds the rows; they are the fewest that stream
@@ -511,7 +627,7 @@ def _plan_col_tiled(kernel: str, shape: tuple[int, ...], size: int,
     if len(shape) != 2:
         raise ValueError(f"{kernel}: needs a (rows, cols) shape, got {shape}")
     rows, cols = max(int(shape[0]), 1), max(int(shape[1]), 1)
-    width = round_up(cols, VEC_BYTES // size)
+    width = round_up(cols, (VEC_BYTES // size) * tp)
     fill = rows // (CTAS_PER_SM * sms)
     want = cdiv(COL_TILED_CTA_BYTES, width * size)
     brows = max(1, min(want, fill, rows))

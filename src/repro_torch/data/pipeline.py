@@ -1,12 +1,19 @@
 """Deterministic synthetic data pipeline.
 
-Counterpart of ``repro.data.pipeline`` (single process).  Every batch is a
-pure function of (seed, step), so a restarted job regenerates exactly the
-same stream from its checkpointed step -- the data-side half of fault
-tolerance.  The tokens are made with numpy by the reference's own
-generator (``_tokens_for``, copied), so a batch is bit-identical to the
-reference's for the same (seed, step), and then moved to the device.  The
-per-host ``sharding=`` branch waits for the SPMD slice (ROADMAP A11).
+Counterpart of ``repro.data.pipeline``.  Every batch is a pure function of
+(seed, step), so a restarted job regenerates exactly the same stream from
+its checkpointed step -- the data-side half of fault tolerance.  The tokens
+are made with numpy by the reference's own generator (``_tokens_for``,
+copied), so a batch is bit-identical to the reference's for the same
+(seed, step), and then moved to the device.
+
+With a ``sharding`` (a ``parallel.specs.NamedSharding`` of the batch) a
+rank gets its own rows of the global batch: the rows the spec gives it
+along the data axis, cut from the global batch, so a data-parallel run
+trains on exactly the single-device run's tokens.  The reference makes
+each shard's rows by calling the generator on the shard's row indices
+alone, which draws other numbers than the global batch does (ROADMAP §C);
+the port does not copy that.
 
 The generator is a tiny LCG-mixed Markov stream (not iid uniform) so the
 cross-entropy actually decreases during the example runs.
@@ -20,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.util import resolve_device
+from repro_torch.parallel.specs import shard_leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,12 +53,18 @@ def _tokens_for(cfg: DataConfig, step: int, rows: np.ndarray) -> np.ndarray:
     return np.where(mask, noise, toks).astype(np.int32)
 
 
-def make_batch(cfg: DataConfig, step: int, *, device=None) -> dict:
-    """Global batch for ``step`` as int32 tensors on ``device`` (CUDA unless
-    named): ``tokens`` and ``labels`` (the tokens shifted by one), and the
-    seeded ``img_embeds``/``frames`` when the config asks for them."""
-    dev = resolve_device(device)
+def make_batch(cfg: DataConfig, step: int, sharding=None, *,
+               device=None) -> dict:
+    """Batch for ``step`` as int32 tensors on ``device`` (CUDA unless named;
+    the sharding's mesh device when there is one): ``tokens`` and
+    ``labels`` (the tokens shifted by one), and the seeded
+    ``img_embeds``/``frames`` when the config asks for them.  Without a
+    ``sharding`` the global batch; with one, this rank's rows of it."""
+    dev = resolve_device(device if device is not None or sharding is None
+                         else sharding.mesh.device)
     full = _tokens_for(cfg, step, np.arange(cfg.global_batch))
+    if sharding is not None:
+        full = shard_leaf(full, sharding.spec, sharding.mesh)
     batch = {
         "tokens": torch.from_numpy(np.ascontiguousarray(full[:, :-1])).to(dev),
         "labels": torch.from_numpy(np.ascontiguousarray(full[:, 1:])).to(dev),

@@ -114,14 +114,34 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
 
 
 def train_state_from_jax(state: Mapping[str, Any], cfg, *,
-                         device=None) -> dict:
+                         device=None, mesh=None, rank=None,
+                         rules=None) -> dict:
     """The port's train state ``{"params", "opt"}`` for model config
     ``cfg`` holding a reference train state (``steps.init_train_state``'s
     tree, or a trained one, as numpy arrays): the parameters as
     ``params_from_jax`` carries them, the AdamW ``step``, moments ``m``/``v``
     and fp32 ``master`` copy leaf for leaf with their dtypes, on ``device``
-    (CUDA unless named)."""
+    (CUDA unless named).
+
+    With a ``mesh`` (a ``launch.mesh.Mesh``, or an ``{axis: size}``
+    mapping with the ``rank`` to cut for) the state is that rank's blocks,
+    cut by ``parallel.specs.state_specs`` under ``rules`` (default: the
+    ambient rules, else ``make_rules(tensor_parallel=False)``)."""
     device = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.models import transformer
+        from repro_torch.parallel import rules as rules_lib
+        from repro_torch.parallel import specs as specs_lib
+
+        full = train_state_from_jax(state, cfg, device=device)
+        table = rules_lib.restrict_to_mesh(
+            rules or rules_lib.current_rules()
+            or rules_lib.make_rules(tensor_parallel=False), mesh)
+        specs = specs_lib.state_specs(
+            transformer.param_defs(cfg), table,
+            master="master" in state["opt"],
+            axis_sizes=rules_lib.axis_sizes_of(mesh))
+        return specs_lib.shard_tree(full, specs, mesh, rank)
 
     def tree(t):
         return {k: tree(v) if isinstance(v, Mapping)

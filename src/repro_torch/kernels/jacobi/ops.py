@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api import dispatch
-from repro_torch.api.registry import Partitioning, register_kernel
+from repro_torch.api.registry import register_kernel
+from repro_torch.api.spmd import Partitioning, halo_body_pending
 from repro_torch.core.autotune import StreamSignature
 from repro_torch.core.planner import KernelPlan
 from repro_torch.kernels.jacobi import kernel, ref
@@ -45,9 +46,11 @@ def pitched(src: torch.Tensor, plan: KernelPlan) -> torch.Tensor:
                  ref=ref.jacobi_step, plan_args=_plan_args,
                  cta_buffers=4,
                  # the stencil couples neighbouring rows: the row split
-                 # needs a one-row halo exchange (SPMD slice)
+                 # needs a one-row halo exchange (not ported: a launch over
+                 # a mesh raises)
                  partitioning=Partitioning(in_axes=(("batch", None),),
-                                           out_axes=("batch", None)))
+                                           out_axes=("batch", None)),
+                 spmd_body=halo_body_pending)
 def _launch_jacobi(plan, src):
     """One 5-point sweep on an (N, M) grid (boundaries copied).  A grid
     already at the plan's pitch is read in place; any other is copied into

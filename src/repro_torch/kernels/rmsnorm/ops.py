@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.api.registry import Partitioning, register_kernel
+from repro_torch.api.registry import register_kernel
+from repro_torch.api.spmd import Partitioning
 from repro_torch.core.autotune import StreamSignature
 from repro_torch.kernels.rmsnorm import kernel, ref
 

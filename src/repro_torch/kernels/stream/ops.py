@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.api.registry import Partitioning, register_kernel
+from repro_torch.api.registry import register_kernel
+from repro_torch.api.spmd import Partitioning
 from repro_torch.core.autotune import StreamSignature
 from repro_torch.kernels.stream import kernel, ref
 from repro_torch.kernels.util import (

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api import dispatch
-from repro_torch.api.registry import Partitioning, register_kernel
+from repro_torch.api.registry import register_kernel
+from repro_torch.api.spmd import Partitioning
 from repro_torch.core.autotune import StreamSignature
 from repro_torch.core.planner import KernelPlan
 from repro_torch.core.segmented import SegmentedArray, seg_map_into

@@ -4,8 +4,11 @@ Counterpart of ``repro.models.config``.  ``ModelConfig`` carries the
 logical dimensions; ``adtype`` is a ``torch.dtype``.  The port runs the
 dense family (``stages()``); the other families raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, before
-any parameter is made.  The mesh-padding engine (``padded_for_mesh``) goes
-with the SPMD slice (ROADMAP A11).
+any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
+engine: the physical config for a ``tp``-way model axis, with the Hopper
+``core.layout.LayoutPolicy`` in place of the TPU one (a sharded minor dim
+pads to ``tp`` warp-wide vector spans) and the logical vocab kept in
+``vocab_logical``.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import dataclasses
 from typing import Literal
 
 import torch
+
+from repro_torch.core.layout import LayoutPolicy
 
 Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
 
@@ -108,3 +113,57 @@ class ModelConfig:
         """Homogeneous layer runs, each one stacked stage."""
         require_ported(self.family, self.name)
         return [("dense", self.n_layers)]
+
+    # ---- layout engine ----------------------------------------------------
+    def padded_for_mesh(self, tp: int
+                        ) -> tuple["ModelConfig", dict[str, tuple[int, int]]]:
+        """Physical config for a tp-way model axis (the paper's technique).
+
+        Returns (new_config, changes) where changes[name] = (logical,
+        physical)."""
+        pol = LayoutPolicy(tp=tp)
+        changes: dict[str, tuple[int, int]] = {}
+
+        def upd(name: str, val: int, kind: str) -> int:
+            if val == 0:
+                return val
+            d = pol.plan({name: (val, kind)})[name]
+            if d.physical != d.logical:
+                changes[name] = (d.logical, d.physical)
+            return d.physical
+
+        kw: dict = {}
+        kw["d_ff"] = upd("d_ff", self.d_ff, "minor_sharded")
+        kw["vocab_size"] = upd("vocab_size", self.vocab_size, "vocab")
+        if kw["vocab_size"] != self.vocab_size:
+            kw["vocab_logical"] = self.vocab_size
+        # Attention heads.  SSM families keep their head structure (head
+        # count is architectural state granularity, not a layout choice).
+        if self.family != "ssm":
+            heads = pol.pad_count(self.n_heads, sharded=True).physical
+            if self.n_kv_heads == self.n_heads:       # MHA: pad jointly
+                kv = heads
+            elif self.n_kv_heads >= tp:               # GQA, shardable KV
+                kv = pol.pad_count(self.n_kv_heads, sharded=True).physical
+            else:                                      # GQA, replicated KV
+                kv = self.n_kv_heads
+            while heads % kv:                          # keep GQA ratio integral
+                heads += tp
+            if heads != self.n_heads:
+                changes["n_heads"] = (self.n_heads, heads)
+                kw["n_heads"] = heads
+            if kv != self.n_kv_heads:
+                changes["n_kv_heads"] = (self.n_kv_heads, kv)
+                kw["n_kv_heads"] = kv
+        if self.n_experts:
+            if self.expert_tp:
+                kw["moe_d_ff"] = upd("moe_d_ff", self.moe_d_ff,
+                                     "minor_sharded")
+            else:
+                kw["n_experts"] = upd("n_experts", self.n_experts,
+                                      "count_sharded")
+                kw["moe_d_ff"] = upd("moe_d_ff", self.moe_d_ff, "minor")
+        # keep per-head width stable: head_dim becomes explicit when heads pad
+        if "n_heads" in changes and self.head_dim is None:
+            kw["head_dim"] = self.d_model // self.n_heads
+        return dataclasses.replace(self, **kw), changes

@@ -13,6 +13,28 @@ before any parameter is made (ROADMAP A9).
 ``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
 (B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch.
 
+Under a mesh of ranks (an ambient ``launch.mesh.Mesh``, ``api.spmd``) the
+model is *vocab-parallel*, Megatron's layout: the tied embedding (V, d)
+shards its rows over the mesh axes the rules give "vocab", and so do the
+logits and the loss; everything between stays whole on every rank of a
+model line.  Three pieces carry it:
+
+  * the embedding lookup takes the tokens in this rank's rows
+    ``[off, off + V/M)`` and sums the rows over the vocab ranks (one rank
+    holds each token's row, the others add zeros); its backward is the
+    identity (``_SumOverVocab``);
+  * before the head, the activations enter the vocab-parallel region: the
+    forward is the identity and the backward sums dx over the vocab ranks
+    (``_EnterVocabParallel``), so the replicated body gets the same
+    gradient on every rank;
+  * ``XentFn`` launches ``xent`` over the mesh (B12 on each vocab shard and
+    the log-sum-exp combine) and differentiates it by the vocab-parallel
+    ``xent_grad``.
+
+Attention heads and the MLP stay whole (no tensor parallelism yet, ROADMAP
+A11): the model raises if the ambient rules shard "heads", "kv_heads",
+"mlp" or "expert" over a mesh axis of more than one rank.
+
 ``decode_step`` writes the KV caches in place (``models.blocks``) and
 returns the cache dict with ``idx`` advanced; callers that need the old
 cache keep a copy.
@@ -22,7 +44,9 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.api import context as context_lib
 from repro_torch.api import dispatch
+from repro_torch.api import spmd as spmd_lib
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.params import (
@@ -34,6 +58,7 @@ from repro_torch.models.params import (
     map_leaves,
     stack_defs,
 )
+from repro_torch.parallel import rules as rules_lib
 
 # ---------------------------------------------------------------------------
 # Parameter trees
@@ -107,14 +132,86 @@ def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
     return x + rs * h
 
 
+def vocab_parallel(cfg: ModelConfig):
+    """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes the
+    vocabulary shards over, or ``(None, ())`` outside a mesh or when the
+    vocab stays whole (a model axis of one rank, or a vocab that does not
+    divide).  Raises where the rules would shard a layer's heads or MLP,
+    which the port does not do yet."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is None:
+        return None, ()
+    table = rules_lib.restrict_to_mesh(
+        rules_lib.current_rules() or rules_lib.DEFAULT_RULES, mesh)
+    sizes = mesh.axis_sizes
+    for ax in rules_lib.TENSOR_PARALLEL_AXES:
+        axes = rules_lib.target_axes(table.get(ax))
+        if rules_lib.spec_size(axes, sizes) > 1:
+            raise NotImplementedError(
+                f"the rules shard {ax!r} over mesh axes {axes}: tensor "
+                f"parallelism of attention and MLP is not ported (ROADMAP "
+                f"A11); map {list(rules_lib.TENSOR_PARALLEL_AXES)} to None, "
+                f"as rules.make_rules(tensor_parallel=False) does")
+    s = rules_lib.spec("vocab", "embed", rules=table,
+                       shape=(cfg.vocab_size, cfg.d_model), axis_sizes=sizes)
+    return mesh, rules_lib.dim_axes(s, 2)[0]
+
+
+class _SumOverVocab(torch.autograd.Function):
+    """Forward: the sum over the vocab ranks; backward: the identity (each
+    rank's lookup gets the whole gradient of the summed embedding)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _EnterVocabParallel(torch.autograd.Function):
+    """Forward: the identity; backward: the sum of dx over the vocab ranks
+    (each rank's head shard gives its part of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), ctx.axes, "sum"), None, None
+
+
 def embed_tokens(params: Tree, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return params["embed"][tokens.to(torch.int64)] * _scalar(cfg.embed_scale,
-                                                             cfg.adtype)
+    emb = params["embed"]
+    tok = tokens.to(torch.int64)
+    mesh, axes = vocab_parallel(cfg)
+    if axes:
+        rows = emb.shape[0]
+        if rows * mesh.axis_size(axes) != cfg.vocab_size:
+            raise ValueError(
+                f"embed has {rows} rows: not this rank's shard of "
+                f"{cfg.vocab_size} over mesh axes {axes}")
+        local = tok - mesh.index(axes) * rows
+        hit = (local >= 0) & (local < rows)
+        x = torch.where(hit[..., None], emb[local.clamp(0, rows - 1)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+        x = _SumOverVocab.apply(x, mesh, axes)
+    else:
+        x = emb[tok]
+    return x * _scalar(cfg.embed_scale, cfg.adtype)
 
 
 def unembed(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits (..., V) fp32, or this rank's vocab shard of them under a
+    vocab-parallel mesh."""
     x = blocks.apply_norm(params["final_norm"], x, cfg)
+    mesh, axes = vocab_parallel(cfg)
+    if axes:
+        x = _EnterVocabParallel.apply(x, mesh, axes)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head) * _scalar(cfg.logit_scale, x.dtype)
     logits = logits.to(torch.float32)
@@ -165,23 +262,34 @@ def _xent_ref(logits: torch.Tensor, labels: torch.Tensor,
 class XentFn(torch.autograd.Function):
     """Cross-entropy through the registered kernel, differentiable: the
     forward is ``dispatch.launch("xent")`` (B11 on the card, whose output
-    carries no autograd history), the backward ``kernels.xent.ops
-    .xent_grad`` -- the counterpart of the reference's ``_xent_fused``
-    ``custom_vjp``.  Labels get no gradient."""
+    carries no autograd history; under a mesh the vocab-parallel shard body
+    with B12), the backward ``kernels.xent.ops.xent_grad`` -- the
+    counterpart of the reference's ``_xent_fused`` ``custom_vjp``.  Labels
+    get no gradient.  The backward may run on autograd's device thread, so
+    it re-enters the forward's plan context and rules (the mesh among
+    them) explicitly."""
 
     @staticmethod
-    def forward(ctx, logits, labels, logical_v):
+    def forward(ctx, logits, labels, logical_v, global_shapes=None):
         ctx.save_for_backward(logits, labels)
-        ctx.logical_v = logical_v
-        return dispatch.launch("xent", logits, labels, logical_v=logical_v)
+        ctx.logical_v, ctx.global_shapes = logical_v, global_shapes
+        ctx.scope = (context_lib.current_context(),
+                     rules_lib.current_rules(), rules_lib.current_mesh())
+        return dispatch.launch("xent", logits, labels, logical_v=logical_v,
+                               global_shapes=global_shapes)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.kernels.xent import ops as xent_ops
 
         logits, labels = ctx.saved_tensors
-        return (xent_ops.xent_grad(logits, labels, g,
-                                   logical_v=ctx.logical_v), None, None)
+        plan_ctx, rules, mesh = ctx.scope
+        with context_lib.use_context(plan_ctx), \
+                rules_lib.use_rules(rules, mesh):
+            grad = xent_ops.xent_grad(logits, labels, g,
+                                      logical_v=ctx.logical_v,
+                                      global_shapes=ctx.global_shapes)
+        return grad, None, None, None
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
@@ -190,14 +298,23 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
 
     Unmasked, the (T, V) rows go through ``XentFn`` (the registered
     ``xent`` kernel forward, ``xent_grad`` backward), as the reference
-    launches its Pallas kernel on one device.  Masked, the plain math: a
-    masked mean cannot be recovered from the kernel's all-token mean.
-    Padded vocab columns (``cfg.vocab_logical``) are masked by index."""
+    launches its Pallas kernel; under a mesh the logits are this rank's
+    vocab shard of ``cfg.vocab_size`` columns, and the loss the global
+    mean.  Masked, the plain math: a masked mean cannot be recovered from
+    the kernel's all-token mean (one device only).  Padded vocab columns
+    (``cfg.vocab_logical``) are masked by index."""
     v = logits.shape[-1]
     logical = getattr(cfg, "vocab_logical", 0) or cfg.vocab_size
+    on_mesh = spmd_lib.spmd_mesh() is not None
     if mask is None:
+        shapes = ((None, cfg.vocab_size), (None,)) if on_mesh else None
         return XentFn.apply(logits.reshape(-1, v),
-                            labels.reshape(-1).to(torch.int32), logical)
+                            labels.reshape(-1).to(torch.int32), logical,
+                            shapes)
+    if on_mesh:
+        raise NotImplementedError(
+            "a masked loss under a mesh of ranks is not ported (ROADMAP "
+            "A11): its plain math would see only this rank's vocab shard")
     lf = logits.to(torch.float32)
     viota = torch.arange(v, device=lf.device)
     if logical < v:

@@ -73,13 +73,17 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 def apply_updates(params: dict, grads: dict, state: dict, lr,
-                  cfg: AdamWConfig):
+                  cfg: AdamWConfig, *, gnorm: torch.Tensor | None = None):
     """One AdamW step.  Integer/perm leaves pass through untouched.
 
     Returns ``(params, state, {"grad_norm": ...})``.  ``lr`` is a float or
-    a 0-d tensor (a schedule's value at the state's step)."""
+    a 0-d tensor (a schedule's value at the state's step).  ``gnorm`` is the
+    global gradient norm when the caller has it: on a mesh the leaves are
+    this rank's shards, and the norm sums every shard's squares once
+    (``parallel.steps``)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     stepf = step.to(torch.float32)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,

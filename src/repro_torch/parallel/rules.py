@@ -1,0 +1,251 @@
+"""Logical-axis sharding rules (Megatron/MaxText style).
+
+Counterpart of ``repro.parallel.rules``.  Model code names its tensors'
+dims by *logical* axes ("batch", "vocab", "heads", ...); a rules table,
+chosen per mesh and per arch, maps each logical axis to zero or more mesh
+axes.  A spec is the port's own tuple, one entry per dim: ``None`` (whole on
+every rank), a mesh-axis name, or a tuple of them; trailing ``None``s are
+dropped, as a ``jax.sharding.PartitionSpec`` drops them.
+
+The reference applies a spec inside ``jit`` with ``with_sharding_constraint``
+(``shard``), and XLA inserts the collectives a layout change needs.  The
+port is multi-controller: each rank is a process that holds only its own
+shards, and nothing moves data between ranks unless the code says so.  So
+``shard`` has no counterpart here; the model calls the explicit
+collectives of ``launch.mesh.Mesh`` (through ``api.spmd.ShardContext``)
+where the reference relied on a constraint.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from typing import Mapping
+
+AxisTarget = str | tuple[str, ...] | None
+
+# sensible single-pod defaults; launchers override per mesh/arch/shape
+DEFAULT_RULES: dict[str, AxisTarget] = {
+    "batch": ("data",),
+    "seq": None,
+    "embed": None,          # -> ("data",) under FSDP
+    "mlp": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "vocab": ("model",),
+    "expert": ("model",),
+    "expert_mlp": None,     # grok-style few-expert TP: -> ("model",)
+    "expert_cap": ("data",),  # MoE dispatch-buffer capacity axis
+    "expert_out": None,       # expert-TP: reduce-scatter the output d axis
+    "cache_seq": None,      # -> ("data",) for long-context decode
+    "state": None,
+    "layers": None,
+    "conv": None,
+    "frames": None,
+}
+
+# The logical axes whose sharding means tensor parallelism inside a layer
+# (attention heads, the MLP, experts).  The port shards only "batch" and
+# "vocab" so far (ROADMAP A11); a launcher that runs a model on a mesh maps
+# these to None (``make_rules(tensor_parallel=False)``), and the model raises
+# if the ambient rules shard one of them over a mesh axis of size > 1.
+TENSOR_PARALLEL_AXES = ("heads", "kv_heads", "mlp", "expert")
+
+_active: contextvars.ContextVar[Mapping[str, AxisTarget] | None] = (
+    contextvars.ContextVar("repro_torch_sharding_rules", default=None)
+)
+_axis_sizes: contextvars.ContextVar[Mapping[str, int] | None] = (
+    contextvars.ContextVar("repro_torch_mesh_axis_sizes", default=None)
+)
+_mesh: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+def axis_sizes_of(mesh) -> dict[str, int]:
+    """``{axis: size}`` of a ``launch.mesh.Mesh`` or a mapping."""
+    if mesh is None:
+        return {}
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+@contextlib.contextmanager
+def use_rules(rules: Mapping[str, AxisTarget] | None, mesh=None):
+    token = _active.set(rules)
+    token2 = _axis_sizes.set(axis_sizes_of(mesh) if mesh is not None
+                             else None)
+    token3 = _mesh.set(mesh)
+    try:
+        yield
+    finally:
+        _active.reset(token)
+        _axis_sizes.reset(token2)
+        _mesh.reset(token3)
+
+
+def current_mesh():
+    return _mesh.get()
+
+
+def current_rules() -> Mapping[str, AxisTarget] | None:
+    return _active.get()
+
+
+def target_axes(target: AxisTarget) -> tuple[str, ...]:
+    if target is None:
+        return ()
+    return (target,) if isinstance(target, str) else tuple(target)
+
+
+def _divisible(dim: int, target: AxisTarget,
+               axis_sizes: Mapping[str, int] | None = None) -> bool:
+    """True when ``dim`` can be evenly sharded over the mapped mesh axes.
+    ``axis_sizes`` overrides the sizes registered via ``use_rules``.
+    Unknown axis sizes are assumed fine."""
+    sizes = axis_sizes if axis_sizes is not None else _axis_sizes.get()
+    if sizes is None or target is None:
+        return True
+    n = 1
+    for a in target_axes(target):
+        n *= sizes.get(a, 1)
+    return dim % n == 0
+
+
+def restrict_to_mesh(rules: Mapping[str, AxisTarget],
+                     mesh) -> dict[str, AxisTarget]:
+    """A copy of ``rules`` with every target filtered to axes ``mesh``
+    actually has (a ``Mesh`` or an ``{axis: size}`` mapping); missing axes
+    fall back to replication."""
+    names = set(axis_sizes_of(mesh))
+    out: dict[str, AxisTarget] = {}
+    for k, tgt in rules.items():
+        kept = tuple(a for a in target_axes(tgt) if a in names)
+        out[k] = (kept if len(kept) > 1 else kept[0]) if kept else None
+    return out
+
+
+def make_rules(
+    *,
+    multi_pod: bool = False,
+    fsdp: bool = False,
+    expert_tp: bool = False,
+    shard_cache_seq: bool = False,
+    tensor_parallel: bool = True,
+    overrides: Mapping[str, AxisTarget] | None = None,
+) -> dict[str, AxisTarget]:
+    """Build a rules table for a mesh/arch/shape combination.
+    ``tensor_parallel=False`` maps ``TENSOR_PARALLEL_AXES`` to None (the
+    port's launchers: only the batch and the vocab shard)."""
+    rules = dict(DEFAULT_RULES)
+    rules["batch"] = ("pod", "data") if multi_pod else ("data",)
+    if multi_pod:
+        # keep the pod axis on the MoE capacity axis so the group->expert
+        # reshard stays pod-local
+        rules["expert_cap"] = ("pod", "data")
+    if fsdp:
+        rules["embed"] = ("data",)
+    if expert_tp:
+        rules["expert"] = None
+        rules["expert_mlp"] = ("model",)
+    if shard_cache_seq:
+        rules["cache_seq"] = ("data",)
+    if not tensor_parallel:
+        for ax in TENSOR_PARALLEL_AXES:
+            rules[ax] = None
+    if overrides:
+        rules.update(overrides)
+    return rules
+
+
+def spec(*axes: str | None, rules: Mapping[str, AxisTarget] | None = None,
+         shape: tuple[int, ...] | None = None,
+         axis_sizes: Mapping[str, int] | None = None) -> tuple:
+    """Spec for a tuple of logical axis names.
+
+    When ``shape`` is given (and a mesh is registered via ``use_rules``, or
+    ``axis_sizes`` passes mesh axis sizes explicitly), any dimension that is
+    not evenly divisible by its mapped mesh axes falls back to replication.
+    """
+    p, _ = spec_report(*axes, rules=rules, shape=shape, axis_sizes=axis_sizes)
+    return p
+
+
+def spec_report(*axes: str | None,
+                rules: Mapping[str, AxisTarget] | None = None,
+                shape: tuple[int, ...] | None = None,
+                axis_sizes: Mapping[str, int] | None = None
+                ) -> tuple[tuple, list[str]]:
+    """``spec`` plus a human-readable reason for every dimension whose
+    declared sharding fell back to replication (divisibility, or a mesh axis
+    already consumed by an earlier dim).  The SPMD launch path logs these,
+    so a vocab of 1111 over ``model=2`` replicating instead of sharding is a
+    recorded decision, not a silent one."""
+    rules = rules if rules is not None else (current_rules() or {})
+    parts = []
+    fallbacks: list[str] = []
+    used: set[str] = set()
+    for i, ax in enumerate(axes):
+        tgt = rules.get(ax) if ax is not None else None
+        if tgt is not None and shape is not None and not _divisible(
+                shape[i], tgt, axis_sizes):
+            sizes = axis_sizes if axis_sizes is not None else _axis_sizes.get()
+            names = target_axes(tgt)
+            n = 1
+            for a in names:
+                n *= (sizes or {}).get(a, 1)
+            fallbacks.append(
+                f"dim {i} ({ax!r}, size {shape[i]}) replicated: not "
+                f"divisible by mesh axes {names} (x{n})")
+            tgt = None
+        if tgt is not None:
+            # a mesh axis may appear at most once per spec: first dim wins
+            names = target_axes(tgt)
+            kept = tuple(n for n in names if n not in used)
+            if kept != names:
+                fallbacks.append(
+                    f"dim {i} ({ax!r}) dropped mesh axes "
+                    f"{tuple(n for n in names if n in used)}: already used "
+                    f"by an earlier dim")
+            used.update(kept)
+            tgt = kept or None
+            if tgt is not None and shape is not None and not _divisible(
+                    shape[i], tgt, axis_sizes):
+                fallbacks.append(
+                    f"dim {i} ({ax!r}, size {shape[i]}) replicated: not "
+                    f"divisible by remaining mesh axes {tgt}")
+                tgt = None
+        if tgt is None:
+            parts.append(None)
+        elif isinstance(tgt, str):
+            parts.append(tgt)
+        else:
+            parts.append(tuple(tgt) if len(tgt) > 1 else tgt[0])
+    while parts and parts[-1] is None:
+        parts.pop()
+    return tuple(parts), fallbacks
+
+
+def dim_axes(spec_: tuple, ndim: int) -> tuple[tuple[str, ...], ...]:
+    """Per-dimension mesh axis names of a spec, padded to rank."""
+    out = []
+    for d in range(ndim):
+        p = spec_[d] if d < len(spec_) else None
+        out.append(target_axes(p))
+    return tuple(out)
+
+
+def spec_size(names: tuple[str, ...], axis_sizes: Mapping[str, int]) -> int:
+    """Shards a dim makes over mesh axes ``names`` (1 for none)."""
+    n = 1
+    for a in names:
+        n *= int(axis_sizes.get(a, 1))
+    return n
+
+
+def tree_specs(axes_tree, rules: Mapping[str, AxisTarget] | None = None):
+    """Map a tree (nested dicts) of logical-axes tuples to specs."""
+    rules = rules if rules is not None else (current_rules() or {})
+    if isinstance(axes_tree, dict):
+        return {k: tree_specs(v, rules) for k, v in axes_tree.items()}
+    return spec(*axes_tree, rules=rules)

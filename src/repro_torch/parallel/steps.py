@@ -1,9 +1,19 @@
 """Step functions: train / eval / prefill / decode / chunked decode.
 
-Counterpart of ``repro.parallel.steps`` (single device).  PyTorch runs
-eagerly, so a step is a plain function (the reference wraps them in
-``jax.jit``), and a ``lax.scan`` (over microbatches, over the chunk step's
-micro-steps) is a Python loop.
+Counterpart of ``repro.parallel.steps``.  PyTorch runs eagerly, so a step
+is a plain function (the reference wraps them in ``jax.jit``), and a
+``lax.scan`` (over microbatches, over the chunk step's micro-steps) is a
+Python loop.
+
+On a mesh of ranks (``make_train_step(..., mesh=, rules=)``) the state and
+the batch are this rank's shards.  The loss is the global mean (the
+vocab-parallel ``xent`` combines over the model axis and means over the
+data axis), so each rank's gradient is its share of the global mean's
+gradient: every leaf is summed over the data axes -- the mean over the data
+ranks of each rank's own-token gradient, which the reference's ``jit`` gets
+from its global arrays.  The replicated leaves then hold the same bits on
+every rank; the vocab-sharded ones (the embedding) keep their own rows.  The
+clipping norm sums each shard's squares once.
 """
 from __future__ import annotations
 
@@ -11,8 +21,11 @@ from typing import Callable
 
 import torch
 
+from repro_torch.api import context as context_lib
 from repro_torch.models.params import leaves, map_leaves
 from repro_torch.optim import adamw
+from repro_torch.parallel import rules as rules_lib
+from repro_torch.parallel import specs as specs_lib
 
 
 def _tree(pairs) -> dict:
@@ -44,42 +57,109 @@ def value_and_grad(model, params: dict, batch: dict):
     return loss.detach(), grads
 
 
-def make_train_step(model, opt_cfg: adamw.AdamWConfig, schedule: Callable, *,
-                    microbatches: int = 1) -> Callable:
-    """Train step with optional gradient accumulation.
+def _mesh_grads(grads: dict, mesh, data_axes, shard_axes: dict):
+    """``(grads, global norm)`` of one rank's gradients on a mesh: every
+    leaf summed over ``data_axes``; the norm's squares of a leaf sharded
+    over mesh axes (``shard_axes``: path -> axes) summed over those axes,
+    one collective an axis set."""
+    if data_axes and mesh.axis_size(data_axes) > 1:
+        grads = map_leaves(lambda g: None if g is None
+                           else mesh.all_reduce(g, data_axes, "sum"), grads)
+    sq, by_axes = [], {}
+    for path, g in leaves(grads):
+        if g is None or not g.is_floating_point():
+            continue
+        by_axes.setdefault(shard_axes.get(path, ()), []).append(len(sq))
+        sq.append(torch.sum(torch.square(g.to(torch.float32))))
+    if not sq:
+        return grads, torch.zeros((), dtype=torch.float32)
+    sq = torch.stack(sq)
+    for axes, idx in by_axes.items():
+        if axes:
+            sel = torch.tensor(idx, device=sq.device)
+            sq[sel] = mesh.all_reduce(sq[sel], axes, "sum")
+    return grads, torch.sqrt(sq.sum())
 
-    With ``microbatches > 1`` the global batch is processed as micro-slices
-    along its leading axis with fp32 gradient accumulation (the optimizer
-    still sees the full-batch gradient, up to fp32 summation order).
+
+def make_grad_fn(model, *, microbatches: int = 1, mesh=None,
+                 rules=None) -> Callable:
+    """``grad_fn(params, batch) -> (loss, grads, gnorm)``: the loss and the
+    gradient of every leaf the optimizer sees, and the global gradient norm
+    on a mesh (``None`` on one device, where ``adamw`` takes it).
+
+    With ``microbatches > 1`` the batch is processed as micro-slices along
+    its leading axis with fp32 gradient accumulation.  With a ``mesh`` of
+    more than one rank it runs under the mesh and ``rules`` (default:
+    ``rules.make_rules(tensor_parallel=False)``) on this rank's shards, and
+    sums the gradients over the data axes."""
+    on_mesh = mesh is not None and mesh.size > 1
+    if on_mesh:
+        rules = rules_lib.restrict_to_mesh(
+            rules or rules_lib.make_rules(tensor_parallel=False), mesh)
+        data_axes = rules_lib.target_axes(rules.get("batch"))
+        pspecs = specs_lib.param_specs(model.param_defs(), rules,
+                                       mesh.axis_sizes)
+        shard_axes = {}
+        for path in specs_lib.sharded_paths(pspecs, mesh.axis_sizes):
+            node = pspecs
+            for k in path:
+                node = node[k]
+            shard_axes[path] = tuple(a for part in node
+                                     for a in rules_lib.target_axes(part))
+
+    def loss_and_grads(params: dict, batch: dict):
+        if microbatches == 1:
+            return value_and_grad(model, params, batch)
+        split = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                              *v.shape[1:]) for k, v in batch.items()}
+        loss = torch.zeros((), dtype=torch.float32)
+        grads = None
+        for i in range(microbatches):
+            mloss, mgrads = value_and_grad(
+                model, params, {k: v[i] for k, v in split.items()})
+            loss = loss.to(mloss.device) + mloss.to(torch.float32)
+            grads = map_leaves(
+                lambda g: None if g is None else g.to(torch.float32),
+                mgrads) if grads is None else map_leaves(
+                lambda a, g: a if g is None else a + g.to(torch.float32),
+                grads, mgrads)
+        inv = 1.0 / microbatches
+        return loss * inv, map_leaves(
+            lambda g: None if g is None else g * inv, grads)
+
+    def grad_fn(params: dict, batch: dict):
+        if not on_mesh:
+            loss, grads = loss_and_grads(params, batch)
+            return loss, grads, None
+        with context_lib.plan_context(mesh=mesh), \
+                rules_lib.use_rules(rules, mesh):
+            loss, grads = loss_and_grads(params, batch)
+            with torch.no_grad():
+                grads, gnorm = _mesh_grads(grads, mesh, data_axes,
+                                           shard_axes)
+        return loss, grads, gnorm
+
+    return grad_fn
+
+
+def make_train_step(model, opt_cfg: adamw.AdamWConfig, schedule: Callable, *,
+                    microbatches: int = 1, mesh=None, rules=None) -> Callable:
+    """Train step with optional gradient accumulation (``make_grad_fn``).
+
     ``train_step(state, batch) -> (state, metrics)`` with ``state`` =
     ``{"params", "opt"}`` and metrics ``loss``, ``lr`` and ``grad_norm`` as
-    0-d tensors; the input state is left as it was."""
+    0-d tensors; the input state is left as it was.  With a ``mesh`` of
+    more than one rank the state and the batch are this rank's shards."""
+    grad_fn = make_grad_fn(model, microbatches=microbatches, mesh=mesh,
+                           rules=rules)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
-        if microbatches == 1:
-            loss, grads = value_and_grad(model, params, batch)
-        else:
-            split = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                  *v.shape[1:]) for k, v in batch.items()}
-            loss = torch.zeros((), dtype=torch.float32)
-            grads = None
-            for i in range(microbatches):
-                mloss, mgrads = value_and_grad(
-                    model, params, {k: v[i] for k, v in split.items()})
-                loss = loss.to(mloss.device) + mloss.to(torch.float32)
-                grads = map_leaves(
-                    lambda g: None if g is None else g.to(torch.float32),
-                    mgrads) if grads is None else map_leaves(
-                    lambda a, g: a if g is None else a + g.to(torch.float32),
-                    grads, mgrads)
-            inv = 1.0 / microbatches
-            loss = loss * inv
-            grads = map_leaves(lambda g: None if g is None else g * inv, grads)
+        loss, grads, gnorm = grad_fn(params, batch)
         lr = schedule(state["opt"]["step"])
         with torch.no_grad():
             params, opt, metrics = adamw.apply_updates(
-                params, grads, state["opt"], lr, opt_cfg)
+                params, grads, state["opt"], lr, opt_cfg, gnorm=gnorm)
         return {"params": params, "opt": opt}, {"loss": loss, "lr": lr,
                                                 **metrics}
 

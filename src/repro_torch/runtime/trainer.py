@@ -1,8 +1,8 @@
 """Fault-tolerant training loop.
 
-Counterpart of ``repro.runtime.trainer`` (single device).  Checkpoints
-every ``ckpt_every`` steps (async, atomic); a *transient* exception in a
-step restores the latest checkpoint and replays from its step with
+Counterpart of ``repro.runtime.trainer``.  Checkpoints every
+``ckpt_every`` steps (async, atomic); a *transient* exception in a step
+restores the latest checkpoint and replays from its step with
 exponential backoff (the data pipeline is a pure function of the step, so
 the replay is exact), while a persistent failure -- a ``DeviceLossError``
 -- propagates at once.  ``fail_injector`` lets tests inject failures at
@@ -15,6 +15,20 @@ metrics go to ``Trainer.metrics`` and the log.  ``Trainer.state`` is the
 latest train state (``{"params", "opt"}``), there for a caller that
 inspects or snapshots it between steps (``fail_injector`` runs before
 each step).
+
+``Trainer(..., mesh=, sharding=)`` trains on a mesh of ranks
+(``launch.mesh``): every rank runs its own ``Trainer`` on its shards of the
+state (cut by ``parallel.specs`` under the ambient rules, or
+``rules.make_rules(tensor_parallel=False)``) and on its rows of each batch
+(``sharding``, by default the rules' batch spec).  A fresh state is the
+single-device init from the seed, cut to this rank's blocks, so a mesh run
+starts from the same weights as a one-device run.  A save gathers the
+shards on the host into the single-device layout and rank 0 writes it; a
+restore cuts the saved arrays to the rank's blocks, so a checkpoint moves
+between a mesh and one device either way.  On a mesh a failed step is not
+retried: every rank would have to fail and restore together, which waits
+for the elastic runtime (ROADMAP A12); it raises, and the launcher stops
+every rank.
 """
 from __future__ import annotations
 
@@ -30,6 +44,8 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.util import resolve_device
 from repro_torch.optim import adamw
+from repro_torch.parallel import rules as rules_lib
+from repro_torch.parallel import specs as specs_lib
 from repro_torch.parallel import steps as steps_lib
 from repro_torch.runtime.faults import DeviceLossError
 
@@ -57,15 +73,34 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model, data_cfg: DataConfig, opt_cfg: adamw.AdamWConfig,
                  schedule, tcfg: TrainerConfig, *, microbatches: int = 1,
-                 device=None):
+                 device=None, sharding=None, mesh=None):
         self.model = model
         self.data_cfg = data_cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(
+            device if device is not None or self.mesh is None
+            else self.mesh.device)
+        self.rules = self.specs = None
+        self.sharding = sharding
+        if self.mesh is not None:
+            self.rules = rules_lib.restrict_to_mesh(
+                rules_lib.current_rules()
+                or rules_lib.make_rules(tensor_parallel=False), self.mesh)
+            sizes = self.mesh.axis_sizes
+            self.specs = specs_lib.state_specs(
+                model.param_defs(), self.rules, master=opt_cfg.master,
+                axis_sizes=sizes)
+            if sharding is None:
+                self.sharding = specs_lib.NamedSharding(
+                    self.mesh, rules_lib.spec(
+                        "batch", None, rules=self.rules, axis_sizes=sizes,
+                        shape=(data_cfg.global_batch, data_cfg.seq_len)))
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
-        self.step_fn = steps_lib.make_train_step(model, opt_cfg, schedule,
-                                                 microbatches=microbatches)
+        self.step_fn = steps_lib.make_train_step(
+            model, opt_cfg, schedule, microbatches=microbatches,
+            mesh=self.mesh, rules=self.rules)
         self.metrics: list[dict] = []
         self.kernel_plans: dict[str, object] = {}
         self.state: dict | None = None
@@ -78,26 +113,62 @@ class Trainer:
         d = self.data_cfg
         cfg = self.model.cfg
         tokens = max(d.global_batch * d.seq_len, 1)
-        plans = {
-            "rmsnorm": api.plan_for("rmsnorm", (tokens, cfg.d_model),
-                                    cfg.adtype),
-            "xent": api.plan_for("xent", (tokens, cfg.vocab_size),
-                                 torch.float32),
-        }
+        with api.plan_context(mesh=self.mesh):
+            plans = {
+                "rmsnorm": api.plan_for("rmsnorm", (tokens, cfg.d_model),
+                                        cfg.adtype),
+                "xent": api.plan_for("xent", (tokens, cfg.vocab_size),
+                                     torch.float32),
+            }
         for name, plan in plans.items():
             log.debug("kernel plan %s:\n%s", name, plan.explain())
         self.kernel_plans = plans
         return plans
 
+    def _leaf_spec(self, path: tuple[str, ...]) -> tuple:
+        node = self.specs
+        for k in path:
+            node = node[k]
+        return node
+
     def init_or_restore(self, seed: int = 0) -> tuple[int, dict]:
         state = steps_lib.init_train_state(self.model, self.opt_cfg, seed,
                                            device=self.device)
-        restored = self.ckpt.restore_latest(state)
+        cut = None
+        if self.mesh is not None:
+            state = specs_lib.shard_tree(state, self.specs, self.mesh)
+
+            def cut(path, arr):
+                return specs_lib.shard_leaf(arr, self._leaf_spec(path),
+                                            self.mesh)
+        restored = self.ckpt.restore_latest(state, cut=cut)
         if restored is not None:
             step, state = restored
             log.info("restored checkpoint at step %d", step)
             return step, state
         return 0, state
+
+    def _save(self, step: int, state: dict, meta: dict) -> None:
+        """Save ``state``; on a mesh every rank gathers the blocks of the
+        sharded leaves into the single-device layout (on the host where the
+        collectives run there) and rank 0 writes them with its own copy of
+        the other leaves."""
+        if self.mesh is None:
+            self.ckpt.save(step, state, meta=meta)
+            return
+        sizes = self.mesh.axis_sizes
+        host = self.mesh.backend == "gloo"
+
+        def whole(t, spec):
+            if not any(rules_lib.spec_size(axes, sizes) > 1
+                       for axes in rules_lib.dim_axes(spec, t.ndim)):
+                return t
+            return specs_lib.gather_leaf(t.to("cpu") if host else t, spec,
+                                         self.mesh)
+
+        full = specs_lib.map_with_specs(whole, state, self.specs)
+        if self.mesh.rank == 0:
+            self.ckpt.save(step, full, meta=meta)
 
     def _note_straggler(self, step: int, step_s: float, ema: float | None,
                         n_hist: int) -> None:
@@ -131,7 +202,8 @@ class Trainer:
                 if fail_injector is not None:
                     fail_injector(step)
                 t0 = time.perf_counter()
-                batch = make_batch(self.data_cfg, step, device=self.device)
+                batch = make_batch(self.data_cfg, step, self.sharding,
+                                   device=self.device)
                 self.state, metrics = self.step_fn(self.state, batch)
                 # float() waits for the device, so the wall time spans the
                 # whole step, not just its enqueue
@@ -150,13 +222,13 @@ class Trainer:
                 step += 1
                 retries = 0
                 if step % self.tcfg.ckpt_every == 0:
-                    self.ckpt.save(step, self.state, meta={"loss": loss})
+                    self._save(step, self.state, {"loss": loss})
             except DeviceLossError:
                 # Persistent: retrying cannot bring the device back.
                 raise
             except Exception as e:  # noqa: BLE001 -- the whole point
                 retries += 1
-                if retries > self.tcfg.max_retries:
+                if retries > self.tcfg.max_retries or self.mesh is not None:
                     raise
                 log.warning("step %d failed (%s); restoring (retry %d/%d)",
                             step, e, retries, self.tcfg.max_retries)
@@ -166,6 +238,6 @@ class Trainer:
                     step, self.state = restored
                 # else: replay from the current state (failure before the
                 # first checkpoint)
-        self.ckpt.save(step, self.state, meta={"final": True})
+        self._save(step, self.state, {"final": True})
         self.ckpt.wait()
         return self.metrics

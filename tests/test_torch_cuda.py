@@ -20,6 +20,14 @@ bit for bit (same tokens).  The cross-entropy kernel sums its exps in
 another order than its plain version; both widen the logits to fp32 first,
 so the per-token NLL is held to rtol 1e-5 / atol 1e-5 at either dtype.
 
+The vocab-shard partials (B12) are a max, a single logit and a sum of
+exps: ``m`` and ``ll`` must equal the plain version's exactly, ``l`` to rtol
+1e-5 (fp32) and 2e-2 (bf16).  The SPMD checks spawn a (1, 2) mesh of two
+ranks on the one card over gloo: the loss and the gradient blocks to the
+cross-entropy tolerance against the CPU, the reduced train step's loss to
+rtol 1e-5 against the one-device CPU step, the replicated leaves the same
+bits on both ranks.
+
 The reduced fp32 train step on the card is held to the same step on the
 CPU: loss rtol 1e-5, each gradient leaf rtol 1e-4 with an atol of 1e-2 of
 the leaf's scale.  The reduced qwen2-0.5b is ill-conditioned at its init
@@ -389,3 +397,97 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
         scale = float(w.abs().max())
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-2 * scale,
                                    msg=lambda m, p=path: f"{p}: {m}")
+
+
+@pytest.mark.parametrize("t,width,vl,off,lv", [
+    (37, 256, 256, 0, 1024), (37, 256, 256, 768, 1000),
+    (9, 128, 100, 200, 1000), (16, 128, 128, 1024, 1000),
+    (64, 75968, 75968, 75968, 151936)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_xent_partial_kernel_matches_plain(t, width, vl, off, lv, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(t + width + off)
+    x = (3 * torch.randn(t, width, generator=gen, device="cuda")).to(dtype)
+    labels = torch.randint(0, lv, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[0] = min(off + vl, lv - 1)       # padding of this shard, or next
+    labels[1] = off + min(vl, max(lv - off, 1)) - 1
+    before = xkernel.LAUNCHES["xent.partial"]
+    m, l, ll = xkernel.xent_partials(x, labels, vl=vl, off=off, logical_v=lv)
+    assert xkernel.LAUNCHES["xent.partial"] == before + 1
+    wm, wl, wll = xkernel.plain_partials(x, labels, vl=vl, off=off,
+                                         logical_v=lv)
+    exact(m, wm)
+    exact(ll, wll)
+    torch.testing.assert_close(l, wl, atol=0, rtol=1e-5 if dtype ==
+                               torch.float32 else 2e-2)
+
+
+def test_xent_partial_wrapper_refuses_what_the_kernel_does_not_take():
+    labels = torch.zeros(8, dtype=torch.int32, device="cuda")
+    x = torch.randn(8, 256, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="XentFn"):
+        xkernel.xent_partials(x, labels, vl=256, off=0, logical_v=512)
+    with pytest.raises(ValueError, match="16-B"):
+        xkernel.xent_partials(torch.randn(8, 6, device="cuda"), labels, vl=6,
+                              off=0, logical_v=12)
+    with pytest.raises(TypeError):
+        xkernel.xent_partials(torch.randn(8, 256, device="cuda",
+                                          dtype=torch.float64), labels,
+                              vl=256, off=0, logical_v=512)
+
+
+def test_spmd_xent_on_two_ranks_of_the_card():
+    """``api.launch("xent")`` and ``xent_grad`` on a (1, 2) mesh of two
+    ranks on the one card: B12 once a rank, B11 never, the loss and the
+    gradient blocks against the plain single-device values on the CPU."""
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import mesh_checks
+
+    rng = np.random.default_rng(5)
+    x = (3 * rng.standard_normal((64, 1024))).astype(np.float32)
+    labels = rng.integers(0, 1000, 64).astype(np.int32)
+    out = mesh_lib.spawn(mesh_checks.run, (1, 2), device="cuda", args=(
+        [("xent", dict(logits=x, labels=labels, logical_v=1000))],))
+    want = xops._ref(torch.from_numpy(x), torch.from_numpy(labels),
+                     logical_v=1000)
+    want_g = xops.xent_grad(torch.from_numpy(x), torch.from_numpy(labels),
+                            1.0, logical_v=1000)
+    for r, (res,) in enumerate(out):
+        assert res["launches"]["xent.partial"] == 1, res["launches"]
+        assert res["launches"]["xent"] == 0, res["launches"]
+        torch.testing.assert_close(torch.tensor(res["loss"]), want, **XENT)
+        torch.testing.assert_close(res["grad"], want_g[:, r * 512:
+                                                       (r + 1) * 512],
+                                   rtol=1e-5, atol=1e-9)
+
+
+def test_reduced_mesh_train_step_on_two_ranks_of_the_card():
+    """Reduced fp32 qwen2-0.5b on a (1, 2) mesh of two ranks on the card:
+    the first loss against the one-device CPU step, and the replicated
+    leaves hold the same bits on both ranks after two steps."""
+    from repro_torch import interop
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import mesh_checks
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("qwen2-0.5b"))
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    state = map_leaves(interop.to_numpy, {
+        "params": params,
+        "opt": adamw.init_state(params, adamw.AdamWConfig())})
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
+    out = mesh_lib.spawn(mesh_checks.run, (1, 2), device="cuda", args=(
+        [("train", dict(cfg=cfg, state=state, data_cfg=data, steps_run=2,
+                        schedule=("cosine", 1e-3, 0, 10)))],))
+    want, _ = steps.value_and_grad(model, params,
+                                   make_batch(data, 0, device="cpu"))
+    (a,), (b,) = out
+    torch.testing.assert_close(torch.tensor(a["loss0"]), want, rtol=1e-5,
+                               atol=0)
+    assert a["loss0"] == b["loss0"] and a["losses"] == b["losses"]
+    assert a["digests"] == b["digests"] and len(a["digests"]) > 40
