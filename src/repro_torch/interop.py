@@ -7,7 +7,8 @@ fields (``dataclasses.asdict``) into a port plan, so a test can pin the
 same geometry on both sides, ``params_from_jax`` turns a reference
 model's parameter tree (as numpy arrays) into the port's, and
 ``train_state_from_jax`` a reference train state (parameters and AdamW
-state) into the port's.
+state) into the port's.  ``numpy_params`` draws the seeded numpy weights
+that parity checks hand to both sides.
 
 numpy has no bf16 of its own: a bf16 array (``ml_dtypes.bfloat16``, as JAX
 returns it) goes through float32, which holds every bf16 value exactly, and
@@ -49,6 +50,52 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
     return t.numpy().copy()
+
+
+def numpy_params(defs: Mapping, seed: int, *,
+                 true_fan_in: bool = False) -> dict:
+    """Seeded numpy weights for a parameter-definition tree, to hand to
+    both frameworks: a normal leaf at its init std, ones as 1 + 0.1 noise
+    and zeros as 0.02 noise, so every bias and norm scale reaches the loss.
+    The two packages' trees match leaf for leaf, and the leaves are drawn
+    in sorted key order, so either tree gives the same arrays.
+
+    A normal leaf without an explicit ``scale`` takes 0.02 (embeddings) or
+    1/sqrt(fan-in).  By default the fan-in is the reference's rule,
+    ``shape[-2]``, whose attention stds are the wrong ones (ROADMAP §C); it
+    gives the weights the parity tests were written against.  With
+    ``true_fan_in`` it is the port's ``ParamDef.fan_in`` (1/sqrt(d) for
+    ``wq``/``wk``/``wv``, 1/sqrt(h*hd) for ``wo``, as ``model.init``
+    draws them); ``defs`` must then be the port's tree."""
+    from repro_torch.models.params import ParamDef
+
+    rng = np.random.default_rng(seed)
+
+    def rec(tree):
+        out = {}
+        for key in sorted(tree):
+            d = tree[key]
+            if isinstance(d, Mapping):
+                out[key] = rec(d)
+                continue
+            if true_fan_in and not isinstance(d, ParamDef):
+                raise TypeError(f"true_fan_in needs the port's ParamDefs, "
+                                f"got {type(d).__name__} at {key!r}")
+            noise = rng.standard_normal(d.shape)
+            if d.init == "ones":
+                a = 1.0 + 0.1 * noise
+            elif d.init == "zeros":
+                a = 0.02 * noise
+            else:
+                fan_in = d.fan_in if true_fan_in else (
+                    d.shape[-2] if len(d.shape) >= 2 else d.shape[-1])
+                std = d.scale or (0.02 if d.init == "embed"
+                                  else 1.0 / math.sqrt(fan_in))
+                a = std * noise
+            out[key] = a.astype(np.float32)
+        return out
+
+    return rec(defs)
 
 
 def plan_from_dict(fields: Mapping[str, Any]) -> KernelPlan:

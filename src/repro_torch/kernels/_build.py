@@ -6,7 +6,7 @@ into a shared library with a plain C interface,
 The hash covers the source, the shared headers and the flags, so an edit
 rebuilds and an unchanged tree reuses the library.  ``build()`` starts one
 ``nvcc`` per missing library, all at once, and keeps what ptxas reports of
-registers and spills in ``PTXAS``.
+each kernel's registers, static shared memory and spills in ``PTXAS``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a nonzero code.  This module is imported only by the
@@ -32,9 +32,48 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
-# What ptxas reported for each source built in this process: the registers
-# of each kernel instantiation and the spill-store bytes summed over them.
-PTXAS: dict[str, dict] = {}
+# What ptxas reported for each source built in this process: per kernel
+# instantiation (demangled where c++filt is present) its registers, static
+# shared-memory bytes and spill-store bytes.
+PTXAS: dict[str, list[dict]] = {}
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def _demangle(names: list[str]) -> list[str]:
+    cxxfilt = shutil.which("c++filt")
+    if not cxxfilt or not names:
+        return names
+    out = subprocess.run([cxxfilt], input="\n".join(names), text=True,
+                         capture_output=True, timeout=60)
+    got = out.stdout.splitlines()
+    return got if out.returncode == 0 and len(got) == len(names) else names
+
+
+def parse_ptxas(out: str) -> list[dict]:
+    """Each kernel entry of ptxas's ``-v`` report: its name, registers,
+    static shared memory (bytes) and spill stores (bytes)."""
+    entries: list[dict] = []
+    for line in out.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entries.append({"kernel": m.group(1), "registers": None,
+                            "smem": 0, "spill_bytes": 0})
+            continue
+        if not entries:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            entries[-1]["spill_bytes"] = int(m.group(1))
+        m = _USED.search(line)
+        if m:
+            entries[-1]["registers"] = int(m.group(1))
+            entries[-1]["smem"] = int(m.group(2) or 0)
+    for e, name in zip(entries, _demangle([e["kernel"] for e in entries])):
+        e["kernel"] = name
+    return entries
 
 
 def sources() -> list[str]:
@@ -85,12 +124,7 @@ def build(names=None) -> dict[str, float]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, target)
-            PTXAS[name] = {
-                "registers": [int(r) for r in
-                              re.findall(r"Used (\d+) registers", out)],
-                "spill_bytes": sum(int(b) for b in
-                                   re.findall(r"(\d+) bytes spill stores", out)),
-            }
+            PTXAS[name] = parse_ptxas(out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds

@@ -23,11 +23,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// One 16-B vector of T, widened to fp32.
+// One 16-B vector of T, widened to fp32.  load/store go through a pointer;
+// unpack/pack convert the raw 16 B a streaming load returned or a
+// streaming store takes (__ldcs/__stcs: evict first, each line is touched
+// once).
 template <typename T> struct Vec;
 
 template <> struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& raw, float (&x)[N]) {
+    x[0] = __uint_as_float(raw.x); x[1] = __uint_as_float(raw.y);
+    x[2] = __uint_as_float(raw.z); x[3] = __uint_as_float(raw.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&x)[N]) {
+    return make_uint4(__float_as_uint(x[0]), __float_as_uint(x[1]), __float_as_uint(x[2]),
+                      __float_as_uint(x[3]));
+  }
   __device__ __forceinline__ static void load(const float* p, float (&x)[N]) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
@@ -39,6 +50,22 @@ template <> struct Vec<float> {
 
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(const uint4& raw, float (&x)[N]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      x[2 * k] = f.x;
+      x[2 * k + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float (&x)[N]) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < N / 2; ++k) h[k] = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+    return raw;
+  }
   __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&x)[N]) {
     const uint4 raw = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);

@@ -12,22 +12,45 @@
 //          dtype before the statistics (kernel.py:37-41).
 //
 // Bound on this card: bytes.  A row is read once (twice with z) and written
-// once; the scale vector is read by every row but is one row's worth and
-// stays in L1/L2.  About 4 operations an element, far below the card's
-// balance point.
+// once; the scale vector is one row's worth for the whole launch.  About 4
+// operations an element (9 with the gate), far below the card's balance
+// point.  At a decode shape (8 rows) nothing of that matters: the launch and
+// one memory round trip are the whole kernel.
 //
-// Design against that bound: a CTA owns whole rows -- the plan's block of
-// rows, walked one after the other -- and its threads step through a row
-// with 16-B vector loads, so a warp moves whole 128-B lines.  The thread
-// count is sized from the width so that each thread holds at most kRegVecs
-// vectors of the row in registers between the two passes (the statistics,
-// then the scaling); a row too wide for that is read again in the second
-// pass.  A narrow row gets a CTA of one warp.  The sum of squares
-// accumulates in fp32 over the logical columns only (padding is masked by
-// column index, as _rms does at kernel.py:21-26), is reduced with warp
-// shuffles and then across warps through shared memory.  The reduction order
-// differs from the plain version's, so the two agree to a tolerance, not bit
-// for bit.
+// Design against that bound: one CTA per block of the plan's `brows` rows,
+// its rows one after the other, with as many CTAs resident as an SM holds.
+//   * A row's geometry depends on its width alone: up to 1024 16-B vectors
+//     a row, one thread a vector (320 threads at 2560 bf16), so a row is
+//     one load a thread and one trip to memory; wider rows get 512 threads
+//     that hold 4 vectors each in registers and read the rest again for the
+//     scaling.
+//   * Each thread loads its scale vector with its first row's vector and
+//     keeps it in registers for the block, so the first row costs one round
+//     trip, not two (at the decode shape that round trip and the launch are
+//     the kernel).
+//   * Registers are capped at 32 a thread (two 1024-thread CTAs an SM), so
+//     six 320-thread CTAs fit an SM and their loads overlap one another's
+//     reductions (bf16 rows with an fp32 scale keep more, as they would
+//     spill).
+//   * Each thread sums its squares in a fixed order, a warp reduces by
+//     shuffles, and every thread adds the warps' partials in warp order
+//     after the row's one barrier (the partials are double-buffered, so the
+//     next row needs no second barrier).  No atomics: a row's bits depend
+//     on its data and width only, not on the row count or on the CTA that
+//     takes it (paged = dense serving and the bit-exact training replays
+//     rest on this).
+//   * The gate in fast fp32: silu(z) = __fdividef(z, 1 + __expf(-z)), two
+//     special-function operations an element.  Its few-ulp error is hidden
+//     by the rounding of g to x's dtype at bf16 and is far inside rtol 1e-5
+//     at fp32.
+// Measured on an H100 (PERF.md): persistent CTAs, sized from occupancy,
+// that stream their rows through a 2- or 4-stage ring of bulk asynchronous
+// copies in shared memory take 8-23 % longer than this design at the main
+// path's shapes (scripts/kernel_designs.py keeps them and times them).
+// The sum of squares accumulates in fp32 over the logical columns only
+// (padding masked by column index, as _rms does at kernel.py:21-26).  The
+// reduction order differs from the plain version's, so the two agree to a
+// tolerance, not bit for bit.
 
 #include "common.cuh"
 
@@ -35,10 +58,11 @@ namespace {
 
 using repro::Vec;
 
-constexpr int kMaxThreads = 512;   // threads of the widest CTA
-constexpr int kRegVecs = 4;        // 16-B vectors a thread holds in registers
+constexpr int kMaxThreads = 1024;   // one vector a thread up to this many
+constexpr int kWideThreads = 512;   // threads of a wider row
+constexpr int kWideVecs = 4;        // vectors a thread of a wider row holds
 
-__device__ __forceinline__ float silu(float z) { return z * (1.f / (1.f + expf(-z))); }
+__device__ __forceinline__ float silu(float z) { return __fdividef(z, 1.f + __expf(-z)); }
 
 // One 16-B vector of the row at element `off`, widened to fp32; for the
 // gated form x * silu(z), rounded to T and widened again.
@@ -79,80 +103,97 @@ __device__ __forceinline__ void load_scale(const S* __restrict__ p, float (&s)[N
   }
 }
 
-template <typename T, typename S>
-__device__ __forceinline__ void store_vec(T* __restrict__ out, const S* __restrict__ scale,
-                                          int64_t base, int64_t j, float inv,
-                                          const float (&v)[Vec<T>::N]) {
-  constexpr int N = Vec<T>::N;
-  float s[N], y[N];
-  load_scale<S, N>(scale + j * N, s);
+template <typename T, int N>
+__device__ __forceinline__ void store_vec(T* __restrict__ out, float inv, const float (&s)[N],
+                                          const float (&v)[N]) {
+  float y[N];
 #pragma unroll
   for (int e = 0; e < N; ++e) y[e] = (v[e] * inv) * s[e];
-  Vec<T>::store(out + base + j * N, y);
+  Vec<T>::store(out, y);
 }
 
-template <typename T, typename S, bool GATED>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int N>
+__device__ __forceinline__ float sum_squares(const float (&v)[N], float ss) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) ss += v[e] * v[e];
+  return ss;
+}
+
+// V vectors of a row a thread holds in registers (the rest of a wider row
+// is read again for the scaling); MAXT the most threads a CTA, MINB the
+// CTAs an SM must hold (which caps the registers a thread).
+template <typename T, typename S, bool GATED, int V, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ z,
                const S* __restrict__ scale, T* __restrict__ out, int64_t rows,
                int64_t width, int64_t brows, int64_t d_logical, float eps) {
   constexpr int N = Vec<T>::N;
-  __shared__ float partial[kMaxThreads / 32];
-  __shared__ float total;
+  __shared__ float partial[2][MAXT / 32];
   const int64_t nvec = width / N;
-  const int64_t step = blockDim.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * brows;
   const int64_t r1 = r0 + brows < rows ? r0 + brows : rows;
-  for (int64_t r = r0; r < r1; ++r) {
-    const int64_t base = r * width;
-    float held[kRegVecs][N];
+
+  // one vector a thread: its scale vector, loaded with the first row
+  float sc[N];
+  if (V == 1 && tid < nvec) load_scale<S, N>(scale + tid * N, sc);
+
+  int buf = 0;
+  for (int64_t r = r0; r < r1; ++r, buf ^= 1) {
+    const T* xr = x + r * width;
+    const T* zr = GATED ? z + r * width : nullptr;
+    float held[V][N];
     float ss = 0.f;
-    // pass 1: the statistics; the first kRegVecs vectors stay in registers
 #pragma unroll
-    for (int k = 0; k < kRegVecs; ++k) {
-      const int64_t j = threadIdx.x + k * step;
+    for (int k = 0; k < V; ++k) {
+      const int64_t j = tid + static_cast<int64_t>(k) * nthreads;
       if (j < nvec) {
-        load_vec<T, GATED>(x, z, base + j * N, held[k]);
+        load_vec<T, GATED>(xr, zr, j * N, held[k]);
         mask_vec<T>(j, d_logical, held[k]);
-#pragma unroll
-        for (int e = 0; e < N; ++e) ss += held[k][e] * held[k][e];
+        ss = sum_squares<N>(held[k], ss);
       }
     }
-    for (int64_t j = threadIdx.x + kRegVecs * step; j < nvec; j += step) {
-      float v[N];
-      load_vec<T, GATED>(x, z, base + j * N, v);
-      mask_vec<T>(j, d_logical, v);
-#pragma unroll
-      for (int e = 0; e < N; ++e) ss += v[e] * v[e];
+    if (V > 1) {
+      for (int64_t j = tid + static_cast<int64_t>(V) * nthreads; j < nvec; j += nthreads) {
+        float v[N];
+        load_vec<T, GATED>(xr, zr, j * N, v);
+        mask_vec<T>(j, d_logical, v);
+        ss = sum_squares<N>(v, ss);
+      }
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    if (lane == 0) partial[warp] = ss;
-    __syncthreads();
-    if (warp == 0) {
-      float t = lane < nwarps ? partial[lane] : 0.f;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-      if (lane == 0) total = t;
-    }
-    __syncthreads();
+    if (lane == 0) partial[buf][warp] = ss;
+    __syncthreads();   // the row's one barrier
+    float total = 0.f;
+    for (int w = 0; w < nwarps; ++w) total += partial[buf][w];
     const float inv = rsqrtf(total / static_cast<float>(d_logical) + eps);
-    // pass 2: scale and store; vectors past the registers are read again
+    T* orow = out + r * width;
 #pragma unroll
-    for (int k = 0; k < kRegVecs; ++k) {
-      const int64_t j = threadIdx.x + k * step;
-      if (j < nvec) store_vec<T, S>(out, scale, base, j, inv, held[k]);
+    for (int k = 0; k < V; ++k) {
+      const int64_t j = tid + static_cast<int64_t>(k) * nthreads;
+      if (j < nvec) {
+        float t[N];
+        if (V == 1) {
+#pragma unroll
+          for (int e = 0; e < N; ++e) t[e] = sc[e];
+        } else {
+          load_scale<S, N>(scale + j * N, t);
+        }
+        store_vec<T, N>(orow + j * N, inv, t, held[k]);
+      }
     }
-    for (int64_t j = threadIdx.x + kRegVecs * step; j < nvec; j += step) {
-      float v[N];
-      load_vec<T, GATED>(x, z, base + j * N, v);
-      mask_vec<T>(j, d_logical, v);
-      store_vec<T, S>(out, scale, base, j, inv, v);
+    if (V > 1) {
+      for (int64_t j = tid + static_cast<int64_t>(V) * nthreads; j < nvec; j += nthreads) {
+        float v[N], t[N];
+        load_vec<T, GATED>(xr, zr, j * N, v);
+        mask_vec<T>(j, d_logical, v);
+        load_scale<S, N>(scale + j * N, t);
+        store_vec<T, N>(orow + j * N, inv, t, v);
+      }
     }
-    __syncthreads();   // partial[] and total are reused by the next row
   }
 }
 
@@ -166,16 +207,25 @@ cudaError_t launch(const void* x, const void* z, const void* scale, void* out, i
       (GATED && !repro::aligned16(z)))
     return cudaErrorInvalidValue;
   const int64_t nvec = width / N;
-  // threads: enough warps that each holds at most kRegVecs vectors of a row
-  int64_t threads = (nvec + kRegVecs - 1) / kRegVecs;
-  threads = (threads + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
   const int64_t grid = (rows + brows - 1) / brows;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  rmsnorm_kernel<T, S, GATED><<<static_cast<unsigned>(grid), static_cast<unsigned>(threads), 0,
-                                stream>>>(static_cast<const T*>(x), static_cast<const T*>(z),
-                                          static_cast<const S*>(scale), static_cast<T*>(out),
-                                          rows, width, brows, d_logical, eps);
+  const T* px = static_cast<const T*>(x);
+  const T* pz = static_cast<const T*>(z);
+  const S* ps = static_cast<const S*>(scale);
+  T* po = static_cast<T*>(out);
+  if (nvec > kMaxThreads) {
+    rmsnorm_kernel<T, S, GATED, kWideVecs, kWideThreads, 1>
+        <<<static_cast<unsigned>(grid), kWideThreads, 0, stream>>>(px, pz, ps, po, rows, width,
+                                                                   brows, d_logical, eps);
+  } else {
+    // two CTAs of 1024 threads an SM: 32 registers a thread, unless an fp32
+    // scale beside bf16 rows needs more to hold (it would spill)
+    constexpr int MINB = sizeof(S) > sizeof(T) ? 1 : 2;
+    const int threads = static_cast<int>((nvec + 31) / 32 * 32);
+    rmsnorm_kernel<T, S, GATED, 1, kMaxThreads, MINB>
+        <<<static_cast<unsigned>(grid), static_cast<unsigned>(threads), 0, stream>>>(
+            px, pz, ps, po, rows, width, brows, d_logical, eps);
+  }
   return cudaSuccess;
 }
 
@@ -193,9 +243,9 @@ cudaError_t launch_gate(int gated, const void* x, const void* z, const void* sca
 // out = rmsnorm(x) (gated = 0) or rmsnorm(x * silu(z)) (gated = 1) over the
 // first d_logical of `width` columns of contiguous (rows, width) tensors of
 // `dtype`; `scale` is `width` values of `scale_dtype` (x's dtype, or fp32);
-// a CTA walks `brows` rows.  Every pointer 16-B aligned, `width` a whole
-// number of 16-B vectors.  Runs on CUDA device `device`, on `stream`.
-// Returns cudaGetLastError() after the launch.
+// a CTA takes a block of `brows` rows.  Every pointer 16-B aligned, `width`
+// a whole number of 16-B vectors.  Runs on CUDA device `device`, on
+// `stream`.  Returns cudaGetLastError() after the launch.
 extern "C" int rmsnorm_launch(int device, int dtype, int scale_dtype, int gated, const void* x,
                               const void* z, const void* scale, void* out, int64_t rows,
                               int64_t width, int64_t brows, int64_t d_logical, float eps,

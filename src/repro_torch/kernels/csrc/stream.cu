@@ -9,15 +9,30 @@
 // written once; at most two operations per element, so the time is the bytes
 // over the device-memory rate (3.35 TB/s on an H100 SXM).
 //
-// Design against that bound: one templated kernel over a pitched
-// (rows, width) layout.  A CTA walks the plan's block of rows; its threads
-// step through each row with 16-B vector loads and stores, so a warp moves
-// whole 128-B lines of every stream.  The vector path needs every base
-// 16-B aligned and a row pitch that keeps every row so; otherwise (the
-// phased triad, whose streams start at arbitrary element phases) the same
-// kernel takes its scalar path, one element per thread per step.  Arithmetic
-// is in fp32 with explicit round-to-nearest multiply and add (no contraction
-// into an FMA), and bf16 rounds once, on store.
+// Design against that bound (the aligned path): one CTA per block of the
+// plan's `brows` rows, sized so that the whole block is in flight at once.
+// Each thread issues all its loads -- U independent 16-B vectors of every
+// input stream (U = 4, or 2 with three inputs, to stay inside 64
+// registers) -- before its first store, so a CTA makes one trip to memory,
+// not one per row; the CTA has brows * width / (16-B vector x U) threads (up
+// to 1024, looping only for blocks wider than that).  The hardware
+// schedules the CTAs in block order, so the lines in flight at any moment
+// are a dense, contiguous stretch of every stream.  Loads and stores are
+// streaming (__ldcs/__stcs, evict first): each line is touched once.
+// Arithmetic is in fp32 with explicit round-to-nearest multiply and add (no
+// contraction into an FMA, so the kernel is bit-exact against its plain
+// version), and bf16 rounds once, on store.
+//
+// Measured on an H100 (PERF.md): persistent CTAs (occupancy x SMs) that
+// walk the blocks in grid-stride order take 1.5-9 % longer than this
+// design, whether fed by a ring of bulk asynchronous copies in shared
+// memory (3-14 stages of 16 KB tiles, normal or evict-first L2 policy) or
+// by registers (scripts/kernel_designs.py keeps them and times them); CTAs
+// that walk a block's rows one trip at a time, as this kernel's first
+// version did, lost 1.3-3.4 % to the library call (PERF.md).
+//
+// The unaligned path (the phased triad, whose streams start at arbitrary
+// element phases) keeps one element per thread per step.
 
 #include "common.cuh"
 
@@ -34,6 +49,11 @@ template <> struct Arity<kAdd> { static constexpr int value = 2; };
 template <> struct Arity<kStreamTriad> { static constexpr int value = 2; };
 template <> struct Arity<kTriad> { static constexpr int value = 3; };
 
+// 16-B vectors of every input stream a thread holds in flight
+template <int OP> struct Unroll { static constexpr int value = Arity<OP>::value >= 3 ? 2 : 4; };
+
+constexpr int kMaxThreads = 1024;
+
 template <int OP>
 __device__ __forceinline__ float apply(float a, float b, float c, float s) {
   if (OP == kCopy) return a;
@@ -43,61 +63,93 @@ __device__ __forceinline__ float apply(float a, float b, float c, float s) {
   return __fadd_rn(a, __fmul_rn(b, c));                        // A = B + C*D
 }
 
+// The aligned path: CTA b streams block b, rows [b * brows, (b + 1) * brows).
 template <typename T, int OP>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const T* __restrict__ a, const T* __restrict__ b,
-              const T* __restrict__ c, T* __restrict__ out, float s,
-              int64_t rows, int64_t width, int64_t pitch, int64_t brows,
-              int vec) {
-  constexpr int NIN = Arity<OP>::value;
+__global__ void __launch_bounds__(kMaxThreads)
+stream_kernel(const T* __restrict__ a, const T* __restrict__ b, const T* __restrict__ c,
+              T* __restrict__ out, float s, int64_t rows, int64_t width, int64_t pitch,
+              int64_t brows) {
+  constexpr int NIN = Arity<OP>::value, U = Unroll<OP>::value, N = Vec<T>::N;
+  const T* ins[3] = {a, b, c};
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * brows;
-  const int64_t r1 = r0 + brows < rows ? r0 + brows : rows;
-  if (vec) {
-    constexpr int N = Vec<T>::N;
-    for (int64_t r = r0; r < r1; ++r) {
-      const int64_t base = r * pitch;
-      for (int64_t j = static_cast<int64_t>(threadIdx.x) * N; j < width;
-           j += static_cast<int64_t>(blockDim.x) * N) {
-        float x[N], y[N] = {}, z[N] = {};
-        Vec<T>::load(a + base + j, x);
-        if (NIN >= 2) Vec<T>::load(b + base + j, y);
-        if (NIN >= 3) Vec<T>::load(c + base + j, z);
-        float o[N];
+  const int64_t len = (rows - r0 < brows ? rows - r0 : brows) * width;
+  const bool contiguous = pitch == width;
+  const int64_t step = static_cast<int64_t>(blockDim.x) * N;
+  for (int64_t e0 = static_cast<int64_t>(threadIdx.x) * N; e0 < len; e0 += step * U) {
+    uint4 raw[U][NIN];
+    int64_t at[U];
 #pragma unroll
-        for (int k = 0; k < N; ++k)
-          o[k] = apply<OP>(x[k], NIN >= 2 ? y[k] : 0.f, NIN >= 3 ? z[k] : 0.f, s);
-        Vec<T>::store(out + base + j, o);
+    for (int q = 0; q < U; ++q) {
+      const int64_t e = e0 + q * step;   // element of the block, in row order
+      at[q] = contiguous ? r0 * width + e : (r0 + e / width) * pitch + e % width;
+      if (e < len) {
+#pragma unroll
+        for (int k = 0; k < NIN; ++k)
+          raw[q][k] = __ldcs(reinterpret_cast<const uint4*>(ins[k] + at[q]));
       }
     }
-  } else {
-    for (int64_t r = r0; r < r1; ++r) {
-      const int64_t base = r * pitch;
-      for (int64_t j = threadIdx.x; j < width; j += blockDim.x) {
-        const int64_t i = base + j;
-        const float x = repro::widen(a[i]);
-        const float y = NIN >= 2 ? repro::widen(b[i]) : 0.f;
-        const float z = NIN >= 3 ? repro::widen(c[i]) : 0.f;
-        out[i] = repro::narrow<T>(apply<OP>(x, y, z, s));
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      if (e0 + q * step < len) {
+        float x[NIN][N], o[N];
+#pragma unroll
+        for (int k = 0; k < NIN; ++k) Vec<T>::unpack(raw[q][k], x[k]);
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          o[e] = apply<OP>(x[0][e], x[NIN >= 2 ? 1 : 0][e], x[NIN >= 3 ? 2 : 0][e], s);
+        __stcs(reinterpret_cast<uint4*>(out + at[q]), Vec<T>::pack(o));
       }
     }
   }
 }
 
+// The unaligned path: one element per thread per step over the block.
 template <typename T, int OP>
-cudaError_t launch_op(const void* a, const void* b, const void* c, void* out,
-                      float s, int64_t rows, int64_t width, int64_t pitch,
-                      int64_t brows, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+stream_scalar_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                     const T* __restrict__ c, T* __restrict__ out, float s,
+                     int64_t rows, int64_t width, int64_t pitch, int64_t brows) {
   constexpr int NIN = Arity<OP>::value;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * brows;
+  const int64_t r1 = r0 + brows < rows ? r0 + brows : rows;
+  for (int64_t r = r0; r < r1; ++r) {
+    const int64_t base = r * pitch;
+    for (int64_t j = threadIdx.x; j < width; j += blockDim.x) {
+      const int64_t i = base + j;
+      const float x = repro::widen(a[i]);
+      const float y = NIN >= 2 ? repro::widen(b[i]) : 0.f;
+      const float z = NIN >= 3 ? repro::widen(c[i]) : 0.f;
+      out[i] = repro::narrow<T>(apply<OP>(x, y, z, s));
+    }
+  }
+}
+
+template <typename T, int OP>
+cudaError_t launch_op(const void* a, const void* b, const void* c, void* out, float s,
+                      int64_t rows, int64_t width, int64_t pitch, int64_t brows,
+                      cudaStream_t stream) {
+  constexpr int NIN = Arity<OP>::value, N = Vec<T>::N;
   const bool vec = repro::aligned16(a) && (NIN < 2 || repro::aligned16(b)) &&
                    (NIN < 3 || repro::aligned16(c)) && repro::aligned16(out) &&
                    (pitch * static_cast<int64_t>(sizeof(T))) % 16 == 0 &&
-                   width % Vec<T>::N == 0;
-  const int64_t grid = (rows + brows - 1) / brows;
-  if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  stream_kernel<T, OP><<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(out), s, rows, width, pitch,
-      brows, vec ? 1 : 0);
+                   width % N == 0;
+  const int64_t nblocks = (rows + brows - 1) / brows;
+  if (nblocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const T* pa = static_cast<const T*>(a);
+  const T* pb = static_cast<const T*>(b);
+  const T* pc = static_cast<const T*>(c);
+  T* po = static_cast<T*>(out);
+  if (vec) {
+    const int64_t per_thread = static_cast<int64_t>(N) * Unroll<OP>::value;
+    int64_t threads = (brows * width + per_thread - 1) / per_thread;
+    threads = (threads + 31) / 32 * 32;
+    if (threads > kMaxThreads) threads = kMaxThreads;
+    stream_kernel<T, OP><<<static_cast<unsigned>(nblocks), static_cast<unsigned>(threads), 0,
+                           stream>>>(pa, pb, pc, po, s, rows, width, pitch, brows);
+  } else {
+    stream_scalar_kernel<T, OP><<<static_cast<unsigned>(nblocks), kThreads, 0, stream>>>(
+        pa, pb, pc, po, s, rows, width, pitch, brows);
+  }
   return cudaSuccess;
 }
 

@@ -137,6 +137,27 @@ def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
             "digests": digests(st, specs, sizes)}
 
 
+def seeded_grads(mesh, cfg, seed: int, data_cfg) -> dict:
+    """This rank's loss, gradient blocks and global norm at step 0 of the
+    weights ``model.init(seed)`` draws on the rank's device (the weights of
+    every rank and of one device on that device type), on batch 0 of
+    ``data_cfg``, with the parameter specs.  No numpy state crosses the
+    spawn, so it serves full-width models."""
+    rules = mesh_rules(mesh)
+    sizes = mesh.axis_sizes
+    model = build_model(cfg)
+    specs = specs_lib.param_specs(model.param_defs(), rules, sizes)
+    params = specs_lib.shard_tree(model.init(seed, device=mesh.device),
+                                  specs, mesh)
+    sharding = specs_lib.NamedSharding(mesh, rules_lib.spec(
+        "batch", None, rules=rules, axis_sizes=sizes,
+        shape=(data_cfg.global_batch, data_cfg.seq_len)))
+    grad_fn = steps.make_grad_fn(model, mesh=mesh, rules=rules)
+    loss0, grads0, gnorm0 = grad_fn(params, make_batch(data_cfg, 0, sharding))
+    return {"loss0": float(loss0), "grads0": grads0, "gnorm0": float(gnorm0),
+            "specs": specs}
+
+
 def trainer(mesh, cfg, data_cfg, restore_dir: str, save_dir: str,
             steps_run: int, seed: int = 0, schedule: tuple = ()) -> dict:
     """A ``Trainer`` on the mesh restoring the latest checkpoint of

@@ -144,10 +144,15 @@ def attention_defs(cfg: ModelConfig) -> dict:
     d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = cfg.adtype
     defs = {
-        "wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim"), dtype=dt),
-        "wk": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
-        "wv": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim"), dtype=dt),
-        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed"), dtype=dt),
+        # true fan-ins, where the reference takes shape[-2] (ROADMAP §C)
+        "wq": ParamDef((d, h, hd), ("embed", "heads", "head_dim"), dtype=dt,
+                       fan_in_axes=("embed",)),
+        "wk": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim"),
+                       dtype=dt, fan_in_axes=("embed",)),
+        "wv": ParamDef((d, kh, hd), ("embed", "kv_heads", "head_dim"),
+                       dtype=dt, fan_in_axes=("embed",)),
+        "wo": ParamDef((h, hd, d), ("heads", "head_dim", "embed"), dtype=dt,
+                       fan_in_axes=("heads", "head_dim")),
     }
     if cfg.qkv_bias:
         defs["bq"] = ParamDef((h, hd), ("heads", "head_dim"), init="zeros", dtype=dt)

@@ -11,6 +11,13 @@ from the base seed and a CRC-32 of the leaf's path, so a leaf's values do
 not depend on the order of the tree or on the process.  PyTorch's and
 JAX's generators differ, so a seed gives other numbers than the reference;
 parity tests carry the weights across (``repro_torch.interop``).
+
+A leaf's init std is 1/sqrt(fan-in).  The reference takes every leaf's
+fan-in as ``shape[-2]``, which is wrong for the attention weights (ROADMAP
+§C): ``wq`` (d, h, hd) gets 1/sqrt(h), ``wo`` (h, hd, d) 1/sqrt(hd).  A
+port ``ParamDef`` names its input axes in ``fan_in_axes`` where the rule of
+``shape[-2]`` does not hold, so those weights get 1/sqrt(d) and
+1/sqrt(h*hd) -- a deliberate divergence from the reference.
 """
 from __future__ import annotations
 
@@ -35,6 +42,8 @@ class ParamDef:
     init: str = "normal"                  # normal | zeros | ones | embed
     scale: float | None = None            # stddev override (normal/embed)
     dtype: torch.dtype = torch.float32
+    # the input axes whose sizes multiply to the fan-in (default shape[-2])
+    fan_in_axes: tuple[str, ...] | None = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -42,6 +51,9 @@ class ParamDef:
 
     @property
     def fan_in(self) -> int:
+        if self.fan_in_axes:
+            return math.prod(n for n, a in zip(self.shape, self.axes)
+                             if a in self.fan_in_axes)
         return self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
 
     def materialize(self, gen: torch.Generator,

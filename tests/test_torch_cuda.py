@@ -30,13 +30,17 @@ bits on both ranks.
 
 The reduced fp32 train step on the card is held to the same step on the
 CPU: loss rtol 1e-5, each gradient leaf rtol 1e-4 with an atol of 1e-2 of
-the leaf's scale.  The reduced qwen2-0.5b is ill-conditioned at its init
-(see tests/test_torch_train.py): on the CPU the port's and the JAX
-package's fp32 gradients lie 2.3e-3 and 2.8e-3 of a leaf's scale from a
-float64 run, and the card, summing in other orders again, differed from
-the CPU by up to 3.5e-3 of the scale here and 6.3e-3 in chip_smoke.py's
-reduced check (NVIDIA H100 80GB HBM3, 700 W); 1e-2 still fails any dropped
-or misrouted gradient.
+the leaf's scale.  That atol was set when the port's init copied the
+reference's attention fan-in and the reduced qwen2-0.5b was
+ill-conditioned (see tests/test_torch_train.py): the card, summing in
+other orders, differed from the CPU by up to 3.5e-3 of the scale then
+(NVIDIA H100 80GB HBM3, 700 W).  The init now takes the true fan-ins
+(ROADMAP §C); 1e-2 still fails any dropped or misrouted gradient.
+
+The STREAM kernels write every element of pitched and contiguous tiles
+once, bit-exact (both dtypes: one rounding of the same fp32 operations),
+and leave the row padding alone.  A row normed by the RMSNorm kernel has
+the same bits whatever rows and blocks it is launched with.
 """
 import dataclasses
 
@@ -103,6 +107,50 @@ def test_stream_kernels_match_plain(n, dtype):
             exact(got, want)
         else:
             torch.testing.assert_close(got, want, **tol(dtype))
+
+
+STREAM_OPS = [("copy", 1, None), ("scale", 1, 3.0), ("add", 2, None),
+              ("triad", 2, 3.0), ("vtriad", 3, None)]
+
+
+# (rows, width, extra pitch, brows): one row; a ragged last block (rows no
+# multiple of brows); blocks wider than one pass of a CTA's threads (7 rows
+# of 12288); contiguous blocks, walked across rows, and non-contiguous rows
+# (pitch > width), each element found by its row and column
+STREAM_TILES = [(1, 128, 0, 1), (1, 4096, 0, 1), (43, 896, 0, 4),
+                (133, 2560, 0, 1), (263, 128, 0, 3), (265, 4096, 0, 2),
+                (43, 896, 8, 4), (133, 2560, 8, 1), (265, 4096, 128, 2),
+                (7, 12288, 0, 7), (5, 12288, 64, 2)]
+
+
+@pytest.mark.parametrize("rows,width,extra,brows", STREAM_TILES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_stream_kernels_write_every_element_once(rows, width, extra, brows,
+                                               dtype):
+    """Every op on pitched (rows, width) tiles into an output pre-filled
+    with NaN: every logical element bit-equal to the plain version (the
+    same rounded fp32 operations, one rounding to the dtype), the row
+    padding left alone."""
+    if width % (16 // torch.tensor([], dtype=dtype).element_size()):
+        pytest.skip("width is not whole 16-B vectors")
+    gen = torch.Generator(device="cuda").manual_seed(rows * width + extra)
+    pitch = width + extra
+    xs = []
+    for _ in range(3):
+        t = torch.empty_strided((rows, width), (pitch, 1), dtype=dtype,
+                                device="cuda")
+        t.copy_(torch.randn(rows, width, generator=gen, device="cuda"))
+        xs.append(t)
+    for op, count, s in STREAM_OPS:
+        out = torch.full((rows * pitch,), float("nan"), dtype=dtype,
+                         device="cuda").as_strided((rows, width), (pitch, 1))
+        skernel.launch_cuda(op, xs[:count], s, brows, out)
+        want = (tkernel.plain(*xs) if op == "vtriad"
+                else skernel.plain(op, xs[:count], s))
+        exact(out, want)
+        if extra:
+            pad = out.as_strided((rows, extra), (pitch, 1), width)
+            assert bool(pad.isnan().all()), op
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -242,6 +290,64 @@ def test_rmsnorm_kernels_match_plain(width, gated, dtype):
         got = rkernel.rmsnorm2d(pad[0], sp, d_logical=width)
         want = rkernel.plain(pad[0], sp, width, 1e-6)
     torch.testing.assert_close(got, want, **tol(dtype))
+
+
+# (rows, width, d_logical): one row; few rows and many, row counts that are
+# no multiple of a block (brows) or of a group of rows loaded at once (up
+# to 4); d_logical below the width; a width past 1024 vectors (rows read
+# twice)
+RMS_CASES = [(1, 128, 128), (7, 896, 896), (133, 2560, 2560),
+             (1001, 4096, 4096), (300, 2560, 2500), (5, 4096, 4000),
+             (257, 128, 100), (9, 40_064, 40_000)]
+RMS_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+
+
+def _rms_inputs(rows, width, d_logical, dtype, sdtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, z = (torch.randn(rows, width, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    scale = (torch.randn(width, generator=gen, device="cuda") + 1).to(sdtype)
+    return x, z, scale
+
+
+@pytest.mark.parametrize("rows,width,d_logical", RMS_CASES)
+@pytest.mark.parametrize("dtype,sdtype", RMS_DTYPES)
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("brows", [1, 2, 3, 8])
+def test_rmsnorm_paths_match_plain(rows, width, d_logical, dtype, sdtype,
+                                   gated, brows):
+    x, z, scale = _rms_inputs(rows, width, d_logical, dtype, sdtype, rows)
+    if gated:
+        got = rkernel.gated_rmsnorm2d(x, z, scale, d_logical=d_logical,
+                                      brows=brows)
+    else:
+        got = rkernel.rmsnorm2d(x, scale, d_logical=d_logical, brows=brows)
+    want = rkernel.plain(x, scale, d_logical, 1e-6, z if gated else None)
+    torch.testing.assert_close(got, want, **tol(dtype))
+
+
+@pytest.mark.parametrize("width", [896, 2560, 4096, 40_064])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("gated", [False, True])
+def test_rmsnorm_row_bits_do_not_depend_on_the_launch(width, dtype, gated):
+    """A row normed alone, inside 100 rows and inside 1000, in blocks of
+    1, 2, 3 and 8 rows (groups of 1, 2 and 4 rows loaded at once): the same
+    bits every time."""
+    x, z, scale = _rms_inputs(1000, width, width, dtype, dtype, width)
+
+    def norm(sl, brows):
+        if gated:
+            return rkernel.gated_rmsnorm2d(x[sl], z[sl], scale,
+                                           d_logical=width, brows=brows)
+        return rkernel.rmsnorm2d(x[sl], scale, d_logical=width, brows=brows)
+
+    whole = norm(slice(None), 2)
+    exact(norm(slice(None), 3), whole)
+    exact(norm(slice(None), 8), whole)
+    exact(norm(slice(0, 100), 1), whole[:100])
+    for r in (0, 1, 517, 999):
+        exact(norm(slice(r, r + 1), 1), whole[r:r + 1])
 
 
 def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():

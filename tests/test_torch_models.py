@@ -24,9 +24,9 @@ from repro.configs import reduce_for_smoke as jreduce
 from repro.models import blocks as jblocks
 from repro.models import build_model as jbuild_model
 from repro.models.params import init_params as jinit_params
-from repro.models.params import is_def as jis_def
 from repro_torch import interop
 from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.interop import numpy_params
 from repro_torch.models import blocks, build_model
 from repro_torch.models.params import init_params, leaves
 
@@ -34,31 +34,6 @@ ARCHS = ["qwen3-4b", "qwen2-0.5b"]
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 
 
-def numpy_params(defs, seed):
-    """A numpy tree for a reference ParamDef tree: normal leaves at their
-    init std, ones as 1 + 0.1 noise, zeros as 0.02 noise."""
-    rng = np.random.default_rng(seed)
-
-    def rec(tree):
-        out = {}
-        for key in sorted(tree):
-            d = tree[key]
-            if not jis_def(d):
-                out[key] = rec(d)
-                continue
-            noise = rng.standard_normal(d.shape)
-            if d.init == "ones":
-                a = 1.0 + 0.1 * noise
-            elif d.init == "zeros":
-                a = 0.02 * noise
-            else:
-                std = d.scale or (0.02 if d.init == "embed"
-                                  else 1.0 / math.sqrt(d.fan_in))
-                a = std * noise
-            out[key] = a.astype(np.float32)
-        return out
-
-    return rec(defs)
 
 
 def pair(arch, seed=0, **changes):
@@ -236,3 +211,28 @@ def test_init_is_seeded_and_stable_across_processes():
                                 "PYTHONHASHSEED": seed}).stdout
             for seed in ("1", "2")}
     assert sums == {f"{float(a['embed'].double().sum())}\n"}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b"])
+def test_attention_init_takes_the_true_fan_in(arch):
+    """``model.init`` draws the attention weights at 1/sqrt(fan-in) of
+    their true input widths (ROADMAP §C, a deliberate divergence from the
+    reference, whose ``shape[-2]`` rule gives ``wq`` 1/sqrt(h), ``wk`` and
+    ``wv`` 1/sqrt(kh), ``wo`` 1/sqrt(hd)): 1/sqrt(d) for ``wq``, ``wk``
+    and ``wv``, 1/sqrt(h * hd) for ``wo``.  The config's attention widths,
+    one layer, a cut vocab and MLP (no attention width); qwen3-4b's
+    h * hd = 4096 is not its d = 2560, so ``wo``'s rule shows.  The sample
+    std of n normal draws lies within a few 1/sqrt(2n) of the true one; the
+    smallest leaf, qwen2-0.5b's ``wk``, has 114,688 draws, so 1 % is over
+    four sigma."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, vocab_size=512,
+                              d_ff=256, dtype="float32")
+    d, h, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    attn = build_model(cfg).init(0, device="cpu")["s00_dense"]["attn"]
+    want = {"wq": d, "wk": d, "wv": d, "wo": h * hd}
+    for name, fan_in in want.items():
+        w = attn[name]
+        assert w.shape == {"wq": (1, d, h, hd), "wo": (1, h, hd, d)}.get(
+            name, (1, d, kh, hd))
+        std = float(w.double().std())
+        assert std == pytest.approx(1 / math.sqrt(fan_in), rel=1e-2), name

@@ -18,7 +18,6 @@ greedy tokens through ``repro``'s and ``repro_torch``'s batchers.  A greedy
 token is only meaningful where the top two logits differ clearly, so the
 test first asserts a top-2 gap of at least 1e-3 at every decision.
 """
-import math
 import types
 
 import jax
@@ -30,12 +29,12 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.configs import reduce_for_smoke as jreduce
 from repro.models import build_model as jbuild_model
-from repro.models.params import is_def as jis_def
 from repro.serving import ContinuousBatcher as JBatcher
 from repro.serving import Request as JRequest
 from repro_torch import interop
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core.segmented import PageGeometry
+from repro_torch.interop import numpy_params
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.models.params import ParamDef
@@ -451,33 +450,12 @@ class TestTruncationRegression:
 # ---------------------------------------------------------------------------
 
 
-def _numpy_params(defs, seed):
-    """A numpy tree for a reference ParamDef tree at each leaf's init std
-    (ones and zeros perturbed, so every leaf matters)."""
-    rng = np.random.default_rng(seed)
-
-    def rec(tree):
-        out = {}
-        for key in sorted(tree):
-            d = tree[key]
-            if not jis_def(d):
-                out[key] = rec(d)
-                continue
-            noise = rng.standard_normal(d.shape)
-            std = d.scale or (0.02 if d.init == "embed"
-                              else 1.0 / math.sqrt(d.fan_in))
-            a = {"ones": 1.0 + 0.1 * noise,
-                 "zeros": 0.02 * noise}.get(d.init, std * noise)
-            out[key] = a.astype(np.float32)
-        return out
-
-    return rec(defs)
 
 
 def test_greedy_tokens_equal_across_frameworks():
     jmodel = jbuild_model(jreduce(jget_config("qwen3-4b")))
     model = build_model(reduce_for_smoke(get_config("qwen3-4b")))
-    tree = _numpy_params(jmodel.param_defs(), 11)
+    tree = numpy_params(jmodel.param_defs(), 11)
     jparams = jax.tree.map(jnp.asarray, tree)
     params = interop.params_from_jax(tree, model.cfg, **CPU)
     reqs = _ragged_requests(model.cfg, 3, seed=5)

@@ -30,7 +30,12 @@ each mesh:
     that is not sharded holds the same bits on every rank;
   * a single-device checkpoint restores into the mesh ``Trainer`` as each
     rank's blocks, and the mesh ``Trainer``'s checkpoint restores into a
-    single-device ``Trainer`` bit for bit.
+    single-device ``Trainer`` bit for bit;
+  * at the port's own init stds (the true attention fan-ins), the fp32
+    step's loss, norm and gradients against the one-device port to rtol
+    1e-6 and 1e-5 of a leaf's scale, from carried weights and from
+    ``mesh_checks.seeded_grads`` (each rank draws ``model.init``), the job
+    of ``chip_smoke.py``'s full-width gate.
 
 Tolerances: the cross-entropy as in ``tests/test_torch_xent.py`` (loss
 rtol 1e-5, gradient rtol 1e-5 / atol 1e-9); the model step as in
@@ -65,7 +70,6 @@ from repro.configs import reduce_for_smoke as jreduce
 from repro.data import pipeline as jpipeline
 from repro.kernels.xent import ops as jops
 from repro.models import build_model as jbuild_model
-from repro.models.params import is_def as jis_def
 from repro.optim import adamw as jadamw
 from repro.optim import schedules as jschedules
 from repro.parallel import rules as jrules
@@ -77,10 +81,11 @@ from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.core import planner
 from repro_torch.core.autotune import StreamSignature
 from repro_torch.data import pipeline
+from repro_torch.interop import numpy_params
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import mesh_checks
 from repro_torch.models import build_model
-from repro_torch.models.params import leaves
+from repro_torch.models.params import leaves, map_leaves
 from repro_torch.optim import adamw, schedules
 from repro_torch.parallel import rules, specs, steps
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
@@ -111,31 +116,6 @@ def xent_inputs(t, v, seed):
     return x, labels
 
 
-def numpy_params(defs, seed):
-    """A numpy tree for a reference ParamDef tree: normal leaves at their
-    init std, ones as 1 + 0.1 noise, zeros as 0.02 noise."""
-    rng = np.random.default_rng(seed)
-
-    def rec(tree):
-        out = {}
-        for key in sorted(tree):
-            d = tree[key]
-            if not jis_def(d):
-                out[key] = rec(d)
-                continue
-            noise = rng.standard_normal(d.shape)
-            if d.init == "ones":
-                a = 1.0 + 0.1 * noise
-            elif d.init == "zeros":
-                a = 0.02 * noise
-            else:
-                std = d.scale or (0.02 if d.init == "embed"
-                                  else 1.0 / math.sqrt(d.fan_in))
-                a = std * noise
-            out[key] = a.astype(np.float32)
-        return out
-
-    return rec(defs)
 
 
 def data_cfgs(vocab=512):
@@ -582,10 +562,19 @@ def mesh_run(request, reference, tmp_path_factory):
                                data_cfg=data_cfgs(PADDED_VOCAB)[1],
                                steps_run=1, opt_cfg=adamw.AdamWConfig(**OPT),
                                schedule=SCHEDULE)))
+    # the port's own init stds (the true attention fan-ins, ROADMAP §C)
+    tree = numpy_params(build_model(cfg).param_defs(), 0, true_fan_in=True)
+    host = interop.params_from_jax(tree, cfg, device="cpu")
+    well = map_leaves(interop.to_numpy, {
+        "params": host, "opt": adamw.init_state(host, adamw.AdamWConfig())})
+    jobs.append(("train", dict(cfg=cfg, state=well, data_cfg=data,
+                               steps_run=0, schedule=SCHEDULE)))
+    jobs.append(("seeded_grads", dict(cfg=cfg, seed=5, data_cfg=data)))
     results = mesh_lib.spawn(mesh_checks.run, shape, AXES, device="cpu",
                              args=(jobs,))
     return {"shape": shape, "ranks": results, "cfg": cfg, "data": data,
-            "root": root, "single": single, "state64": state64}
+            "root": root, "single": single, "state64": state64,
+            "well": tree}
 
 
 def test_xent_loss_matches_reference(mesh_run, reference):
@@ -664,6 +653,60 @@ def test_float64_mesh_grads_equal_the_one_device_port(mesh_run):
         np.testing.assert_allclose(r["loss0"], float(loss), rtol=1e-6)
     got = assemble_tree([r["grads0"] for r in ranks],
                         ranks[0]["specs"]["params"], mesh_run["shape"])
+    for path, w in leaves(want):
+        w = interop.to_numpy(w)
+        np.testing.assert_allclose(
+            pick(got, path), w, rtol=0,
+            atol=1e-5 * float(np.abs(w).max()), err_msg="/".join(path))
+
+
+def test_well_conditioned_mesh_grads_match_one_device(mesh_run):
+    """fp32 at the port's init stds (the true attention fan-ins): the
+    mesh's loss, norm and gradients, put back together, against the port's
+    one-device ``value_and_grad`` on the same weights and batch.  At these
+    weights nothing amplifies the mesh's other summation order (two vocab
+    shards' dx, the data ranks' gradients), so the fp32 step is held as
+    tightly as the float64 one above: the loss and the norm rtol 1e-6,
+    each leaf atol 1e-5 of its scale."""
+    ranks = [r[6] for r in mesh_run["ranks"]]
+    cfg = mesh_run["cfg"]
+    model = build_model(cfg)
+    params = interop.params_from_jax(mesh_run["well"], cfg, device="cpu")
+    _, data = data_cfgs()
+    loss, want = steps.value_and_grad(
+        model, params, pipeline.make_batch(data, 0, device="cpu"))
+    norm = adamw.global_norm(want)
+    for r in ranks:
+        np.testing.assert_allclose(r["loss0"], float(loss), rtol=1e-6)
+        np.testing.assert_allclose(r["gnorm0"], float(norm), rtol=1e-6)
+    got = assemble_tree([r["grads0"] for r in ranks],
+                        ranks[0]["specs"]["params"], mesh_run["shape"])
+    for path, w in leaves(want):
+        w = interop.to_numpy(w)
+        np.testing.assert_allclose(
+            pick(got, path), w, rtol=0,
+            atol=1e-5 * float(np.abs(w).max()), err_msg="/".join(path))
+
+
+def test_seeded_mesh_grads_match_one_device(mesh_run):
+    """``mesh_checks.seeded_grads``, the job of ``chip_smoke.py``'s
+    full-width gate: each rank draws ``model.init(seed)`` itself and cuts
+    its blocks; the loss, the norm and every gradient leaf against the
+    one-device port on the same seed, to the tolerances of the
+    well-conditioned fp32 check above (the port's init is
+    well-conditioned)."""
+    ranks = [r[7] for r in mesh_run["ranks"]]
+    model = build_model(mesh_run["cfg"])
+    _, data = data_cfgs()
+    loss, want = steps.value_and_grad(
+        model, model.init(5, device="cpu"),
+        pipeline.make_batch(data, 0, device="cpu"))
+    for r in ranks:
+        np.testing.assert_allclose(r["loss0"], float(loss), rtol=1e-6)
+        np.testing.assert_allclose(r["gnorm0"],
+                                   float(adamw.global_norm(want)), rtol=1e-6)
+    got = assemble_tree([r["grads0"] for r in ranks], ranks[0]["specs"],
+                        mesh_run["shape"])
     for path, w in leaves(want):
         w = interop.to_numpy(w)
         np.testing.assert_allclose(
