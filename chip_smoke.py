@@ -19,17 +19,18 @@ Phases, each fatal on failure:
      read just after, and every output is checked against the registered
      plain oracle (or the flat triad) on the card, and STREAM, the triad
      and the phase sweep bit for bit against the kernels' plain versions;
-  3b. serving at full Qwen3-4B width (bf16, seeded weights, one card):
+  3b. serving at full Qwen3-4B width, its depth cut to 18 of 36 layers
+     to make room for 3e (bf16, seeded weights, one card):
      ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
      serves 16 seeded requests (prompts 32-256 tokens, 16-64 new tokens)
      with the paged KV cache and again with the dense one; fatal unless
      every request completes, paged tokens equal dense tokens, two requests
      re-run alone in the same slot geometry give the same tokens, and the
      rmsnorm launch counter, zeroed just before and read just after, is at
-     least 73 (2 x 36 layers + the final norm) a decode step.  One
+     least 37 (2 x 18 layers + the final norm) a decode step.  One
      ``make_prefill_step`` forward at B = 4, S = 512 (rmsnorm on 2048 x
-     2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``,
-     the gated kernel's only entry point, runs at (2048, 4096);
+     2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``
+     runs at (2048, 4096);
   3c. training at full Qwen2-0.5B width (24 layers, d_model 896, 14/2
      heads, d_ff 4864, vocab 151936, tied embeddings, QKV bias; bf16 with
      an fp32 master, remat on, seeded weights, one card): first the
@@ -81,8 +82,30 @@ Phases, each fatal on failure:
      the profiled step's busy share.  Two ranks on
      one card stand in for ranks on separate cards: their times are not
      scaling numbers;
+  3e. the hybrid at full zamba2-1.2b width (38 Mamba2 layers, d_model
+     2048, d_inner 4096, 64 SSM heads of 64, state 64; one shared
+     attention block applied 6 times; vocab 32000), bf16, seeded weights,
+     one card: ``ContinuousBatcher`` with 3b's slots, max_len, prefill
+     chunk and 16 requests, paged and dense; fatal unless every request
+     completes, paged tokens equal dense tokens, requests 0 and 1 re-run
+     alone in the same slot geometry give the batched tokens (a reused
+     slot's SSM state is reset), and the counters, zeroed just before and
+     read just after, show at least 51 B9 launches (38 mamba ln1, 6 x 2 of
+     the shared block, the final norm) and 38 B10 launches (each Mamba2
+     gate and norm) a decode step; a ``profile:`` line of one decode tick;
+     one ``make_prefill_step`` forward at B = 4, S = 512 (two chunks of
+     the SSD, where the reference's forward is NaN; B10 on 2048 x 4096
+     rows inside the model) with finite logits and exactly 51 and 38
+     launches; the reduced fp32 hybrid's loss and every gradient leaf at
+     S = 300 (across a chunk) on the card (B9, B10, B11 under their
+     autograd Functions, remat on) against the CPU, loss rtol 1e-5, each
+     leaf rtol 1e-4 / atol 1e-2 of its scale, every leaf nonzero; then one
+     bf16 forward each of minicpm-2b and qwen3-14b at full width, B = 1,
+     S = 512, fatal unless the logits are finite and B9 ran 81 times
+     (2 x 40 layers + the final norm), each model freed before the next;
   4. each kernel against its plain PyTorch version on the same inputs at
-     the main path's shapes, with the tolerance stated;
+     the main path's shapes (and at zamba2-1.2b's: B9 at (8, 2048) and
+     (2048, 2048), B10 at (8, 4096), bf16), with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
      function, beside the least time the card could take (``bound_ms``),
@@ -93,7 +116,8 @@ Phases, each fatal on failure:
      step, and the segmented triad's time over the flat triad's.
 
 A ``serve:`` line gives requests, generated tokens, seconds, tokens/s,
-ticks, preemptions and the page size, and a ``profile:`` line where the
+ticks, ms a decode step, preemptions and the page size (for zamba2-1.2b
+also the B9 and B10 launches a step), and a ``profile:`` line where the
 device time of one decode tick goes; ``train:`` lines the loss at each
 step, ms a step (median of steps 1-7), tokens/s and the peak of
 ``torch.cuda.max_memory_allocated``, and a ``profile:`` line one train
@@ -129,6 +153,9 @@ OMEGA = 1.2
 SEGMENTS = 8               # segmented triad: 8 segments, align 128, shift 16
 # serving at full Qwen3-4B width
 SERVE_ARCH = "qwen3-4b"
+# the depth of phase 3b, cut from 36 layers so that the script with
+# phase 3e stays near 11 minutes; every width is the config's
+SERVE_LAYERS = 18
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 16
 SERVE_PROMPT, SERVE_GEN = (32, 256), (16, 64)
 PREFILL_B, PREFILL_S = 4, 512
@@ -138,6 +165,14 @@ SEED = 0
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 512, 8, 8, 4
 TRAIN_PEAK, TRAIN_WARMUP = 3e-4, 2
+# phase 3e: serving at full zamba2-1.2b width (the dense phase's slots,
+# max_len, chunk and requests), the reduced hybrid's train step at a length
+# that crosses the SSD's 256-token chunk, and full-width prefill forwards of
+# the two other dense configs
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_TRAIN_SEQ = 300
+DENSE_ARCHS = ("minicpm-2b", "qwen3-14b")
+DENSE_PREFILL_S = 512
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # a replayed step after the first: a backward that sums with atomics may
 # change the last bits of a gradient, and a bf16 weight whose fp32 master
@@ -329,10 +364,13 @@ def tol(dtype) -> tuple[float, float]:
 
 
 def serving_phase() -> dict[str, int]:
-    """Phase 3b: continuous-batching serving at full Qwen3-4B width, a
+    """Phase 3b: continuous-batching serving at full Qwen3-4B width
+    (``SERVE_LAYERS`` of its 36 layers), a
     prefill forward, and the gated norm's launch path.  Each rmsnorm
     counter is zeroed just before a run and read just after; returns the
     launches of each kernel over the phase."""
+    import dataclasses
+
     import torch
 
     from repro_torch import api
@@ -343,7 +381,7 @@ def serving_phase() -> dict[str, int]:
     from repro_torch.parallel.steps import make_prefill_step
     from repro_torch.serving import ContinuousBatcher, Request
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
     model = build_model(cfg)
     params = model.init(SEED)
     reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
@@ -378,7 +416,8 @@ def serving_phase() -> dict[str, int]:
         runs[kv] = (batcher, out)
         tokens = sum(len(v) for v in out.values())
         page = batcher.geometry.page_len if batcher.geometry else None
-        print(f"serve: {SERVE_ARCH} bf16 {kv}: {len(out)} requests, "
+        print(f"serve: {SERVE_ARCH} bf16 {cfg.n_layers} layers {kv}: "
+              f"{len(out)} requests, "
               f"{tokens} generated tokens in {secs:.3f} s, "
               f"{tokens / secs:.2f} tokens/s, {batcher.ticks} ticks, "
               f"{batcher.micro_steps} decode steps "
@@ -407,7 +446,8 @@ def serving_phase() -> dict[str, int]:
         with torch.inference_mode():
             batcher.decode(params, batcher.cache, feed)
 
-    device_profile(f"decode tick {SERVE_ARCH} {SERVE_SLOTS} slots paged "
+    device_profile(f"decode tick {SERVE_ARCH} ({cfg.n_layers} layers) "
+                   f"{SERVE_SLOTS} slots paged "
                    f"max_len {SERVE_MAX_LEN}", tick, top=8)
     del runs, batcher
 
@@ -450,6 +490,228 @@ def serving_phase() -> dict[str, int]:
     print(f"main: rmsnorm.gated {GATED_SHAPE} bf16 through api.launch vs "
           f"its oracle: max abs err {err:.3g}: ok")
     torch.cuda.empty_cache()
+    return counts
+
+
+def hybrid_phase() -> dict[str, int]:
+    """Phase 3e: continuous-batching serving at full zamba2-1.2b width
+    (Mamba2 and a shared attention block; B9 and B10 inside the model), a
+    prefill forward past the SSD's chunk, the reduced hybrid's train step on
+    the card against the CPU, and full-width prefill forwards of
+    minicpm-2b and qwen3-14b.  Each rmsnorm counter is zeroed just before a
+    run and read just after; returns the launches of each kernel over the
+    phase."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.interop import numpy_params
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.models.params import leaves
+    from repro_torch.parallel import steps
+    from repro_torch.parallel.steps import make_prefill_step
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    t_phase = time.perf_counter()
+    counts = {"rmsnorm": 0, "rmsnorm.gated": 0}
+
+    def zero():
+        rms_kernel.LAUNCHES["plain"] = rms_kernel.LAUNCHES["gated"] = 0
+
+    def read():
+        plain, gated = rms_kernel.LAUNCHES["plain"], rms_kernel.LAUNCHES[
+            "gated"]
+        counts["rmsnorm"] += plain
+        counts["rmsnorm.gated"] += gated
+        return plain, gated
+
+    cfg = get_config(HYBRID_ARCH)
+    n_mamba = sum(n for kind, n in cfg.stages() if kind == "mamba")
+    n_shared = sum(kind == "shared_attn" for kind, _ in cfg.stages())
+    # a mamba layer's ln1, a shared block's ln1 and ln2, the final norm;
+    # a mamba layer's gated norm
+    plain_step, gated_step = n_mamba + 2 * n_shared + 1, n_mamba
+    d_inner = cfg.ssm_expand * cfg.d_model
+    model = build_model(cfg)
+    params = model.init(SEED)
+    n_params = sum(t.numel() for _, t in leaves(params))
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
+                         SERVE_GEN, SEED)
+
+    def serve(kv, subset):
+        batcher = ContinuousBatcher(model, params, slots=SERVE_SLOTS,
+                                    max_len=SERVE_MAX_LEN, kv_cache=kv,
+                                    prefill_chunk=SERVE_CHUNK)
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        out = batcher.run([Request(r.rid, list(r.prompt), r.max_new_tokens)
+                           for r in subset])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = read()
+        for r in subset:
+            if len(out.get(r.rid, ())) != r.max_new_tokens:
+                fail(f"serve {HYBRID_ARCH} {kv}: request {r.rid} did not "
+                     f"complete")
+        steps_run = batcher.micro_steps
+        if (launched[0] < plain_step * steps_run
+                or launched[1] < gated_step * steps_run):
+            fail(f"serve {HYBRID_ARCH} {kv}: {launched} (rmsnorm, "
+                 f"rmsnorm.gated) launches for {steps_run} decode steps "
+                 f"(< ({plain_step}, {gated_step}) a step)")
+        return batcher, out, secs, launched
+
+    runs = {}
+    for kv in ("paged", "dense"):
+        batcher, out, secs, launched = serve(kv, reqs)
+        runs[kv] = (batcher, out)
+        tokens = sum(len(v) for v in out.values())
+        page = batcher.geometry.page_len if batcher.geometry else None
+        print(f"serve: {HYBRID_ARCH} bf16 {kv}, {n_params} parameters: "
+              f"{len(out)} requests, {tokens} generated tokens in "
+              f"{secs:.3f} s, {tokens / secs:.2f} tokens/s, "
+              f"{batcher.ticks} ticks, {batcher.micro_steps} decode steps "
+              f"({secs / batcher.micro_steps * 1e3:.2f} ms a step), "
+              f"{len(batcher.preemption_log)} preemptions, page {page}, "
+              f"launches rmsnorm {launched[0]} "
+              f"({launched[0] / batcher.micro_steps:.1f} a step), "
+              f"rmsnorm.gated {launched[1]} "
+              f"({launched[1] / batcher.micro_steps:.1f} a step)")
+    if runs["paged"][1] != runs["dense"][1]:
+        bad = [r.rid for r in reqs
+               if runs["paged"][1][r.rid] != runs["dense"][1][r.rid]]
+        fail(f"serve {HYBRID_ARCH}: paged tokens differ from dense for "
+             f"requests {bad}")
+    print(f"serve: {HYBRID_ARCH}: paged tokens equal dense tokens for all "
+          f"{SERVE_REQUESTS} requests")
+    for rid in (0, 1):
+        _, alone, _, _ = serve("paged", [reqs[rid]])
+        if alone[rid] != runs["paged"][1][rid]:
+            fail(f"serve {HYBRID_ARCH}: request {rid} alone gave other "
+                 f"tokens than batched")
+    print(f"serve: {HYBRID_ARCH}: requests 0 and 1 re-run alone in the same "
+          f"slot geometry (their slots' SSM state reset on reuse) give the "
+          f"batched tokens")
+
+    batcher = runs["paged"][0]
+    feed = torch.ones((batcher.padded_slots, 1), dtype=torch.int32,
+                      device="cuda")
+
+    def tick():
+        with torch.inference_mode():
+            batcher.decode(params, batcher.cache, feed)
+
+    device_profile(f"decode tick {HYBRID_ARCH} {SERVE_SLOTS} slots paged "
+                   f"max_len {SERVE_MAX_LEN}", tick, top=8)
+    del runs, batcher
+
+    # the prefill forward where the reference's SSD gives NaN: two chunks
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    zero()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.inference_mode():
+        start.record()
+        logits = prefill(params, {"tokens": tokens})
+        end.record()
+    end.synchronize()
+    launched = read()
+    if tuple(logits.shape) != (PREFILL_B, cfg.vocab_size):
+        fail(f"prefill {HYBRID_ARCH}: logits shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"prefill {HYBRID_ARCH}: non-finite logits")
+    if launched != (plain_step, gated_step):
+        fail(f"prefill {HYBRID_ARCH}: {launched} (rmsnorm, rmsnorm.gated) "
+             f"launches, want ({plain_step}, {gated_step})")
+    print(f"prefill: {HYBRID_ARCH} bf16 B={PREFILL_B} S={PREFILL_S} (two "
+          f"SSD chunks; rmsnorm on {PREFILL_B * PREFILL_S} x {cfg.d_model} "
+          f"rows, rmsnorm.gated on {PREFILL_B * PREFILL_S} x {d_inner}): "
+          f"{start.elapsed_time(end):.3f} ms, logits finite, launches "
+          f"rmsnorm {launched[0]}, rmsnorm.gated {launched[1]}")
+    del model, params, logits
+    torch.cuda.empty_cache()
+
+    # the reduced fp32 hybrid: the card (B9, B10, B11 under their autograd
+    # Functions, remat on) against the CPU (their plain versions), the same
+    # numpy weights on both, 300 tokens a row across the SSD's chunk; the
+    # dense phase's tolerance (loss rtol 1e-5; each gradient leaf rtol 1e-4
+    # with an atol of 1e-2 of its scale)
+    small = build_model(dataclasses.replace(reduce_for_smoke(cfg),
+                                            remat=True))
+    tree = numpy_params(small.param_defs(), SEED, true_fan_in=True)
+    data = DataConfig(vocab_size=small.cfg.vocab_size,
+                      seq_len=HYBRID_TRAIN_SEQ, global_batch=4)
+    zero()
+    loss, grads = steps.value_and_grad(
+        small, interop.params_from_jax(tree, small.cfg), make_batch(data, 0))
+    launched = read()
+    want, want_g = steps.value_and_grad(
+        small, interop.params_from_jax(tree, small.cfg, device="cpu"),
+        make_batch(data, 0, device="cpu"))
+    if launched[1] < small.cfg.n_layers:
+        fail(f"reduced {HYBRID_ARCH} train step: {launched[1]} "
+             f"rmsnorm.gated launches for {small.cfg.n_layers} mamba layers")
+    check_close(f"reduced {HYBRID_ARCH} train step loss, card vs cpu",
+                loss.cpu(), want, 1e-5, 0.0)
+    worst = 0.0
+    for (path, g), (_, w) in zip(leaves(grads), leaves(want_g)):
+        name = "/".join(path)
+        if not bool(g.abs().max() > 0):
+            fail(f"reduced {HYBRID_ARCH} train step: gradient of {name} is "
+                 f"zero")
+        scale = float(w.abs().max())
+        err = check_close(f"reduced {HYBRID_ARCH} train step grad {name}, "
+                          f"card vs cpu", g.cpu(), w, 1e-4, 1e-2 * scale)
+        worst = max(worst, err / scale)
+    print(f"train: reduced {HYBRID_ARCH} fp32 (remat on) S="
+          f"{HYBRID_TRAIN_SEQ}: loss {float(loss)!r} on the card, "
+          f"{float(want)!r} on the cpu; launches rmsnorm {launched[0]}, "
+          f"rmsnorm.gated {launched[1]}; every one of "
+          f"{len(list(leaves(grads)))} gradient leaves finite, nonzero and "
+          f"within rtol 1e-4 / atol 1e-2 of its scale (worst {worst:.3g} of "
+          f"scale): ok")
+    del grads, want_g
+
+    # the other dense configs at full width: one bf16 prefill forward each
+    for arch in DENSE_ARCHS:
+        dcfg = get_config(arch)
+        dmodel = build_model(dcfg)
+        dparams = dmodel.init(SEED)
+        n = sum(t.numel() for _, t in leaves(dparams))
+        tokens = torch.randint(0, dcfg.vocab_size, (1, DENSE_PREFILL_S),
+                               generator=gen, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        zero()
+        start.record()
+        with torch.inference_mode():
+            logits, _ = dmodel(dparams, tokens)
+        end.record()
+        end.synchronize()
+        launched = read()
+        want_plain = 2 * dcfg.n_layers + 1
+        if tuple(logits.shape) != (1, DENSE_PREFILL_S, dcfg.vocab_size):
+            fail(f"prefill {arch}: logits shape {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"prefill {arch}: non-finite logits")
+        if launched[0] != want_plain:
+            fail(f"prefill {arch}: {launched[0]} rmsnorm launches, want "
+                 f"{want_plain}")
+        print(f"prefill: {arch} bf16 full width, {n} parameters, B=1 "
+              f"S={DENSE_PREFILL_S}: {start.elapsed_time(end):.3f} ms, "
+              f"logits finite, rmsnorm launches {launched[0]}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        del dmodel, dparams, logits
+        torch.cuda.empty_cache()
+    print(f"hybrid: the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -1251,11 +1513,14 @@ def main() -> int:
     serve_launches = serving_phase()
     train_launches, train_metrics = training_phase()
     spmd_launches = spmd_phase(train_metrics)
+    hybrid_launches = hybrid_phase()
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
     launches["rmsnorm"] += train_launches["rmsnorm"]
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
+    for name, count in hybrid_launches.items():
+        launches[name] += count
     print(f"main: launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -1377,6 +1642,15 @@ def main() -> int:
             (PREFILL_B * PREFILL_S, 2560), dtype, False, 11)
         cases["rmsnorm.gated" + suffix] = rms_case(GATED_SHAPE, dtype, True,
                                                    12)
+    # zamba2-1.2b's rows (phase 3e), bf16: B9 at its decode (8, 2048) and
+    # prefill (2048, 2048) shapes, B10 at its decode (8, 4096) shape (its
+    # prefill shape is GATED_SHAPE)
+    cases["rmsnorm.zamba2"] = rms_case((SERVE_SLOTS, 2048), torch.bfloat16,
+                                       False, 17)
+    cases["rmsnorm.prefill.zamba2"] = rms_case(
+        (PREFILL_B * PREFILL_S, 2048), torch.bfloat16, False, 18)
+    cases["rmsnorm.gated.zamba2"] = rms_case((SERVE_SLOTS, 4096),
+                                             torch.bfloat16, True, 19)
     def xent_case(t, v, logical_v, dtype, seed):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
         calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the
@@ -1504,7 +1778,8 @@ def main() -> int:
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         }
         t = times[name]
-        base = name.removesuffix(".bf16").removesuffix(".fp32")
+        base = name.removesuffix(".zamba2").removesuffix(".bf16")
+        base = base.removesuffix(".fp32")
         base = base.replace(".prefill", "").replace("partial.ragged",
                                                     "partial")
         if "nearest" in case:
@@ -1517,7 +1792,7 @@ def main() -> int:
                  if library is not None else "kernel/library -")
         print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms, library {lib}, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"bound {t['bound_ms']:.4g} ms ({t['bound_by']}), "
               f"{ratio}, {t['bound_ms'] / t['ms']:.1%} of bound, "
               f"{case['bytes'] / t['ms'] / 1e6:.1f} GB/s effective")
 

@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
 Counterpart of ``repro.configs``.  The port carries the configurations of
-the dense family it runs, as data (``qwen3-4b``, ``qwen2-0.5b``) with their
-schedule kinds (``get_schedule``); every
+the families it runs, as data (dense ``qwen3-4b``, ``qwen2-0.5b``,
+``qwen3-14b``, ``minicpm-2b``; hybrid ``zamba2-1.2b``) with their schedule
+kinds (``get_schedule``); every
 other architecture of the reference's pool is known by name and family and
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
@@ -14,15 +15,15 @@ import importlib
 from repro_torch.models.config import ModelConfig, require_ported
 
 _MODULES = {
+    "zamba2-1.2b": "zamba2_1p2b",
+    "minicpm-2b": "minicpm_2b",
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0p5b",
+    "qwen3-14b": "qwen3_14b",
 }
 
 # architectures of the reference's pool not ported yet, by family
 _UNPORTED = {
-    "zamba2-1.2b": "hybrid",
-    "minicpm-2b": "dense",
-    "qwen3-14b": "dense",
     "pixtral-12b": "vlm",
     "xlstm-1.3b": "ssm",
     "grok-1-314b": "moe",
@@ -36,9 +37,6 @@ ARCHS = tuple(_MODULES)
 def get_config(name: str) -> ModelConfig:
     if name in _UNPORTED:
         require_ported(_UNPORTED[name], name)
-        raise NotImplementedError(
-            f"{name}: its configuration is not carried into the port yet "
-            f"(ported: {sorted(_MODULES)})")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: "
                        f"{sorted([*_MODULES, *_UNPORTED])}")
@@ -73,6 +71,10 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.head_dim:
         kw["head_dim"] = 32
+    if cfg.family == "hybrid":
+        kw["shared_attn_period"] = 2
+        kw["ssm_state"] = 16
+        kw["ssm_head_dim"] = 32
     if cfg.vocab_logical:
         kw["vocab_logical"] = 0
     return dataclasses.replace(cfg, **kw)

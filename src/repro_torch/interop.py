@@ -133,7 +133,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
     named), converted to ``dtype`` when given.
 
     The two trees share names and shapes leaf for leaf (stacked stages
-    included); every reference leaf must land exactly once, with its shape
+    included, and a hybrid's one ``shared_attn`` subtree, unstacked);
+    every reference leaf must land exactly once, with its shape
     unchanged, or this raises naming the leaves that do not."""
     from repro_torch.models import transformer
     from repro_torch.models.params import leaves

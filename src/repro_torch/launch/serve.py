@@ -1,7 +1,7 @@
 """Serving launcher of the port: seeded weights, seeded ragged requests,
 served through ``ContinuousBatcher``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --mesh device --slots 8 --max-len 1024 --requests 16
 
 ``--mesh host`` reduces the configuration (``configs.reduce_for_smoke``),
@@ -9,7 +9,10 @@ as the reference does; ``--mesh device`` runs the full configuration on the
 one card, standing in for the reference's ``pod``/``multipod`` meshes until
 the SPMD slice (ROADMAP A11).  The run is on CUDA unless ``--device cpu``.
 Prompt lengths and new-token counts are drawn from the given ranges with
-``--seed``.  Prints requests, generated tokens, seconds and tokens/s.
+``--seed``.  The default arch is the reference's, ``zamba2-1.2b`` (the
+hybrid).  Prints the decode batch's RMSNorm plan (and, for a hybrid, the
+Mamba2 gated norm's over (slots, d_inner)), then requests, generated
+tokens, seconds and tokens/s.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import time
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="zamba2-1.2b")
     ap.add_argument("--mesh", choices=["host", "device"], default="host")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
@@ -74,6 +77,10 @@ def main(argv=None) -> dict:
     reqs = make_requests(args.requests, cfg.vocab_size, args.prompt_len,
                          args.gen, args.seed)
     print(api.explain("rmsnorm", (args.slots, cfg.d_model), cfg.adtype))
+    if cfg.family == "hybrid":
+        print(api.explain("rmsnorm.gated",
+                          (args.slots, cfg.ssm_expand * cfg.d_model),
+                          cfg.adtype))
     batcher = ContinuousBatcher(model, params, slots=args.slots,
                                 max_len=args.max_len, kv_cache=args.kv_cache,
                                 prefill_chunk=args.prefill_chunk,

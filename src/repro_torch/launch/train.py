@@ -15,7 +15,10 @@ by model (``models.transformer``'s vocab-parallel layout), under
 ``rules.make_rules(tensor_parallel=False)``; it runs the full configuration
 on CUDA (every rank on card 0 when the ranks outnumber the cards, over
 gloo) and the reduced one on the CPU, and pads the configuration for the
-model axis (``padded_for_mesh``) unless ``--baseline``.  The run is on CUDA
+model axis (``padded_for_mesh``) unless ``--baseline``; a hybrid arch
+(``zamba2-1.2b``) raises under a model axis of more than one rank (ROADMAP
+A11).  The learning-rate schedule is the arch's (``configs.get_schedule``:
+``wsd`` for ``minicpm-2b``, ``cosine`` for the others).  The run is on CUDA
 unless ``--device cpu``.  ``--layers``/``--d-model`` override the depth and
 width.  Checkpoints go under ``--ckpt-dir`` (inside the checkout by
 default); a complete checkpoint at or past ``--steps`` restores past the
@@ -207,7 +210,11 @@ def main(argv=None):
 def _main_mesh(args, device):
     from repro_torch.launch import mesh as mesh_lib
 
+    from repro_torch.models.transformer import require_mesh_ported
+
     shape = mesh_lib.parse_shape(args.mesh)
+    require_mesh_ported(_config(args, device.type == "cuda"),
+                        {"model": shape[1]})
     if device.type == "cuda":
         from repro_torch.kernels import _build
 

@@ -1,5 +1,5 @@
-"""Model zoo of the port: the dense decoder-only LM (other families wait
-for ROADMAP A9)."""
+"""Model zoo of the port: the decoder-only LM of the dense and hybrid
+families (other families wait for ROADMAP A9)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM
 

@@ -4,7 +4,9 @@ Counterpart of ``repro.models.blocks``: plain functions over dicts of
 tensors described by ``ParamDef``s.  Softmax and norm statistics are
 computed in fp32 whatever the activation dtype.  RMSNorm launches the
 registered kernel (``api.launch("rmsnorm")``, the hand-written CUDA kernel
-on the card), differentiated by ``RMSNormFn`` under autograd; attention and
+on the card), differentiated by ``RMSNormFn`` under autograd, and so does
+the gated norm of the Mamba2 block (``api.launch("rmsnorm.gated")``,
+``GatedRMSNormFn``); attention and
 the projections are plain PyTorch, as the JAX package leaves them to XLA.  The reference's activation-sharding
 annotations (``parallel.rules.shard``) have no counterpart until the SPMD
 slice (ROADMAP A11).
@@ -101,6 +103,51 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNormFn.apply(x, scale, cfg.norm_eps)
     return dispatch.launch("rmsnorm", x, scale, eps=cfg.norm_eps)
+
+
+def _gated_ref(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """The gated norm in fp32 throughout: RMSNorm of x * silu(z)."""
+    xf, zf = x.to(torch.float32), z.to(torch.float32)
+    return _rms_ref(xf * (zf * torch.sigmoid(zf)), scale, eps)
+
+
+class GatedRMSNormFn(torch.autograd.Function):
+    """The gated RMSNorm through the registered kernel, differentiable: the
+    forward is ``dispatch.launch("rmsnorm.gated")`` (B10 on the card, whose
+    output carries no autograd history), the backward the gradient of the
+    plain gated math ``_gated_ref`` with respect to x, the gate z and the
+    scale, taken in fp32 and cast to each input's dtype (``RMSNormFn``'s
+    rule for B9)."""
+
+    @staticmethod
+    def forward(ctx, x, z, scale, eps):
+        ctx.save_for_backward(x, z, scale)
+        ctx.eps = eps
+        return dispatch.launch("rmsnorm.gated", x, z, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, scale = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().to(torch.float32).requires_grad_(True)
+                   for t in (x, z, scale)]
+            grads = torch.autograd.grad(_gated_ref(*ins, ctx.eps), ins,
+                                        g.to(torch.float32))
+        return (*(d.to(t.dtype) for d, t in zip(grads, (x, z, scale))),
+                None)
+
+
+def apply_gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm of y * silu(z) times ``scale`` (the Mamba2 gate and norm)
+    through the registered kernel: ``GatedRMSNormFn`` when autograd
+    records, ``dispatch.launch("rmsnorm.gated")`` otherwise, as
+    ``apply_norm`` does for the plain norm."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (y, z, scale)):
+        return GatedRMSNormFn.apply(y, z, scale, cfg.norm_eps)
+    return dispatch.launch("rmsnorm.gated", y, z, scale, eps=cfg.norm_eps)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,

@@ -2,9 +2,9 @@
 
 Counterpart of ``repro.models.config``.  ``ModelConfig`` carries the
 logical dimensions; ``adtype`` is a ``torch.dtype``.  The port runs the
-dense family (``stages()``); the other families raise
-``NotImplementedError`` naming the ROADMAP item that brings them, before
-any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
+dense and hybrid (zamba2: Mamba2 and a shared attention block) families
+(``stages()``); the other families raise ``NotImplementedError`` naming the
+ROADMAP item that brings them, before any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
 engine: the physical config for a ``tp``-way model axis, with the Hopper
 ``core.layout.LayoutPolicy`` in place of the TPU one (a sharded minor dim
 pads to ``tp`` warp-wide vector spans) and the logical vocab kept in
@@ -21,10 +21,11 @@ from repro_torch.core.layout import LayoutPolicy
 
 Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
 
+PORTED_FAMILIES = ("dense", "hybrid")
+
 # The ROADMAP item that ports each family the port does not run yet.
 UNPORTED_FAMILIES = {
     "moe": "ROADMAP A9 (moe.py)",
-    "hybrid": "ROADMAP A9 (mamba2.py)",
     "ssm": "ROADMAP A9 (xlstm.py)",
     "encdec": "ROADMAP A9 (encdec.py)",
     "vlm": "ROADMAP A9 (prefix embeddings)",
@@ -36,8 +37,9 @@ def require_ported(family: str, name: str = "") -> None:
     if family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{name or 'model'}: the {family} family is not ported yet; the "
-            f"port runs the dense family ({UNPORTED_FAMILIES[family]})")
-    if family != "dense":
+            f"port runs the {' and '.join(PORTED_FAMILIES)} families "
+            f"({UNPORTED_FAMILIES[family]})")
+    if family not in PORTED_FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
 
 
@@ -112,7 +114,20 @@ class ModelConfig:
     def stages(self) -> list[tuple[str, int]]:
         """Homogeneous layer runs, each one stacked stage."""
         require_ported(self.family, self.name)
-        return [("dense", self.n_layers)]
+        if self.family == "dense":
+            return [("dense", self.n_layers)]
+        # hybrid: runs of mamba layers, the shared attention block after
+        # each full run (and after a short last run only if it is full)
+        out: list[tuple[str, int]] = []
+        period = self.shared_attn_period or self.n_layers
+        remaining = self.n_layers
+        while remaining > 0:
+            run = min(period, remaining)
+            out.append(("mamba", run))
+            remaining -= run
+            if remaining > 0 or run == period:
+                out.append(("shared_attn", 1))
+        return out
 
     # ---- layout engine ----------------------------------------------------
     def padded_for_mesh(self, tp: int

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family (counterpart of ``repro.models.transformer``).
+"""Decoder-only LM, dense and hybrid families (counterpart of
+``repro.models.transformer``).
 
 Layers are grouped into homogeneous stages (``cfg.stages()``); a stage's
 per-layer parameters stay stacked along a leading layer axis, as in the
@@ -6,9 +7,15 @@ reference, and a Python loop over the layers (``layers``: one ``unbind`` a
 stage) takes the place of ``lax.scan``.  With ``cfg.remat`` and autograd
 recording, each layer runs under ``torch.utils.checkpoint`` (non-reentrant),
 the counterpart of the reference's ``jax.checkpoint`` of the scan body: its
-activations are recomputed in the backward pass instead of kept.  The other
-families (MoE, Mamba2, xLSTM, enc-dec, VLM) raise ``NotImplementedError``
-before any parameter is made (ROADMAP A9).
+activations are recomputed in the backward pass instead of kept.
+
+The hybrid family (zamba2) runs stages of Mamba2 layers
+(``models.mamba2``) and, at every ``('shared_attn', 1)`` stage, one shared
+attention block: a single parameter set (``params["shared_attn"]``, not
+stacked) whose input is ``concat([x, h0]) @ win``, h0 the embedded tokens,
+with a KV cache (or page pool) of its own for each application.  The other
+families (MoE, xLSTM, enc-dec, VLM) raise ``NotImplementedError`` before
+any parameter is made (ROADMAP A9).
 
 ``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
 (B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch.
@@ -33,11 +40,13 @@ model line.  Three pieces carry it:
 
 Attention heads and the MLP stay whole (no tensor parallelism yet, ROADMAP
 A11): the model raises if the ambient rules shard "heads", "kv_heads",
-"mlp" or "expert" over a mesh axis of more than one rank.
+"mlp" or "expert" over a mesh axis of more than one rank.  The hybrid
+family on a mesh waits for A11 too: it raises under a model axis of more
+than one rank (``require_mesh_ported``).
 
-``decode_step`` writes the KV caches in place (``models.blocks``) and
-returns the cache dict with ``idx`` advanced; callers that need the old
-cache keep a copy.
+``decode_step`` writes the KV caches and the Mamba2 conv and SSM state in
+place (``models.blocks``, ``models.mamba2``) and returns the cache dict
+with ``idx`` advanced; callers that need the old cache keep a copy.
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.api import context as context_lib
 from repro_torch.api import dispatch
 from repro_torch.api import spmd as spmd_lib
-from repro_torch.models import blocks
+from repro_torch.models import blocks, mamba2
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.params import (
     ParamDef,
@@ -66,15 +75,21 @@ from repro_torch.parallel import rules as rules_lib
 
 
 def block_defs(cfg: ModelConfig, kind: str) -> Tree:
-    if kind != "dense":
-        require_ported({"moe": "moe", "mamba": "hybrid", "shared_attn": "hybrid",
-                        "mlstm": "ssm", "slstm": "ssm"}.get(kind, kind))
-    return {
+    if kind == "mamba":
+        return {"ln1": blocks.norm_defs(cfg), "mamba": mamba2.mamba_defs(cfg)}
+    if kind not in ("dense", "shared_attn"):
+        require_ported({"moe": "moe", "mlstm": "ssm",
+                        "slstm": "ssm"}.get(kind, kind))
+    defs: Tree = {
         "ln1": blocks.norm_defs(cfg),
         "attn": blocks.attention_defs(cfg),
         "ln2": blocks.norm_defs(cfg),
         "mlp": blocks.mlp_defs(cfg),
     }
+    if kind == "shared_attn":   # its input projection of concat([x, h0])
+        defs["win"] = ParamDef((2 * cfg.d_model, cfg.d_model),
+                               ("embed", "embed"), dtype=cfg.adtype)
+    return defs
 
 
 def stage_name(i: int, kind: str) -> str:
@@ -90,8 +105,13 @@ def param_defs(cfg: ModelConfig) -> Tree:
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
                                    ("embed", "vocab"), dtype=cfg.adtype)
-    for i, (kind, count) in enumerate(cfg.stages()):
-        tree[stage_name(i, kind)] = stack_defs(block_defs(cfg, kind), count)
+    stages = cfg.stages()
+    for i, (kind, count) in enumerate(stages):
+        if kind != "shared_attn":   # one shared subtree, added below
+            tree[stage_name(i, kind)] = stack_defs(block_defs(cfg, kind),
+                                                   count)
+    if ("shared_attn", 1) in stages:
+        tree["shared_attn"] = block_defs(cfg, "shared_attn")
     return tree
 
 
@@ -121,10 +141,18 @@ def _scalar(value: float, dtype: torch.dtype) -> float:
 
 
 def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """One dense layer."""
+                 positions: torch.Tensor,
+                 h0: torch.Tensor | None = None) -> torch.Tensor:
+    """One layer: dense, mamba, or the shared attention block (whose input
+    projection takes ``concat([x, h0])``)."""
     rs = _scalar(cfg.residual_scale, x.dtype)
-    h = blocks.apply_norm(p["ln1"], x, cfg)
+    if kind == "mamba":
+        h = blocks.apply_norm(p["ln1"], x, cfg)
+        return x + rs * mamba2.mamba_forward(p["mamba"], h, cfg)
+    xin = x
+    if kind == "shared_attn":
+        xin = torch.matmul(torch.cat([x, h0], dim=-1), p["win"])
+    h = blocks.apply_norm(p["ln1"], xin, cfg)
     h = blocks.attention(p["attn"], h, cfg, positions=positions)
     x = x + rs * h
     h = blocks.apply_norm(p["ln2"], x, cfg)
@@ -137,10 +165,12 @@ def vocab_parallel(cfg: ModelConfig):
     vocabulary shards over, or ``(None, ())`` outside a mesh or when the
     vocab stays whole (a model axis of one rank, or a vocab that does not
     divide).  Raises where the rules would shard a layer's heads or MLP,
-    which the port does not do yet."""
+    or for a hybrid under a model axis of more than one rank, which the
+    port does not do yet."""
     mesh = spmd_lib.spmd_mesh()
     if mesh is None:
         return None, ()
+    require_mesh_ported(cfg, mesh.axis_sizes)
     table = rules_lib.restrict_to_mesh(
         rules_lib.current_rules() or rules_lib.DEFAULT_RULES, mesh)
     sizes = mesh.axis_sizes
@@ -155,6 +185,15 @@ def vocab_parallel(cfg: ModelConfig):
     s = rules_lib.spec("vocab", "embed", rules=table,
                        shape=(cfg.vocab_size, cfg.d_model), axis_sizes=sizes)
     return mesh, rules_lib.dim_axes(s, 2)[0]
+
+
+def require_mesh_ported(cfg: ModelConfig, axis_sizes) -> None:
+    """Raise for a hybrid config on a mesh ({axis: ranks}) whose model
+    axis has more than one rank: the hybrid on a mesh is ROADMAP A11."""
+    if cfg.family == "hybrid" and int(axis_sizes.get("model", 1)) > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family on a mesh with a model axis of "
+            f"{axis_sizes['model']} ranks is not ported (ROADMAP A11)")
 
 
 class _SumOverVocab(torch.autograd.Function):
@@ -232,14 +271,19 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
+    h0 = x
     remat = cfg.remat and torch.is_grad_enabled()
     for i, (kind, count) in enumerate(cfg.stages()):
-        for lp in layers(params[stage_name(i, kind)]):
+        if kind == "shared_attn":
+            stage = [(params["shared_attn"], h0)]
+        else:
+            stage = [(lp, None) for lp in layers(params[stage_name(i, kind)])]
+        for lp, h in stage:
             if remat:
-                x = checkpoint(_apply_block, kind, lp, x, cfg, positions,
+                x = checkpoint(_apply_block, kind, lp, x, cfg, positions, h,
                                use_reentrant=False)
             else:
-                x = _apply_block(kind, lp, x, cfg, positions)
+                x = _apply_block(kind, lp, x, cfg, positions, h)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params, x, cfg), aux
 
@@ -333,22 +377,27 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Tree:
-    """Cache tree matching cfg.stages(); plus per-slot write indices
+    """Cache tree matching cfg.stages() -- a KV cache for each attention
+    stage (one for each shared-block application), the per-slot conv and
+    SSM state of each Mamba2 stage -- plus per-slot write indices
     (continuous batching: each request sits at its own depth)."""
     tree: Tree = {"idx": ParamDef((batch,), ("batch",), init="zeros",
                                   dtype=torch.int32)}
     for i, (kind, count) in enumerate(cfg.stages()):
-        tree[stage_name(i, kind)] = blocks.init_kv_cache(cfg, batch, max_len,
-                                                         count)
+        tree[stage_name(i, kind)] = (
+            mamba2.mamba_cache_defs(cfg, batch, count) if kind == "mamba"
+            else blocks.init_kv_cache(cfg, batch, max_len, count))
     return tree
 
 
 def paged_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
                      n_pages: int, page_len: int) -> Tree:
-    """Paged serving cache (serving.paged_cache): attention stages share a
-    physical page pool.  Extra leaves beside ``idx``: ``pages``, the
-    (batch, max_pages) int32 page table (0 = null page), and ``act``, the
-    (batch,) row-active mask the paged write consults."""
+    """Paged serving cache (serving.paged_cache): each attention stage (each
+    shared-block application) has a physical page pool; the Mamba2 conv and
+    SSM state stays per slot, never paged.  Extra leaves beside ``idx``:
+    ``pages``, the (batch, max_pages) int32 page table (0 = null page), and
+    ``act``, the (batch,) row-active mask the paged write and the state
+    writes consult."""
     max_pages = -(-max_len // page_len)
     tree: Tree = {
         "idx": ParamDef((batch,), ("batch",), init="zeros", dtype=torch.int32),
@@ -357,19 +406,29 @@ def paged_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
                           dtype=torch.int32),
     }
     for i, (kind, count) in enumerate(cfg.stages()):
-        tree[stage_name(i, kind)] = blocks.paged_kv_pool_defs(
-            cfg, n_pages, page_len, count)
+        tree[stage_name(i, kind)] = (
+            mamba2.mamba_cache_defs(cfg, batch, count) if kind == "mamba"
+            else blocks.paged_kv_pool_defs(cfg, n_pages, page_len, count))
     return tree
 
 
 def _decode_block(kind: str, p: Tree, cache: Tree, x: torch.Tensor,
                   idx: torch.Tensor, cfg: ModelConfig,
                   pages: torch.Tensor | None = None,
-                  act: torch.Tensor | None = None):
-    """One dense layer against its cache (``cache["k"]``/``["v"]`` are that
-    layer's slices, written in place)."""
+                  act: torch.Tensor | None = None,
+                  h0: torch.Tensor | None = None):
+    """One layer against its cache (that layer's slices, written in
+    place): the KV of a dense or shared attention layer, the conv and SSM
+    state of a mamba layer."""
     rs = _scalar(cfg.residual_scale, x.dtype)
-    h = blocks.apply_norm(p["ln1"], x, cfg)
+    if kind == "mamba":
+        h = blocks.apply_norm(p["ln1"], x, cfg)
+        h, nc = mamba2.mamba_decode_step(p["mamba"], cache, h, cfg, act)
+        return x + rs * h, nc
+    xin = x
+    if kind == "shared_attn":
+        xin = torch.matmul(torch.cat([x, h0], dim=-1), p["win"])
+    h = blocks.apply_norm(p["ln1"], xin, cfg)
     if pages is not None:
         h, ck, cv = blocks.paged_decode_attention(
             p["attn"], h, cache["k"], cache["v"], pages, idx, act, cfg)
@@ -395,14 +454,17 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
     pages = cache.get("pages")
     act = cache.get("act")
     x = embed_tokens(params, tokens, cfg)
+    h0 = x
     new_cache: Tree = {"idx": idx + 1}
     for key in ("pages", "act"):
         if key in cache:
             new_cache[key] = cache[key]
     for i, (kind, count) in enumerate(cfg.stages()):
         nm = stage_name(i, kind)
-        for lp, lc in zip(layers(params[nm]), layers(cache[nm])):
-            x, _ = _decode_block(kind, lp, lc, x, idx, cfg, pages, act)
+        lps = ([params["shared_attn"]] if kind == "shared_attn"
+               else layers(params[nm]))
+        for lp, lc in zip(lps, layers(cache[nm])):
+            x, _ = _decode_block(kind, lp, lc, x, idx, cfg, pages, act, h0)
         new_cache[nm] = cache[nm]
     return unembed(params, x, cfg), new_cache
 

@@ -94,6 +94,9 @@ def make_grad_fn(model, *, microbatches: int = 1, mesh=None,
     sums the gradients over the data axes."""
     on_mesh = mesh is not None and mesh.size > 1
     if on_mesh:
+        from repro_torch.models.transformer import require_mesh_ported
+
+        require_mesh_ported(model.cfg, mesh.axis_sizes)
         rules = rules_lib.restrict_to_mesh(
             rules or rules_lib.make_rules(tensor_parallel=False), mesh)
         data_axes = rules_lib.target_axes(rules.get("batch"))
@@ -209,8 +212,10 @@ def make_chunk_step(model, batch_axes) -> Callable:
     ``chunk_step(params, cache, tokens, nvalid)`` runs masked micro decode
     steps: at micro-step c only rows with ``c < nvalid`` advance.  The
     cache's ``act`` leaf is set to the active rows for each micro-step, so
-    the in-place KV writes of frozen rows change nothing (``models.blocks``);
-    every leaf the step replaced (``idx``) is restored for frozen rows along
+    the in-place writes of frozen rows change nothing: the KV caches
+    (``models.blocks``) and the Mamba2 conv and SSM state
+    (``models.mamba2``) write back what they found there.  Every leaf the
+    step replaced (``idx``) is restored for frozen rows along
     its declared batch axis (``batch_axes``: a cache-shaped tree of ints,
     -1 for leaves with no batch axis), as the reference's ``_restore`` does
     for every leaf.  Rows are independent in the model, so each row's tokens

@@ -29,8 +29,10 @@ for Qwen3-4B's KV stream 16 rows (128 KiB over 4 rmsnorm buffers of one
 ``page_len`` must be a whole number of the planner's row unit and of
 ``line_rows``.
 
-The pool itself lives in the model cache tree
-(``models.transformer.paged_cache_defs``); ``PageManager`` owns the
+For a hybrid (zamba2) the KV stream is the shared attention block's, and
+there is one pool for each of its applications; the Mamba2 conv and SSM
+state is O(1) per slot and never paged.  The pools live in the model cache
+tree (``models.transformer.paged_cache_defs``); ``PageManager`` owns the
 host-side bookkeeping: the free list, each slot's pages, and the admission
 arithmetic of the scheduler's backpressure and preemption.
 """

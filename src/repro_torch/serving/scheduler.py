@@ -4,9 +4,10 @@ Counterpart of ``repro.serving.scheduler``.  A fixed batch of decode slots
 advances in lockstep through one serve step per tick; requests of ragged
 lengths stream through the slots:
 
-  * admit  -- a free slot takes the next queued request; the slot's cache
-    rows are reset from a pristine template (per-slot idx -> 0), so no
-    state leaks across tenants;
+  * admit  -- a free slot takes the next queued request; the slot's rows
+    of every cache leaf with a batch axis are reset from a pristine
+    template along that declared axis (its idx -> 0, and a hybrid's Mamba2
+    conv and SSM state -> zeros), so no state leaks across tenants;
   * prefill -- the prompt is teacher-forced through the decode step
     (``prefill_chunk`` tokens a tick via the masked chunk step, or one a
     tick -- numerically identical either way);

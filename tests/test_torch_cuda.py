@@ -37,6 +37,13 @@ other orders, differed from the CPU by up to 3.5e-3 of the scale then
 (NVIDIA H100 80GB HBM3, 700 W).  The init now takes the true fan-ins
 (ROADMAP §C); 1e-2 still fails any dropped or misrouted gradient.
 
+The hybrid (reduced zamba2) serves paged = dense bit for bit like the
+dense models, and its train step runs 300 tokens a row, across a chunk of
+the SSD, to the same tolerance.  B10 at zamba2-1.2b's shapes is held to
+its plain version at the bf16 tolerance; ``GatedRMSNormFn``'s gradients on
+the card (a plain fp32 backward behind the kernel's forward) to the same
+Function on the CPU at rtol 1e-4 / atol 1e-5.
+
 The STREAM kernels write every element of pitched and contiguous tiles
 once, bit-exact (both dtypes: one rounding of the same fp32 operations),
 and leave the row padding alone.  A row normed by the RMSNorm kernel has
@@ -370,7 +377,35 @@ def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():
                           torch.ones(6, device="cuda"), d_logical=6)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b"])
+@pytest.mark.parametrize("rows", [8, 2048])
+def test_gated_kernel_at_the_zamba2_shapes(rows):
+    """B10 at zamba2-1.2b's Mamba2 norm shapes, bf16: (8, 4096), a decode
+    step of 8 slots, and (2048, 4096), a prefill of B = 4, S = 512; the
+    d_inner of 4096 is a whole number of vectors, so d_logical is the
+    width.  Through ``api.launch`` (one launch) and the kernel itself
+    against its plain version, and under ``GatedRMSNormFn``, whose
+    gradients match the same Function on the CPU."""
+    x, z, scale = _rms_inputs(rows, 4096, 4096, torch.bfloat16,
+                              torch.bfloat16, rows)
+    before = rkernel.LAUNCHES["gated"]
+    got = api.launch("rmsnorm.gated", x, z, scale)
+    assert rkernel.LAUNCHES["gated"] == before + 1
+    want = rkernel.plain(x, scale, 4096, 1e-6, z)
+    torch.testing.assert_close(got, want, **tol(torch.bfloat16))
+    torch.testing.assert_close(
+        rkernel.gated_rmsnorm2d(x, z, scale, d_logical=4096), want,
+        **tol(torch.bfloat16))
+    ins = [t.float().requires_grad_(True) for t in (x, z, scale)]
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
+    g = torch.randn(rows, 4096, device="cuda")
+    blocks.GatedRMSNormFn.apply(*ins, 1e-6).backward(g)
+    blocks.GatedRMSNormFn.apply(*cpu, 1e-6).backward(g.cpu())
+    for a, b in zip(ins, cpu):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "zamba2-1.2b"])
 def test_reduced_serving_paged_equals_dense(arch):
     # the reduced configs run in fp32: full-precision matmuls (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -389,6 +424,8 @@ def test_reduced_serving_paged_equals_dense(arch):
         assert sorted(out[kv]) == list(range(5))
     assert out["paged"] == out["dense"]
     assert rkernel.LAUNCHES["plain"] > before
+    if model.cfg.family == "hybrid":
+        assert rkernel.LAUNCHES["gated"] > 0
 
 
 XENT = dict(rtol=1e-5, atol=1e-5)
@@ -475,12 +512,14 @@ def test_xent_grad_on_the_card_matches_the_cpu(dtype):
     torch.testing.assert_close(got.cpu(), want, **tol_)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b"])
 def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     """Loss and every gradient leaf of a reduced fp32 model: the card
-    (B9/B11 kernels under their autograd Functions, remat on) against the
-    CPU (their plain versions).  Every leaf must get a nonzero gradient:
-    a kernel output without autograd history would drop the norms'."""
+    (B9/B11 kernels, and the hybrid's B10, under their autograd Functions,
+    remat on) against the CPU (their plain versions).  Every leaf must get
+    a nonzero gradient: a kernel output without autograd history would
+    drop the norms'.  The hybrid runs 300 tokens a row, across a chunk
+    boundary of its SSD."""
     import dataclasses
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -490,11 +529,16 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     card = map_leaves(lambda t: t.cuda(), cpu)
     from repro_torch.data.pipeline import DataConfig, make_batch
 
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4)
-    before = (rkernel.LAUNCHES["plain"], xkernel.LAUNCHES["xent"])
+    hybrid = cfg.family == "hybrid"
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=300 if hybrid else 16,
+                      global_batch=4)
+    before = (rkernel.LAUNCHES["plain"], xkernel.LAUNCHES["xent"],
+              rkernel.LAUNCHES["gated"])
     loss, grads = steps.value_and_grad(model, card, make_batch(data, 0))
     assert rkernel.LAUNCHES["plain"] - before[0] >= 2 * cfg.n_layers + 1
     assert xkernel.LAUNCHES["xent"] == before[1] + 1
+    if hybrid:
+        assert rkernel.LAUNCHES["gated"] - before[2] >= cfg.n_layers
     want, want_g = steps.value_and_grad(model, cpu,
                                         make_batch(data, 0, device="cpu"))
     torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=0)

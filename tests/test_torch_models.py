@@ -1,14 +1,20 @@
-"""The port's dense model stack against the JAX package, on the CPU.
+"""The port's model stack against the JAX package, on the CPU.
 
-Reduced qwen3-4b (qk-norm, untied head) and qwen2-0.5b (QKV bias, tied
-embeddings, GQA) -- ``reduce_for_smoke`` on both sides, fp32.  The weights
+Reduced qwen3-4b (qk-norm, untied head), qwen2-0.5b (QKV bias, tied
+embeddings, GQA), minicpm-2b (tied embeddings, the muP-style embed,
+residual and logit scales) and zamba2-1.2b (the hybrid: Mamba2 and a shared
+attention block) -- ``reduce_for_smoke`` on both sides, fp32.  The weights
 are made once with numpy from a seed and carried into both packages
 (``interop.params_from_jax`` for the port), since the two frameworks'
 generators differ.  Every leaf is drawn at random, biases and norm scales
-included, so each parameter reaches the logits.  Tolerance: fp32 rtol 1e-4 /
-atol 1e-5 on the logits; both sides compute in fp32 with other summation
-orders, and the RMSNorm runs as Pallas in interpret mode on the JAX side and
-as the kernel's plain version on the port's.
+included, so each parameter reaches the logits.  zamba2's weights take the
+port's init stds (``TRUE_FAN_IN``): at the reference's fan-in its shared
+attention is so ill-conditioned that fp32 reordering moves the logits by
+more than the tolerance (tests/test_torch_hybrid.py measures it).
+Tolerance: fp32 rtol 1e-4 / atol 1e-5 on the logits; both sides compute in
+fp32 with other summation orders, and the RMSNorm runs as Pallas in
+interpret mode on the JAX side and as the kernel's plain version on the
+port's.
 """
 import dataclasses
 import math
@@ -20,17 +26,20 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.configs import get_schedule as jget_schedule
 from repro.configs import reduce_for_smoke as jreduce
 from repro.models import blocks as jblocks
 from repro.models import build_model as jbuild_model
 from repro.models.params import init_params as jinit_params
 from repro_torch import interop
-from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs import get_config, get_schedule, reduce_for_smoke
 from repro_torch.interop import numpy_params
 from repro_torch.models import blocks, build_model
 from repro_torch.models.params import init_params, leaves
 
-ARCHS = ["qwen3-4b", "qwen2-0.5b"]
+ARCHS = ["qwen3-4b", "qwen2-0.5b", "zamba2-1.2b", "minicpm-2b"]
+# archs whose parity weights take the port's init stds (module docstring)
+TRUE_FAN_IN = {"zamba2-1.2b"}
 LOGITS = dict(rtol=1e-4, atol=1e-5)
 
 
@@ -42,7 +51,10 @@ def pair(arch, seed=0, **changes):
     jcfg = dataclasses.replace(jreduce(jget_config(arch)), **changes)
     cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), **changes)
     jmodel, model = jbuild_model(jcfg), build_model(cfg)
-    tree = numpy_params(jmodel.param_defs(), seed)
+    if arch in TRUE_FAN_IN:
+        tree = numpy_params(model.param_defs(), seed, true_fan_in=True)
+    else:
+        tree = numpy_params(jmodel.param_defs(), seed)
     jparams = jax.tree.map(jnp.asarray, tree)
     return jmodel, jparams, model, interop.params_from_jax(tree, cfg,
                                                            device="cpu")
@@ -53,7 +65,7 @@ def to_np(t):
 
 
 def test_reduced_configs_match_the_reference():
-    for arch in ARCHS:
+    for arch in [*ARCHS, "qwen3-14b"]:
         jcfg, cfg = jreduce(jget_config(arch)), reduce_for_smoke(get_config(arch))
         for f in dataclasses.fields(cfg):
             want = getattr(jcfg, f.name)
@@ -65,9 +77,17 @@ def test_reduced_configs_match_the_reference():
             full.hd, full.d_ff, full.vocab_size) == (36, 2560, 32, 8, 128,
                                                      9728, 151936)
     assert full.adtype == torch.bfloat16
+    for arch in [*ARCHS, "qwen3-14b"]:      # the full configs, as data
+        jfull, full = jget_config(arch), get_config(arch)
+        for f in dataclasses.fields(full):
+            assert getattr(full, f.name) == getattr(jfull, f.name), (arch,
+                                                                     f.name)
+        assert full.stages() == jfull.stages()
+        assert get_schedule(arch) == jget_schedule(arch)
+    assert get_schedule("minicpm-2b") == "wsd"
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b", "grok-1-314b",
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "grok-1-314b",
                                   "whisper-tiny", "pixtral-12b"])
 def test_unported_families_raise_before_any_work(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -128,7 +148,11 @@ def paged_caches(jmodel, model, batch, max_len, page_len):
                                         ("qwen3-4b", "bshd"),
                                         ("qwen3-4b", "paged"),
                                         ("qwen2-0.5b", "bhsd"),
-                                        ("qwen2-0.5b", "paged")])
+                                        ("qwen2-0.5b", "paged"),
+                                        ("zamba2-1.2b", "bshd"),
+                                        ("zamba2-1.2b", "paged"),
+                                        ("minicpm-2b", "bhsd"),
+                                        ("minicpm-2b", "paged")])
 def test_decode_step_logits_match_reference(arch, cache):
     layout = "bshd" if cache == "bshd" else "bhsd"
     jmodel, jparams, model, params = pair(arch, kv_cache_layout=layout)

@@ -2,8 +2,9 @@
 
 Ports of tests/test_serving.py's ten tests and of the tests of
 tests/test_paged_cache.py that do not read the reference's event bus, run
-against ``repro_torch``; the reference's hybrid zamba2 is not ported, so the
-tests it parametrizes run qwen3-4b beside qwen2-0.5b (both reduced).  Where
+against ``repro_torch``; the tests it parametrizes run the reference's
+zamba2-1.2b (the hybrid, whose Mamba2 state is per slot and never paged)
+and qwen2-0.5b, and beside them qwen3-4b and minicpm-2b (all reduced).  Where
 the reference reads preemptions or pool saturation from its event bus, the
 port's tests read the batcher's ``preemption_log`` and the page pool.  The
 reference's tight-pool tests rely on its page length of 8 at these shapes;
@@ -47,7 +48,7 @@ from repro_torch.serving import (
 )
 from repro_torch.serving.paged_cache import ATTN_TILE_ROWS, line_rows
 
-ARCHS = ["qwen2-0.5b", "qwen3-4b"]
+ARCHS = ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b", "minicpm-2b"]
 CPU = dict(device="cpu")
 
 
@@ -137,7 +138,7 @@ def test_paged_equals_dense(arch):
     kv_width = model.cfg.n_kv_heads * model.cfg.hd
     assert geom.page_len % line_rows(kv_width, 4) == 0
     pools = [paged.cache[k][kv] for k in paged.cache if k.startswith("s")
-             for kv in ("k", "v")]
+             and "k" in paged.cache[k] for kv in ("k", "v")]
     assert pools
     for pool in pools:
         assert tuple(pool.shape[1:3]) == (geom.n_pages, geom.page_len)

@@ -1,7 +1,9 @@
 """The port's training path against the JAX package, on the CPU.
 
 The RMSNorm and cross-entropy ``autograd.Function``s, ``lm_loss``, the
-loss and gradient of reduced qwen2-0.5b and qwen3-4b, one AdamW step, a
+loss and gradient of reduced qwen2-0.5b, qwen3-4b, zamba2-1.2b (the hybrid,
+through the chunked SSD and the gated norm's ``GatedRMSNormFn``) and
+minicpm-2b (its muP-style scales), one AdamW step, a
 3-step trajectory and gradient accumulation, all from the same numpy
 weights and batches on both sides (the two frameworks' generators differ).
 The JAX side runs as its own tests run it, on one CPU device, so its
@@ -64,7 +66,7 @@ from repro_torch.parallel import steps
 from repro_torch.runtime.faults import DeviceLossError
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-ARCHS = ["qwen2-0.5b", "qwen3-4b"]
+ARCHS = ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b", "minicpm-2b"]
 FP32 = dict(rtol=1e-5, atol=1e-6)
 XENT_GRAD = dict(rtol=1e-5, atol=1e-9)
 LR = 1e-3
@@ -603,3 +605,30 @@ def test_launcher_runs_the_reduced_config_on_the_cpu(tmp_path, capsys):
     # a checkpoint a step (steps // 4), the last three kept
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "step_00000002", "step_00000003", "step_00000004"]
+
+
+@pytest.mark.parametrize("arch", ["minicpm-2b", "zamba2-1.2b"])
+def test_launcher_trains_each_arch_under_its_schedule(arch, tmp_path,
+                                                      monkeypatch):
+    """``--arch minicpm-2b`` trains under the warmup-stable-decay schedule
+    of its config, ``--arch zamba2-1.2b`` (cosine) trains the hybrid
+    through the chunked SSD: the launcher asks ``make_schedule`` for the
+    arch's kind, and the losses are finite."""
+    from repro_torch.launch import train
+
+    kinds = []
+    make = schedules.make_schedule
+
+    def recording(kind, **kw):
+        kinds.append(kind)
+        return make(kind, **kw)
+
+    monkeypatch.setattr(schedules, "make_schedule", recording)
+    metrics = train.main(["--arch", arch, "--mesh", "host", "--device", "cpu",
+                          "--steps", "2", "--seq-len", "16",
+                          "--global-batch", "2", "--ckpt-dir",
+                          str(tmp_path)])
+    assert kinds == [{"minicpm-2b": "wsd", "zamba2-1.2b": "cosine"}[arch]]
+    assert kinds == [get_schedule(arch)]
+    assert [m["step"] for m in metrics] == [0, 1]
+    assert all(np.isfinite(m["loss"]) for m in metrics)
