@@ -82,20 +82,21 @@ Phases, each fatal on failure:
      the profiled step's busy share.  Two ranks on
      one card stand in for ranks on separate cards: their times are not
      scaling numbers;
-  3e. the hybrid at full zamba2-1.2b width (38 Mamba2 layers, d_model
-     2048, d_inner 4096, 64 SSM heads of 64, state 64; one shared
-     attention block applied 6 times; vocab 32000), bf16, seeded weights,
+  3e. the hybrid at full zamba2-1.2b width, its depth cut to 18 of its 38
+     Mamba2 layers to make room for 3f (d_model 2048, d_inner 4096, 64 SSM
+     heads of 64, state 64; one shared attention block applied after every
+     6, so 3 times; vocab 32000), bf16, seeded weights,
      one card: ``ContinuousBatcher`` with 3b's slots, max_len, prefill
      chunk and 16 requests, paged and dense; fatal unless every request
      completes, paged tokens equal dense tokens, requests 0 and 1 re-run
      alone in the same slot geometry give the batched tokens (a reused
      slot's SSM state is reset), and the counters, zeroed just before and
-     read just after, show at least 51 B9 launches (38 mamba ln1, 6 x 2 of
-     the shared block, the final norm) and 38 B10 launches (each Mamba2
+     read just after, show at least 25 B9 launches (18 mamba ln1, 3 x 2 of
+     the shared block, the final norm) and 18 B10 launches (each Mamba2
      gate and norm) a decode step; a ``profile:`` line of one decode tick;
      one ``make_prefill_step`` forward at B = 4, S = 512 (two chunks of
      the SSD, where the reference's forward is NaN; B10 on 2048 x 4096
-     rows inside the model) with finite logits and exactly 51 and 38
+     rows inside the model) with finite logits and exactly 25 and 18
      launches; the reduced fp32 hybrid's loss and every gradient leaf at
      S = 300 (across a chunk) on the card (B9, B10, B11 under their
      autograd Functions, remat on) against the CPU, loss rtol 1e-5, each
@@ -103,9 +104,32 @@ Phases, each fatal on failure:
      bf16 forward each of minicpm-2b and qwen3-14b at full width, B = 1,
      S = 512, fatal unless the logits are finite and B9 ran 81 times
      (2 x 40 layers + the final norm), each model freed before the next;
+  3f. the ssm family at full xlstm-1.3b width (6 x [7 mLSTM, 1 sLSTM]
+     layers, d_model 2048, mLSTM d_inner 4096 in 4 heads of 1024; vocab
+     50304; no attention), bf16, seeded weights, one card:
+     ``ContinuousBatcher`` with 3b's slots, max_len, prefill chunk and 16
+     requests, paged and dense; fatal unless every request completes, paged
+     tokens equal dense tokens, requests 0 and 1 re-run alone in the same
+     slot geometry give the batched tokens (a reused slot's mLSTM and sLSTM
+     state is reset), and the counters, zeroed just before and read just
+     after, show at least 55 B9 launches (48 ln1, 6 sLSTM output norms on
+     fp32 rows, the final norm) and 42 B10 launches (each mLSTM gate and
+     norm) a decode step, over the runs and in one decode step alone; a
+     ``profile:`` line of one decode tick and one of the mLSTM state
+     update's ops on the 5.6 GB of matrix memory (CUDA events, its share
+     of the tick); two ``make_prefill_step`` forwards at B = 4, S = 512
+     (two mLSTM chunks) with finite logits and exactly 55 and 42 launches
+     each, both timed (the first includes warm-up); the reduced fp32
+     xlstm's loss and every gradient leaf at S = 300 (past the length
+     where the reference's mLSTM gradient is NaN) on the card (B9, B10,
+     B11 under their autograd Functions, remat on) against the CPU, loss
+     rtol 1e-5, each leaf rtol 1e-4 / atol 1e-2 of its scale, every leaf
+     nonzero;
   4. each kernel against its plain PyTorch version on the same inputs at
      the main path's shapes (and at zamba2-1.2b's: B9 at (8, 2048) and
-     (2048, 2048), B10 at (8, 4096), bf16), with the tolerance stated;
+     (2048, 2048), B10 at (8, 4096), bf16; and at xlstm-1.3b's sLSTM
+     norm: B9 on fp32 rows at (8, 2048) and (2048, 2048)), with the
+     tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
      function, beside the least time the card could take (``bound_ms``),
@@ -117,8 +141,9 @@ Phases, each fatal on failure:
 
 A ``serve:`` line gives requests, generated tokens, seconds, tokens/s,
 ticks, ms a decode step, preemptions and the page size (for zamba2-1.2b
-also the B9 and B10 launches a step), and a ``profile:`` line where the
-device time of one decode tick goes; ``train:`` lines the loss at each
+and xlstm-1.3b also the B9 and B10 launches a step, and for xlstm-1.3b a
+summary with the card's busy share of a decode tick), and a ``profile:``
+line where the device time of one decode tick goes; ``train:`` lines the loss at each
 step, ms a step (median of steps 1-7), tokens/s and the peak of
 ``torch.cuda.max_memory_allocated``, and a ``profile:`` line one train
 step.
@@ -170,9 +195,19 @@ TRAIN_PEAK, TRAIN_WARMUP = 3e-4, 2
 # that crosses the SSD's 256-token chunk, and full-width prefill forwards of
 # the two other dense configs
 HYBRID_ARCH = "zamba2-1.2b"
+# the depth of phase 3e, cut from 38 Mamba2 layers (6 shared-block
+# applications) so that the script with phase 3f stays near 12 minutes;
+# every width is the config's
+HYBRID_LAYERS = 18
 HYBRID_TRAIN_SEQ = 300
 DENSE_ARCHS = ("minicpm-2b", "qwen3-14b")
 DENSE_PREFILL_S = 512
+# phase 3f: serving at full xlstm-1.3b width (the dense phase's slots,
+# max_len, chunk and requests), its prefill at two mLSTM chunks, and the
+# reduced xlstm's train step at a length past the one where the reference's
+# mLSTM gradient is NaN
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_TRAIN_SEQ = 300
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # a replayed step after the first: a backward that sums with atomics may
 # change the last bits of a gradient, and a bf16 weight whose fp32 master
@@ -306,7 +341,7 @@ def device_profile(label: str, fn, top: int = 6) -> None:
     """Print the device time of one call of ``fn`` by kernel, as
     torch.profiler's CUDA activity records it, beside the call's
     CUDA-event time; their difference is the card's idle time in the
-    call."""
+    call.  Returns (CUDA-event ms, device-kernel ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -332,6 +367,7 @@ def device_profile(label: str, fn, top: int = 6) -> None:
           f"launches; "
           + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms "
                       f"x{e.count}" for e in rows[:top]))
+    return wall, busy
 
 
 def check_close(what: str, got, want, rtol: float, atol: float) -> float:
@@ -495,7 +531,8 @@ def serving_phase() -> dict[str, int]:
 
 def hybrid_phase() -> dict[str, int]:
     """Phase 3e: continuous-batching serving at full zamba2-1.2b width
-    (Mamba2 and a shared attention block; B9 and B10 inside the model), a
+    (``HYBRID_LAYERS`` of its 38 Mamba2 layers, and a shared attention
+    block; B9 and B10 inside the model), a
     prefill forward past the SSD's chunk, the reduced hybrid's train step on
     the card against the CPU, and full-width prefill forwards of
     minicpm-2b and qwen3-14b.  Each rmsnorm counter is zeroed just before a
@@ -530,7 +567,7 @@ def hybrid_phase() -> dict[str, int]:
         counts["rmsnorm.gated"] += gated
         return plain, gated
 
-    cfg = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS)
     n_mamba = sum(n for kind, n in cfg.stages() if kind == "mamba")
     n_shared = sum(kind == "shared_attn" for kind, _ in cfg.stages())
     # a mamba layer's ln1, a shared block's ln1 and ln2, the final norm;
@@ -573,7 +610,8 @@ def hybrid_phase() -> dict[str, int]:
         runs[kv] = (batcher, out)
         tokens = sum(len(v) for v in out.values())
         page = batcher.geometry.page_len if batcher.geometry else None
-        print(f"serve: {HYBRID_ARCH} bf16 {kv}, {n_params} parameters: "
+        print(f"serve: {HYBRID_ARCH} bf16 {cfg.n_layers} layers {kv}, "
+              f"{n_params} parameters: "
               f"{len(out)} requests, {tokens} generated tokens in "
               f"{secs:.3f} s, {tokens / secs:.2f} tokens/s, "
               f"{batcher.ticks} ticks, {batcher.micro_steps} decode steps "
@@ -712,6 +750,263 @@ def hybrid_phase() -> dict[str, int]:
         del dmodel, dparams, logits
         torch.cuda.empty_cache()
     print(f"hybrid: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def xlstm_phase() -> dict[str, int]:
+    """Phase 3f: continuous-batching serving at full xlstm-1.3b width
+    (mLSTM and sLSTM blocks, no attention; B10 inside each mLSTM layer, B9
+    behind every layer and inside each sLSTM layer), the share of a decode
+    step the mLSTM state update takes, two prefill forwards past the
+    mLSTM's chunk, and the reduced xlstm's train step on the card against
+    the CPU.  Each rmsnorm counter is zeroed just before a run and read
+    just after; returns the launches of each kernel over the phase."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.interop import numpy_params
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model
+    from repro_torch.models.params import leaves
+    from repro_torch.parallel import steps
+    from repro_torch.parallel.steps import make_prefill_step
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    counts = {"rmsnorm": 0, "rmsnorm.gated": 0}
+
+    def zero():
+        rms_kernel.LAUNCHES["plain"] = rms_kernel.LAUNCHES["gated"] = 0
+
+    def read():
+        plain, gated = rms_kernel.LAUNCHES["plain"], rms_kernel.LAUNCHES[
+            "gated"]
+        counts["rmsnorm"] += plain
+        counts["rmsnorm.gated"] += gated
+        return plain, gated
+
+    cfg = get_config(XLSTM_ARCH)
+    n_m = sum(n for kind, n in cfg.stages() if kind == "mlstm")
+    n_s = sum(n for kind, n in cfg.stages() if kind == "slstm")
+    # ln1 a layer, an sLSTM's output norm, the final norm; an mLSTM's gate
+    # and norm
+    plain_step, gated_step = cfg.n_layers + n_s + 1, n_m
+    d_inner = 2 * cfg.d_model
+    model = build_model(cfg)
+    params = model.init(SEED)
+    n_params = sum(t.numel() for _, t in leaves(params))
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
+                         SERVE_GEN, SEED)
+
+    def serve(kv, subset):
+        batcher = ContinuousBatcher(model, params, slots=SERVE_SLOTS,
+                                    max_len=SERVE_MAX_LEN, kv_cache=kv,
+                                    prefill_chunk=SERVE_CHUNK)
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        out = batcher.run([Request(r.rid, list(r.prompt), r.max_new_tokens)
+                           for r in subset])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = read()
+        for r in subset:
+            if len(out.get(r.rid, ())) != r.max_new_tokens:
+                fail(f"serve {XLSTM_ARCH} {kv}: request {r.rid} did not "
+                     f"complete")
+        steps_run = batcher.micro_steps
+        if (launched[0] < plain_step * steps_run
+                or launched[1] < gated_step * steps_run):
+            fail(f"serve {XLSTM_ARCH} {kv}: {launched} (rmsnorm, "
+                 f"rmsnorm.gated) launches for {steps_run} decode steps "
+                 f"(< ({plain_step}, {gated_step}) a step)")
+        return batcher, out, secs, launched
+
+    runs, batcher = {}, None
+    for kv in ("paged", "dense"):
+        b, out, secs, launched = serve(kv, reqs)
+        tokens = sum(len(v) for v in out.values())
+        ms = secs / b.micro_steps * 1e3
+        runs[kv] = (out, tokens / secs, ms)
+        if kv == "paged":
+            batcher = b
+        state = sum(t.numel() * t.element_size()
+                    for key, sub in b.cache.items() if isinstance(sub, dict)
+                    for _, t in leaves(sub))
+        page = b.geometry.page_len if b.geometry else None
+        print(f"serve: {XLSTM_ARCH} bf16 {kv}, {n_params} parameters, "
+              f"{state} B of recurrent state: {len(out)} requests, {tokens} "
+              f"generated tokens in {secs:.3f} s, {tokens / secs:.2f} "
+              f"tokens/s, {b.ticks} ticks, {b.micro_steps} decode steps "
+              f"({ms:.2f} ms a step), {len(b.preemption_log)} preemptions, "
+              f"page {page}, launches rmsnorm {launched[0]} "
+              f"({launched[0] / b.micro_steps:.1f} a step), rmsnorm.gated "
+              f"{launched[1]} ({launched[1] / b.micro_steps:.1f} a step)")
+        del b
+    if runs["paged"][0] != runs["dense"][0]:
+        bad = [r.rid for r in reqs
+               if runs["paged"][0][r.rid] != runs["dense"][0][r.rid]]
+        fail(f"serve {XLSTM_ARCH}: paged tokens differ from dense for "
+             f"requests {bad}")
+    print(f"serve: {XLSTM_ARCH}: paged tokens equal dense tokens for all "
+          f"{SERVE_REQUESTS} requests")
+
+    # one decode tick (all slots stepping): its launches, where its device
+    # time goes, and the mLSTM state update's share of it
+    feed = torch.ones((batcher.padded_slots, 1), dtype=torch.int32,
+                      device="cuda")
+
+    def tick():
+        with torch.inference_mode():
+            batcher.decode(params, batcher.cache, feed)
+
+    tick()
+    torch.cuda.synchronize()
+    zero()
+    tick()
+    torch.cuda.synchronize()
+    launched = read()
+    if launched[0] < plain_step or launched[1] < gated_step:
+        fail(f"decode step {XLSTM_ARCH}: {launched} (rmsnorm, "
+             f"rmsnorm.gated) launches (< ({plain_step}, {gated_step}))")
+    print(f"serve: {XLSTM_ARCH}: one decode step launches rmsnorm "
+          f"{launched[0]} and rmsnorm.gated {launched[1]} times (gates "
+          f">= {plain_step}, >= {gated_step})")
+    wall, busy = device_profile(
+        f"decode tick {XLSTM_ARCH} {SERVE_SLOTS} slots paged max_len "
+        f"{SERVE_MAX_LEN}", tick, top=8)
+    # the decode step's ops on the matrix memory C of every mLSTM layer, as
+    # models.xlstm.mlstm_decode_step runs them (C *= f; C += (i k) v^T; q C),
+    # with f = 1 and i = 0 so the state keeps its values
+    cs = [c for key, sub in batcher.cache.items()
+          if key.endswith("_mlstm") for c in sub["c"].unbind(0)]
+    b_, h_, p_ = cs[0].shape[:3]
+    ones = torch.ones((b_, h_, 1, 1), device="cuda")
+    ik = torch.zeros((b_, h_, p_, 1), device="cuda")
+    v = torch.randn((b_, h_, 1, p_), device="cuda")
+    q = torch.randn((b_, h_, p_), device="cuda")
+
+    def state_update():
+        with torch.inference_mode():
+            for c in cs:
+                c.mul_(ones)
+                c.addcmul_(ik, v)
+                torch.einsum("bhp,bhpq->bhq", q, c)
+
+    c_bytes = sum(c.numel() * c.element_size() for c in cs)
+    state_ms = time_ms(state_update, samples=5, per_sample=2)
+    bw = datasheet(torch.cuda.get_device_name(0))[0]
+    print(f"profile: {XLSTM_ARCH} mLSTM state update of a decode step (C *= "
+          f"f, C += (i k) v^T, q C over {len(cs)} layers of "
+          f"{tuple(cs[0].shape)} fp32, {c_bytes} B): {state_ms:.3f} ms, "
+          f"{state_ms / busy:.1%} of the tick's device time and "
+          f"{state_ms / wall:.1%} of its {wall:.3f} ms; five passes over "
+          f"C, bound of the two a step needs {2 * c_bytes / bw * 1e3:.3f} ms")
+    print(f"serve: {XLSTM_ARCH} summary: paged {runs['paged'][1]:.2f} "
+          f"tokens/s, {runs['paged'][2]:.2f} ms a decode step; dense "
+          f"{runs['dense'][1]:.2f} tokens/s, {runs['dense'][2]:.2f} ms a "
+          f"decode step; the card busy {busy / wall:.1%} of a profiled "
+          f"decode tick ({busy:.3f} of {wall:.3f} ms), the mLSTM state "
+          f"update {state_ms / wall:.1%} of it")
+    batched = runs["paged"][0]
+    del batcher, cs, runs
+    torch.cuda.empty_cache()
+
+    # slot reuse with the mLSTM and sLSTM state: requests alone
+    for rid in (0, 1):
+        _, alone, _, _ = serve("paged", [reqs[rid]])
+        if alone[rid] != batched[rid]:
+            fail(f"serve {XLSTM_ARCH}: request {rid} alone gave other "
+                 f"tokens than batched")
+    print(f"serve: {XLSTM_ARCH}: requests 0 and 1 re-run alone in the same "
+          f"slot geometry (their slots' mLSTM and sLSTM state reset on "
+          f"reuse) give the batched tokens")
+    torch.cuda.empty_cache()
+
+    # two prefill forwards of two mLSTM chunks each: the first includes the
+    # warm-up of the model's first forward (PERF.md §7)
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(2):
+        zero()
+        with torch.inference_mode():
+            start.record()
+            logits = prefill(params, {"tokens": tokens})
+            end.record()
+        end.synchronize()
+        launched = read()
+        times.append(start.elapsed_time(end))
+        if tuple(logits.shape) != (PREFILL_B, cfg.vocab_size):
+            fail(f"prefill {XLSTM_ARCH}: logits shape "
+                 f"{tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"prefill {XLSTM_ARCH}: non-finite logits")
+        if launched != (plain_step, gated_step):
+            fail(f"prefill {XLSTM_ARCH}: {launched} (rmsnorm, "
+                 f"rmsnorm.gated) launches, want ({plain_step}, "
+                 f"{gated_step})")
+    print(f"prefill: {XLSTM_ARCH} bf16 B={PREFILL_B} S={PREFILL_S} (two "
+          f"mLSTM chunks; rmsnorm on {PREFILL_B * PREFILL_S} x "
+          f"{cfg.d_model} rows, bf16 and the sLSTM's fp32, rmsnorm.gated on "
+          f"{PREFILL_B * PREFILL_S} x {d_inner}): first {times[0]:.3f} ms, "
+          f"second {times[1]:.3f} ms, logits finite, launches rmsnorm "
+          f"{launched[0]}, rmsnorm.gated {launched[1]} a forward")
+    del model, params, logits
+    torch.cuda.empty_cache()
+
+    # the reduced fp32 xlstm: the card (B9, B10, B11 under their autograd
+    # Functions, remat on) against the CPU (their plain versions), the same
+    # numpy weights on both, 300 tokens a row, where the reference's mLSTM
+    # gradient is NaN; the dense phase's tolerance (loss rtol 1e-5; each
+    # gradient leaf rtol 1e-4 with an atol of 1e-2 of its scale)
+    small = build_model(dataclasses.replace(reduce_for_smoke(cfg),
+                                            remat=True))
+    tree = numpy_params(small.param_defs(), SEED, true_fan_in=True)
+    data = DataConfig(vocab_size=small.cfg.vocab_size,
+                      seq_len=XLSTM_TRAIN_SEQ, global_batch=4)
+    zero()
+    loss, grads = steps.value_and_grad(
+        small, interop.params_from_jax(tree, small.cfg), make_batch(data, 0))
+    launched = read()
+    want, want_g = steps.value_and_grad(
+        small, interop.params_from_jax(tree, small.cfg, device="cpu"),
+        make_batch(data, 0, device="cpu"))
+    small_m = sum(n for kind, n in small.cfg.stages() if kind == "mlstm")
+    if launched[1] < small_m:
+        fail(f"reduced {XLSTM_ARCH} train step: {launched[1]} "
+             f"rmsnorm.gated launches for {small_m} mLSTM layers")
+    check_close(f"reduced {XLSTM_ARCH} train step loss, card vs cpu",
+                loss.cpu(), want, 1e-5, 0.0)
+    worst = 0.0
+    for (path, g), (_, w) in zip(leaves(grads), leaves(want_g)):
+        name = "/".join(path)
+        if not bool(g.abs().max() > 0):
+            fail(f"reduced {XLSTM_ARCH} train step: gradient of {name} is "
+                 f"zero")
+        scale = float(w.abs().max())
+        err = check_close(f"reduced {XLSTM_ARCH} train step grad {name}, "
+                          f"card vs cpu", g.cpu(), w, 1e-4, 1e-2 * scale)
+        worst = max(worst, err / scale)
+    print(f"train: reduced {XLSTM_ARCH} fp32 (remat on) S="
+          f"{XLSTM_TRAIN_SEQ}: loss {float(loss)!r} on the card, "
+          f"{float(want)!r} on the cpu; launches rmsnorm {launched[0]}, "
+          f"rmsnorm.gated {launched[1]}; every one of "
+          f"{len(list(leaves(grads)))} gradient leaves finite, nonzero and "
+          f"within rtol 1e-4 / atol 1e-2 of its scale (worst {worst:.3g} of "
+          f"scale): ok")
+    del grads, want_g
+    print(f"xlstm: the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -1514,13 +1809,15 @@ def main() -> int:
     train_launches, train_metrics = training_phase()
     spmd_launches = spmd_phase(train_metrics)
     hybrid_launches = hybrid_phase()
+    xlstm_launches = xlstm_phase()
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
     launches["rmsnorm"] += train_launches["rmsnorm"]
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
-    for name, count in hybrid_launches.items():
-        launches[name] += count
+    for phase in (hybrid_launches, xlstm_launches):
+        for name, count in phase.items():
+            launches[name] += count
     print(f"main: launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -1624,11 +1921,13 @@ def main() -> int:
         def library():
             return F.rms_norm(x, (d,), weight=s, eps=1e-6)
 
-        # x (and z) read once, y written once; squares, sums and two scalings
-        # an element, and for the gate a sigmoid (exp, add, divide) and two
-        # products more
+        # x (and z) read once, y written once, the scale read once (the
+        # planner's count, ``predicted_hbm_bytes``); squares, sums and two
+        # scalings an element, and for the gate a sigmoid (exp, add, divide)
+        # and two products more
         return dict(kernel=run, plain=plain, exact=False, dtype=dtype,
-                    bytes=(3 if gated else 2) * rows * d * dtype.itemsize,
+                    bytes=((3 if gated else 2) * rows + 1) * d
+                    * dtype.itemsize,
                     ops=(9 if gated else 4) * rows * d,
                     library=None if gated else library)
 
@@ -1651,6 +1950,13 @@ def main() -> int:
         (PREFILL_B * PREFILL_S, 2048), torch.bfloat16, False, 18)
     cases["rmsnorm.gated.zamba2"] = rms_case((SERVE_SLOTS, 4096),
                                              torch.bfloat16, True, 19)
+    # xlstm-1.3b's sLSTM output norm (phase 3f): B9 on fp32 rows of its
+    # d_model with the scale in fp32, at the decode (8, 2048) and prefill
+    # (2048, 2048) shapes; its bf16 rows and B10's are zamba2's shapes above
+    cases["rmsnorm.xlstm.fp32"] = rms_case((SERVE_SLOTS, 2048),
+                                           torch.float32, False, 20)
+    cases["rmsnorm.prefill.xlstm.fp32"] = rms_case(
+        (PREFILL_B * PREFILL_S, 2048), torch.float32, False, 21)
     def xent_case(t, v, logical_v, dtype, seed):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
         calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.configs``.  The port carries the configurations of
 the families it runs, as data (dense ``qwen3-4b``, ``qwen2-0.5b``,
-``qwen3-14b``, ``minicpm-2b``; hybrid ``zamba2-1.2b``) with their schedule
-kinds (``get_schedule``); every
+``qwen3-14b``, ``minicpm-2b``; hybrid ``zamba2-1.2b``; ssm ``xlstm-1.3b``)
+with their schedule kinds (``get_schedule``); every
 other architecture of the reference's pool is known by name and family and
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
@@ -20,12 +20,12 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0p5b",
     "qwen3-14b": "qwen3_14b",
+    "xlstm-1.3b": "xlstm_1p3b",
 }
 
 # architectures of the reference's pool not ported yet, by family
 _UNPORTED = {
     "pixtral-12b": "vlm",
-    "xlstm-1.3b": "ssm",
     "grok-1-314b": "moe",
     "qwen3-moe-30b-a3b": "moe",
     "whisper-tiny": "encdec",
@@ -75,6 +75,8 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw["shared_attn_period"] = 2
         kw["ssm_state"] = 16
         kw["ssm_head_dim"] = 32
+    if cfg.family == "ssm" and cfg.slstm_every:
+        kw["slstm_every"] = 4
     if cfg.vocab_logical:
         kw["vocab_logical"] = 0
     return dataclasses.replace(cfg, **kw)

@@ -78,15 +78,19 @@ CTA_BUFFERS: dict[str, int] = {"jacobi": 4}
 # absent families move one per signature stream.  Jacobi's neighbour rows
 # are re-read from cache, so the grid streams in once and out once; the LBM
 # lattice already holds all 19 direction rows and is read and written once;
-# the cross-entropy reads its logits once, and its labels and per-token NLL
-# are row-sized side streams (``MINOR_STREAM_BYTES``).
+# RMSNorm reads x (and the gate z) and writes y, its scale vector is a
+# width-sized side stream; the cross-entropy reads its logits once, and its
+# labels and per-token NLL are row-sized side streams
+# (``MINOR_STREAM_BYTES``).
 MAJOR_STREAMS: dict[str, int] = {"jacobi": 2, "lbm.soa": 2, "lbm.ivjk": 2,
-                                 "xent": 1}
+                                 "rmsnorm": 2, "rmsnorm.gated": 3, "xent": 1}
 
 # Side-operand bytes per launch beside the major streams: (rows, width,
-# element bytes) -> bytes.  Labels are int32 and the NLL fp32 whatever the
-# logits' dtype.
+# element bytes) -> bytes.  RMSNorm's scale is one row; labels are int32 and
+# the NLL fp32 whatever the logits' dtype.
 MINOR_STREAM_BYTES: dict[str, Callable[[int, int, int], int]] = {
+    "rmsnorm": lambda rows, width, eb: width * eb,
+    "rmsnorm.gated": lambda rows, width, eb: width * eb,
     "xent": lambda rows, width, eb: rows * 4 + rows * 4,
 }
 

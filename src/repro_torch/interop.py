@@ -62,11 +62,12 @@ def numpy_params(defs: Mapping, seed: int, *,
 
     A normal leaf without an explicit ``scale`` takes 0.02 (embeddings) or
     1/sqrt(fan-in).  By default the fan-in is the reference's rule,
-    ``shape[-2]``, whose attention stds are the wrong ones (ROADMAP §C); it
-    gives the weights the parity tests were written against.  With
-    ``true_fan_in`` it is the port's ``ParamDef.fan_in`` (1/sqrt(d) for
-    ``wq``/``wk``/``wv``, 1/sqrt(h*hd) for ``wo``, as ``model.init``
-    draws them); ``defs`` must then be the port's tree."""
+    ``shape[-2]``, whose attention and sLSTM ``wx`` stds are the wrong
+    ones (ROADMAP §C); it gives the weights the parity tests were written
+    against.  With ``true_fan_in`` it is the port's ``ParamDef.fan_in``
+    (1/sqrt(d) for ``wq``/``wk``/``wv`` and ``wx``, 1/sqrt(h*hd) for
+    ``wo``, as ``model.init`` draws them); ``defs`` must then be the port's
+    tree."""
     from repro_torch.models.params import ParamDef
 
     rng = np.random.default_rng(seed)
@@ -133,7 +134,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
     named), converted to ``dtype`` when given.
 
     The two trees share names and shapes leaf for leaf (stacked stages
-    included, and a hybrid's one ``shared_attn`` subtree, unstacked);
+    included, an xlstm's mLSTM and sLSTM stages with their fp32 gate and
+    recurrence leaves, and a hybrid's one ``shared_attn`` subtree,
+    unstacked);
     every reference leaf must land exactly once, with its shape
     unchanged, or this raises naming the leaves that do not."""
     from repro_torch.models import transformer

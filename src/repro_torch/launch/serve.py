@@ -10,9 +10,10 @@ one card, standing in for the reference's ``pod``/``multipod`` meshes until
 the SPMD slice (ROADMAP A11).  The run is on CUDA unless ``--device cpu``.
 Prompt lengths and new-token counts are drawn from the given ranges with
 ``--seed``.  The default arch is the reference's, ``zamba2-1.2b`` (the
-hybrid).  Prints the decode batch's RMSNorm plan (and, for a hybrid, the
-Mamba2 gated norm's over (slots, d_inner)), then requests, generated
-tokens, seconds and tokens/s.
+hybrid; ``xlstm-1.3b`` runs the ssm family).  Prints the decode batch's
+RMSNorm plan (and, for a hybrid or an xlstm, the Mamba2's or the mLSTM's
+gated norm's over (slots, d_inner)), then requests, generated tokens,
+seconds and tokens/s.
 """
 from __future__ import annotations
 
@@ -77,9 +78,10 @@ def main(argv=None) -> dict:
     reqs = make_requests(args.requests, cfg.vocab_size, args.prompt_len,
                          args.gen, args.seed)
     print(api.explain("rmsnorm", (args.slots, cfg.d_model), cfg.adtype))
-    if cfg.family == "hybrid":
-        print(api.explain("rmsnorm.gated",
-                          (args.slots, cfg.ssm_expand * cfg.d_model),
+    if cfg.family in ("hybrid", "ssm"):   # the Mamba2's or the mLSTM's
+        d_inner = (cfg.ssm_expand if cfg.family == "hybrid" else 2) * (
+            cfg.d_model)
+        print(api.explain("rmsnorm.gated", (args.slots, d_inner),
                           cfg.adtype))
     batcher = ContinuousBatcher(model, params, slots=args.slots,
                                 max_len=args.max_len, kv_cache=args.kv_cache,

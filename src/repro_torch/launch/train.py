@@ -15,9 +15,9 @@ by model (``models.transformer``'s vocab-parallel layout), under
 ``rules.make_rules(tensor_parallel=False)``; it runs the full configuration
 on CUDA (every rank on card 0 when the ranks outnumber the cards, over
 gloo) and the reduced one on the CPU, and pads the configuration for the
-model axis (``padded_for_mesh``) unless ``--baseline``; a hybrid arch
-(``zamba2-1.2b``) raises under a model axis of more than one rank (ROADMAP
-A11).  The learning-rate schedule is the arch's (``configs.get_schedule``:
+model axis (``padded_for_mesh``) unless ``--baseline``; a hybrid or ssm
+arch (``zamba2-1.2b``, ``xlstm-1.3b``) raises under a model axis of more
+than one rank (ROADMAP A11).  The learning-rate schedule is the arch's (``configs.get_schedule``:
 ``wsd`` for ``minicpm-2b``, ``cosine`` for the others).  The run is on CUDA
 unless ``--device cpu``.  ``--layers``/``--d-model`` override the depth and
 width.  Checkpoints go under ``--ckpt-dir`` (inside the checkout by

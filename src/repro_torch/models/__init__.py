@@ -1,4 +1,4 @@
-"""Model zoo of the port: the decoder-only LM of the dense and hybrid
+"""Model zoo of the port: the decoder-only LM of the dense, hybrid and ssm
 families (other families wait for ROADMAP A9)."""
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import LM

@@ -5,8 +5,8 @@ tensors described by ``ParamDef``s.  Softmax and norm statistics are
 computed in fp32 whatever the activation dtype.  RMSNorm launches the
 registered kernel (``api.launch("rmsnorm")``, the hand-written CUDA kernel
 on the card), differentiated by ``RMSNormFn`` under autograd, and so does
-the gated norm of the Mamba2 block (``api.launch("rmsnorm.gated")``,
-``GatedRMSNormFn``); attention and
+the gated norm of the Mamba2 and mLSTM blocks
+(``api.launch("rmsnorm.gated")``, ``GatedRMSNormFn``); attention and
 the projections are plain PyTorch, as the JAX package leaves them to XLA.  The reference's activation-sharding
 annotations (``parallel.rules.shard``) have no counterpart until the SPMD
 slice (ROADMAP A11).
@@ -99,10 +99,17 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
         y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
         return y.to(x.dtype)
-    scale = p["scale"]
+    return rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMSNorm of x times ``scale`` through the registered kernel, in x's
+    dtype: ``RMSNormFn`` when autograd records, ``dispatch.launch`` when
+    it does not."""
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        return RMSNormFn.apply(x, scale, cfg.norm_eps)
-    return dispatch.launch("rmsnorm", x, scale, eps=cfg.norm_eps)
+        return RMSNormFn.apply(x, scale, eps)
+    return dispatch.launch("rmsnorm", x, scale, eps=eps)
 
 
 def _gated_ref(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
@@ -140,10 +147,10 @@ class GatedRMSNormFn(torch.autograd.Function):
 
 def apply_gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm of y * silu(z) times ``scale`` (the Mamba2 gate and norm)
-    through the registered kernel: ``GatedRMSNormFn`` when autograd
-    records, ``dispatch.launch("rmsnorm.gated")`` otherwise, as
-    ``apply_norm`` does for the plain norm."""
+    """RMSNorm of y * silu(z) times ``scale`` (the Mamba2 and mLSTM gate
+    and norm) through the registered kernel: ``GatedRMSNormFn`` when
+    autograd records, ``dispatch.launch("rmsnorm.gated")`` otherwise, as
+    ``rms_norm`` does for the plain norm."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (y, z, scale)):
         return GatedRMSNormFn.apply(y, z, scale, cfg.norm_eps)

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.models.config``.  ``ModelConfig`` carries the
 logical dimensions; ``adtype`` is a ``torch.dtype``.  The port runs the
-dense and hybrid (zamba2: Mamba2 and a shared attention block) families
-(``stages()``); the other families raise ``NotImplementedError`` naming the
-ROADMAP item that brings them, before any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
+dense, hybrid (zamba2: Mamba2 and a shared attention block) and ssm
+(xlstm: mLSTM and sLSTM) families (``stages()``); the other families raise
+``NotImplementedError`` naming the ROADMAP item that brings them, before
+any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
 engine: the physical config for a ``tp``-way model axis, with the Hopper
 ``core.layout.LayoutPolicy`` in place of the TPU one (a sharded minor dim
 pads to ``tp`` warp-wide vector spans) and the logical vocab kept in
@@ -21,12 +22,11 @@ from repro_torch.core.layout import LayoutPolicy
 
 Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
 
-PORTED_FAMILIES = ("dense", "hybrid")
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
 
 # The ROADMAP item that ports each family the port does not run yet.
 UNPORTED_FAMILIES = {
     "moe": "ROADMAP A9 (moe.py)",
-    "ssm": "ROADMAP A9 (xlstm.py)",
     "encdec": "ROADMAP A9 (encdec.py)",
     "vlm": "ROADMAP A9 (prefix embeddings)",
 }
@@ -37,7 +37,7 @@ def require_ported(family: str, name: str = "") -> None:
     if family in UNPORTED_FAMILIES:
         raise NotImplementedError(
             f"{name or 'model'}: the {family} family is not ported yet; the "
-            f"port runs the {' and '.join(PORTED_FAMILIES)} families "
+            f"port runs the {', '.join(PORTED_FAMILIES)} families "
             f"({UNPORTED_FAMILIES[family]})")
     if family not in PORTED_FAMILIES:
         raise ValueError(f"unknown model family {family!r}")
@@ -116,9 +116,24 @@ class ModelConfig:
         require_ported(self.family, self.name)
         if self.family == "dense":
             return [("dense", self.n_layers)]
+        out: list[tuple[str, int]] = []
+        if self.family == "ssm":
+            # runs of slstm_every - 1 mLSTM layers, each followed by one
+            # sLSTM layer (all mLSTM when slstm_every is 0)
+            if not self.slstm_every:
+                return [("mlstm", self.n_layers)]
+            remaining = self.n_layers
+            while remaining > 0:
+                run = min(self.slstm_every - 1, remaining)
+                if run:
+                    out.append(("mlstm", run))
+                    remaining -= run
+                if remaining > 0:
+                    out.append(("slstm", 1))
+                    remaining -= 1
+            return out
         # hybrid: runs of mamba layers, the shared attention block after
         # each full run (and after a short last run only if it is full)
-        out: list[tuple[str, int]] = []
         period = self.shared_attn_period or self.n_layers
         remaining = self.n_layers
         while remaining > 0:

@@ -17,7 +17,9 @@ fan-in as ``shape[-2]``, which is wrong for the attention weights (ROADMAP
 §C): ``wq`` (d, h, hd) gets 1/sqrt(h), ``wo`` (h, hd, d) 1/sqrt(hd).  A
 port ``ParamDef`` names its input axes in ``fan_in_axes`` where the rule of
 ``shape[-2]`` does not hold, so those weights get 1/sqrt(d) and
-1/sqrt(h*hd) -- a deliberate divergence from the reference.
+1/sqrt(h*hd), and the sLSTM's input projection ``wx`` (d, 4, d) 1/sqrt(d)
+where the reference gives 1/sqrt(4) -- deliberate divergences from the
+reference.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and hybrid families (counterpart of
+"""Decoder-only LM, dense, hybrid and ssm families (counterpart of
 ``repro.models.transformer``).
 
 Layers are grouped into homogeneous stages (``cfg.stages()``); a stage's
@@ -13,9 +13,11 @@ The hybrid family (zamba2) runs stages of Mamba2 layers
 (``models.mamba2``) and, at every ``('shared_attn', 1)`` stage, one shared
 attention block: a single parameter set (``params["shared_attn"]``, not
 stacked) whose input is ``concat([x, h0]) @ win``, h0 the embedded tokens,
-with a KV cache (or page pool) of its own for each application.  The other
-families (MoE, xLSTM, enc-dec, VLM) raise ``NotImplementedError`` before
-any parameter is made (ROADMAP A9).
+with a KV cache (or page pool) of its own for each application.  The ssm
+family (xlstm) runs stages of mLSTM layers and single sLSTM layers
+(``models.xlstm``), each behind its ``ln1``, and has no attention stage and
+no KV cache at all.  The other families (MoE, enc-dec, VLM) raise
+``NotImplementedError`` before any parameter is made (ROADMAP A9).
 
 ``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
 (B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch.
@@ -41,12 +43,13 @@ model line.  Three pieces carry it:
 Attention heads and the MLP stay whole (no tensor parallelism yet, ROADMAP
 A11): the model raises if the ambient rules shard "heads", "kv_heads",
 "mlp" or "expert" over a mesh axis of more than one rank.  The hybrid
-family on a mesh waits for A11 too: it raises under a model axis of more
-than one rank (``require_mesh_ported``).
+and ssm families on a mesh wait for A11 too: they raise under a model
+axis of more than one rank (``require_mesh_ported``).
 
-``decode_step`` writes the KV caches and the Mamba2 conv and SSM state in
-place (``models.blocks``, ``models.mamba2``) and returns the cache dict
-with ``idx`` advanced; callers that need the old cache keep a copy.
+``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
+the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
+``models.xlstm``) and returns the cache dict with ``idx`` advanced;
+callers that need the old cache keep a copy.
 """
 from __future__ import annotations
 
@@ -56,7 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.api import context as context_lib
 from repro_torch.api import dispatch
 from repro_torch.api import spmd as spmd_lib
-from repro_torch.models import blocks, mamba2
+from repro_torch.models import blocks, mamba2, xlstm
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.params import (
     ParamDef,
@@ -74,12 +77,23 @@ from repro_torch.parallel import rules as rules_lib
 # ---------------------------------------------------------------------------
 
 
+# the stage kinds of one recurrent block behind its ln1: the block's
+# parameter, cache and full-sequence and decode functions
+_RECURRENT = {
+    "mamba": (mamba2.mamba_defs, mamba2.mamba_cache_defs,
+              mamba2.mamba_forward, mamba2.mamba_decode_step),
+    "mlstm": (xlstm.mlstm_defs, xlstm.mlstm_cache_defs,
+              xlstm.mlstm_forward, xlstm.mlstm_decode_step),
+    "slstm": (xlstm.slstm_defs, xlstm.slstm_cache_defs,
+              xlstm.slstm_forward, xlstm.slstm_decode_step),
+}
+
+
 def block_defs(cfg: ModelConfig, kind: str) -> Tree:
-    if kind == "mamba":
-        return {"ln1": blocks.norm_defs(cfg), "mamba": mamba2.mamba_defs(cfg)}
+    if kind in _RECURRENT:
+        return {"ln1": blocks.norm_defs(cfg), kind: _RECURRENT[kind][0](cfg)}
     if kind not in ("dense", "shared_attn"):
-        require_ported({"moe": "moe", "mlstm": "ssm",
-                        "slstm": "ssm"}.get(kind, kind))
+        require_ported(kind)
     defs: Tree = {
         "ln1": blocks.norm_defs(cfg),
         "attn": blocks.attention_defs(cfg),
@@ -143,12 +157,13 @@ def _scalar(value: float, dtype: torch.dtype) -> float:
 def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor,
                  h0: torch.Tensor | None = None) -> torch.Tensor:
-    """One layer: dense, mamba, or the shared attention block (whose input
-    projection takes ``concat([x, h0])``)."""
+    """One layer: dense, a recurrent block (mamba, mlstm, slstm), or the
+    shared attention block (whose input projection takes ``concat([x,
+    h0])``)."""
     rs = _scalar(cfg.residual_scale, x.dtype)
-    if kind == "mamba":
+    if kind in _RECURRENT:
         h = blocks.apply_norm(p["ln1"], x, cfg)
-        return x + rs * mamba2.mamba_forward(p["mamba"], h, cfg)
+        return x + rs * _RECURRENT[kind][2](p[kind], h, cfg)
     xin = x
     if kind == "shared_attn":
         xin = torch.matmul(torch.cat([x, h0], dim=-1), p["win"])
@@ -165,8 +180,8 @@ def vocab_parallel(cfg: ModelConfig):
     vocabulary shards over, or ``(None, ())`` outside a mesh or when the
     vocab stays whole (a model axis of one rank, or a vocab that does not
     divide).  Raises where the rules would shard a layer's heads or MLP,
-    or for a hybrid under a model axis of more than one rank, which the
-    port does not do yet."""
+    or for a hybrid or ssm config under a model axis of more than one
+    rank, which the port does not do yet."""
     mesh = spmd_lib.spmd_mesh()
     if mesh is None:
         return None, ()
@@ -188,12 +203,15 @@ def vocab_parallel(cfg: ModelConfig):
 
 
 def require_mesh_ported(cfg: ModelConfig, axis_sizes) -> None:
-    """Raise for a hybrid config on a mesh ({axis: ranks}) whose model
-    axis has more than one rank: the hybrid on a mesh is ROADMAP A11."""
-    if cfg.family == "hybrid" and int(axis_sizes.get("model", 1)) > 1:
+    """Raise for a hybrid or ssm config on a mesh ({axis: ranks}) whose
+    model axis has more than one rank: those families on a mesh are
+    ROADMAP A11."""
+    if (cfg.family in ("hybrid", "ssm")
+            and int(axis_sizes.get("model", 1)) > 1):
         raise NotImplementedError(
-            f"{cfg.name}: the hybrid family on a mesh with a model axis of "
-            f"{axis_sizes['model']} ranks is not ported (ROADMAP A11)")
+            f"{cfg.name}: the {cfg.family} family on a mesh with a model "
+            f"axis of {axis_sizes['model']} ranks is not ported (ROADMAP "
+            f"A11)")
 
 
 class _SumOverVocab(torch.autograd.Function):
@@ -378,14 +396,15 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Tree:
     """Cache tree matching cfg.stages() -- a KV cache for each attention
-    stage (one for each shared-block application), the per-slot conv and
-    SSM state of each Mamba2 stage -- plus per-slot write indices
-    (continuous batching: each request sits at its own depth)."""
+    stage (one for each shared-block application), the per-slot state of
+    each recurrent stage (Mamba2 conv and SSM, mLSTM, sLSTM) -- plus
+    per-slot write indices (continuous batching: each request sits at its
+    own depth)."""
     tree: Tree = {"idx": ParamDef((batch,), ("batch",), init="zeros",
                                   dtype=torch.int32)}
     for i, (kind, count) in enumerate(cfg.stages()):
         tree[stage_name(i, kind)] = (
-            mamba2.mamba_cache_defs(cfg, batch, count) if kind == "mamba"
+            _RECURRENT[kind][1](cfg, batch, count) if kind in _RECURRENT
             else blocks.init_kv_cache(cfg, batch, max_len, count))
     return tree
 
@@ -393,8 +412,9 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Tree:
 def paged_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
                      n_pages: int, page_len: int) -> Tree:
     """Paged serving cache (serving.paged_cache): each attention stage (each
-    shared-block application) has a physical page pool; the Mamba2 conv and
-    SSM state stays per slot, never paged.  Extra leaves beside ``idx``:
+    shared-block application) has a physical page pool; the recurrent state
+    (Mamba2, mLSTM, sLSTM) stays per slot, never paged, so an ssm config
+    has no pool at all.  Extra leaves beside ``idx``:
     ``pages``, the (batch, max_pages) int32 page table (0 = null page), and
     ``act``, the (batch,) row-active mask the paged write and the state
     writes consult."""
@@ -407,7 +427,7 @@ def paged_cache_defs(cfg: ModelConfig, batch: int, max_len: int,
     }
     for i, (kind, count) in enumerate(cfg.stages()):
         tree[stage_name(i, kind)] = (
-            mamba2.mamba_cache_defs(cfg, batch, count) if kind == "mamba"
+            _RECURRENT[kind][1](cfg, batch, count) if kind in _RECURRENT
             else blocks.paged_kv_pool_defs(cfg, n_pages, page_len, count))
     return tree
 
@@ -418,12 +438,12 @@ def _decode_block(kind: str, p: Tree, cache: Tree, x: torch.Tensor,
                   act: torch.Tensor | None = None,
                   h0: torch.Tensor | None = None):
     """One layer against its cache (that layer's slices, written in
-    place): the KV of a dense or shared attention layer, the conv and SSM
-    state of a mamba layer."""
+    place): the KV of a dense or shared attention layer, the state of a
+    recurrent layer."""
     rs = _scalar(cfg.residual_scale, x.dtype)
-    if kind == "mamba":
+    if kind in _RECURRENT:
         h = blocks.apply_norm(p["ln1"], x, cfg)
-        h, nc = mamba2.mamba_decode_step(p["mamba"], cache, h, cfg, act)
+        h, nc = _RECURRENT[kind][3](p[kind], cache, h, cfg, act)
         return x + rs * h, nc
     xin = x
     if kind == "shared_attn":
@@ -444,7 +464,7 @@ def _decode_block(kind: str, p: Tree, cache: Tree, x: torch.Tensor,
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, Tree]:
     """One-token decode. tokens: (B, 1). Returns (logits, cache) with the
-    KV written in place and ``idx`` advanced.
+    KV and the recurrent state written in place and ``idx`` advanced.
 
     A cache built by ``paged_cache_defs`` (a ``pages`` leaf) routes the
     attention through the page table.  An ``act`` leaf masks the writes of

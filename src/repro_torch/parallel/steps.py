@@ -213,8 +213,8 @@ def make_chunk_step(model, batch_axes) -> Callable:
     steps: at micro-step c only rows with ``c < nvalid`` advance.  The
     cache's ``act`` leaf is set to the active rows for each micro-step, so
     the in-place writes of frozen rows change nothing: the KV caches
-    (``models.blocks``) and the Mamba2 conv and SSM state
-    (``models.mamba2``) write back what they found there.  Every leaf the
+    (``models.blocks``), the Mamba2 conv and SSM state (``models.mamba2``)
+    and the mLSTM and sLSTM state (``models.xlstm``) keep what they held.  Every leaf the
     step replaced (``idx``) is restored for frozen rows along
     its declared batch axis (``batch_axes``: a cache-shaped tree of ints,
     -1 for leaves with no batch axis), as the reference's ``_restore`` does

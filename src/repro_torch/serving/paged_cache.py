@@ -31,7 +31,12 @@ for Qwen3-4B's KV stream 16 rows (128 KiB over 4 rmsnorm buffers of one
 
 For a hybrid (zamba2) the KV stream is the shared attention block's, and
 there is one pool for each of its applications; the Mamba2 conv and SSM
-state is O(1) per slot and never paged.  The pools live in the model cache
+state is O(1) per slot and never paged.  An ssm model (xlstm) has no
+attention stage and no pool at all: ``plan_page_geometry`` still plans
+pages for the config's nominal KV width (``n_kv_heads * hd``), as the
+reference does, and the page tables back nothing -- paged serving then
+runs the scheduler's page bookkeeping and the ``act`` masking of the
+mLSTM and sLSTM state, and must give the dense cache's tokens.  The pools live in the model cache
 tree (``models.transformer.paged_cache_defs``); ``PageManager`` owns the
 host-side bookkeeping: the free list, each slot's pages, and the admission
 arithmetic of the scheduler's backpressure and preemption.

@@ -6,8 +6,9 @@ lengths stream through the slots:
 
   * admit  -- a free slot takes the next queued request; the slot's rows
     of every cache leaf with a batch axis are reset from a pristine
-    template along that declared axis (its idx -> 0, and a hybrid's Mamba2
-    conv and SSM state -> zeros), so no state leaks across tenants;
+    template along that declared axis (its idx -> 0, a hybrid's Mamba2
+    conv and SSM state -> zeros, an xlstm's mLSTM and sLSTM state -> zeros
+    and its stabiliser m -> -1e30), so no state leaks across tenants;
   * prefill -- the prompt is teacher-forced through the decode step
     (``prefill_chunk`` tokens a tick via the masked chunk step, or one a
     tick -- numerically identical either way);

@@ -42,7 +42,11 @@ dense models, and its train step runs 300 tokens a row, across a chunk of
 the SSD, to the same tolerance.  B10 at zamba2-1.2b's shapes is held to
 its plain version at the bf16 tolerance; ``GatedRMSNormFn``'s gradients on
 the card (a plain fp32 backward behind the kernel's forward) to the same
-Function on the CPU at rtol 1e-4 / atol 1e-5.
+Function on the CPU at rtol 1e-4 / atol 1e-5.  The xlstm (reduced
+xlstm-1.3b) serves paged = dense the same way, and its train step runs 300
+tokens a row, past the length where the reference's mLSTM gradient is NaN,
+to the same tolerance; B9 on its sLSTM output norm's fp32 rows of 2048
+with the bf16 scale cast to fp32 is held to the fp32 tolerance.
 
 The STREAM kernels write every element of pitched and contiguous tiles
 once, bit-exact (both dtypes: one rounding of the same fp32 operations),
@@ -405,7 +409,28 @@ def test_gated_kernel_at_the_zamba2_shapes(rows):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "zamba2-1.2b"])
+@pytest.mark.parametrize("rows", [8, 2048])
+def test_rmsnorm_on_fp32_rows_with_the_bf16_scale_in_fp32(rows):
+    """B9 as the xLSTM's sLSTM output norm launches it: fp32 rows of 2048
+    (the cell output at xlstm-1.3b's d_model; 8 rows a decode step, 2048 a
+    B = 4, S = 512 prefill) with the bf16 ``gnorm`` cast to fp32, through
+    ``api.launch`` and the kernel, against its plain version (fp32 rtol
+    1e-5 / atol 1e-6)."""
+    x, _, scale = _rms_inputs(rows, 2048, 2048, torch.float32,
+                              torch.bfloat16, rows)
+    s32 = scale.to(torch.float32)
+    before = rkernel.LAUNCHES["plain"]
+    got = api.launch("rmsnorm", x, s32)
+    assert rkernel.LAUNCHES["plain"] == before + 1
+    assert got.dtype == torch.float32
+    want = rkernel.plain(x, s32, 2048, 1e-6)
+    torch.testing.assert_close(got, want, **tol(torch.float32))
+    torch.testing.assert_close(rkernel.rmsnorm2d(x, s32, d_logical=2048),
+                               want, **tol(torch.float32))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "zamba2-1.2b",
+                                  "xlstm-1.3b"])
 def test_reduced_serving_paged_equals_dense(arch):
     # the reduced configs run in fp32: full-precision matmuls (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -424,7 +449,7 @@ def test_reduced_serving_paged_equals_dense(arch):
         assert sorted(out[kv]) == list(range(5))
     assert out["paged"] == out["dense"]
     assert rkernel.LAUNCHES["plain"] > before
-    if model.cfg.family == "hybrid":
+    if model.cfg.family in ("hybrid", "ssm"):
         assert rkernel.LAUNCHES["gated"] > 0
 
 
@@ -512,14 +537,16 @@ def test_xent_grad_on_the_card_matches_the_cpu(dtype):
     torch.testing.assert_close(got.cpu(), want, **tol_)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b",
+                                  "xlstm-1.3b"])
 def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     """Loss and every gradient leaf of a reduced fp32 model: the card
-    (B9/B11 kernels, and the hybrid's B10, under their autograd Functions,
-    remat on) against the CPU (their plain versions).  Every leaf must get
-    a nonzero gradient: a kernel output without autograd history would
-    drop the norms'.  The hybrid runs 300 tokens a row, across a chunk
-    boundary of its SSD."""
+    (B9/B11 kernels, and the hybrid's and the xlstm's B10, under their
+    autograd Functions, remat on) against the CPU (their plain versions).
+    Every leaf must get a nonzero gradient: a kernel output without
+    autograd history would drop the norms'.  The hybrid and the xlstm run
+    300 tokens a row, across a chunk boundary of the SSD and past the
+    length where the reference's mLSTM gradient is NaN."""
     import dataclasses
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -529,16 +556,22 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     card = map_leaves(lambda t: t.cuda(), cpu)
     from repro_torch.data.pipeline import DataConfig, make_batch
 
-    hybrid = cfg.family == "hybrid"
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=300 if hybrid else 16,
-                      global_batch=4)
+    recurrent = cfg.family in ("hybrid", "ssm")
+    data = DataConfig(vocab_size=cfg.vocab_size,
+                      seq_len=300 if recurrent else 16, global_batch=4)
     before = (rkernel.LAUNCHES["plain"], xkernel.LAUNCHES["xent"],
               rkernel.LAUNCHES["gated"])
     loss, grads = steps.value_and_grad(model, card, make_batch(data, 0))
-    assert rkernel.LAUNCHES["plain"] - before[0] >= 2 * cfg.n_layers + 1
+    # ln1 and ln2 a layer and the final norm; an xlstm's ln1 a layer, its
+    # sLSTM output norms and the final norm, and B10 in each mLSTM layer
+    stages = dict(cfg.stages())
+    plain, gated = 2 * cfg.n_layers + 1, cfg.n_layers
+    if cfg.family == "ssm":
+        plain, gated = cfg.n_layers + stages["slstm"] + 1, stages["mlstm"]
+    assert rkernel.LAUNCHES["plain"] - before[0] >= plain
     assert xkernel.LAUNCHES["xent"] == before[1] + 1
-    if hybrid:
-        assert rkernel.LAUNCHES["gated"] - before[2] >= cfg.n_layers
+    if recurrent:
+        assert rkernel.LAUNCHES["gated"] - before[2] >= gated
     want, want_g = steps.value_and_grad(model, cpu,
                                         make_batch(data, 0, device="cpu"))
     torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=0)

@@ -151,3 +151,32 @@ def test_conflict_model_equals_reference():
         autotune.StreamSignature(1, 1))[0])
         == dataclasses.asdict(jautotune.verify_plan_optimal(
             jautotune.StreamSignature(1, 1))[0]))
+
+
+# ---- the traffic model: RMSNorm's scale vector ----------------------------
+
+@pytest.mark.parametrize("shape", [(8, 2048), (2048, 2048), (8, 4096),
+                                   (3, 100)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["rmsnorm", "rmsnorm.gated"])
+def test_rmsnorm_traffic_charges_the_scale_vector(kernel, dtype, shape):
+    """A norm moves x (and the gate z) in and y out, and its scale vector
+    once: ``predicted_hbm_bytes`` less the major streams is width x
+    element bytes, as the reference's ``MINOR_STREAM_BYTES`` charges it,
+    and at an unpadded width it equals the count chip_smoke.py takes a
+    norm's bound from, (2 or 3) x rows x d + d elements."""
+    from repro.core import planner as jplanner
+    from repro_torch import api
+
+    p = api.plan_for(kernel, shape, dtype)
+    eb = p.elem_bytes
+    major = planner.MAJOR_STREAMS[kernel]
+    assert major == jplanner.MAJOR_STREAMS[kernel] == (
+        3 if kernel.endswith("gated") else 2)
+    assert p.predicted_hbm_bytes - major * p.padded_elems * eb == p.width * eb
+    rows, d = shape
+    assert p.predicted_logical_bytes == (major * rows + 1) * d * eb
+    assert planner.MINOR_STREAM_BYTES[kernel](rows, d, eb) == (
+        jplanner.MINOR_STREAM_BYTES[kernel](rows, d, eb))
+    if p.padded_shape == shape:
+        assert p.predicted_hbm_bytes == p.predicted_logical_bytes

@@ -66,7 +66,8 @@ from repro_torch.parallel import steps
 from repro_torch.runtime.faults import DeviceLossError
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
-ARCHS = ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b", "minicpm-2b"]
+ARCHS = ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b", "minicpm-2b",
+         "xlstm-1.3b"]
 FP32 = dict(rtol=1e-5, atol=1e-6)
 XENT_GRAD = dict(rtol=1e-5, atol=1e-9)
 LR = 1e-3
@@ -607,13 +608,14 @@ def test_launcher_runs_the_reduced_config_on_the_cpu(tmp_path, capsys):
         "step_00000002", "step_00000003", "step_00000004"]
 
 
-@pytest.mark.parametrize("arch", ["minicpm-2b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["minicpm-2b", "zamba2-1.2b", "xlstm-1.3b"])
 def test_launcher_trains_each_arch_under_its_schedule(arch, tmp_path,
                                                       monkeypatch):
     """``--arch minicpm-2b`` trains under the warmup-stable-decay schedule
     of its config, ``--arch zamba2-1.2b`` (cosine) trains the hybrid
-    through the chunked SSD: the launcher asks ``make_schedule`` for the
-    arch's kind, and the losses are finite."""
+    through the chunked SSD and ``--arch xlstm-1.3b`` (cosine) the ssm
+    family through the chunkwise mLSTM and the sLSTM: the launcher asks
+    ``make_schedule`` for the arch's kind, and the losses are finite."""
     from repro_torch.launch import train
 
     kinds = []
@@ -628,7 +630,8 @@ def test_launcher_trains_each_arch_under_its_schedule(arch, tmp_path,
                           "--steps", "2", "--seq-len", "16",
                           "--global-batch", "2", "--ckpt-dir",
                           str(tmp_path)])
-    assert kinds == [{"minicpm-2b": "wsd", "zamba2-1.2b": "cosine"}[arch]]
+    assert kinds == [{"minicpm-2b": "wsd", "zamba2-1.2b": "cosine",
+                      "xlstm-1.3b": "cosine"}[arch]]
     assert kinds == [get_schedule(arch)]
     assert [m["step"] for m in metrics] == [0, 1]
     assert all(np.isfinite(m["loss"]) for m in metrics)
