@@ -104,31 +104,55 @@ Phases, each fatal on failure:
      bf16 forward each of minicpm-2b and qwen3-14b at full width, B = 1,
      S = 512, fatal unless the logits are finite and B9 ran 81 times
      (2 x 40 layers + the final norm), each model freed before the next;
-  3f. the ssm family at full xlstm-1.3b width (6 x [7 mLSTM, 1 sLSTM]
-     layers, d_model 2048, mLSTM d_inner 4096 in 4 heads of 1024; vocab
-     50304; no attention), bf16, seeded weights, one card:
+  3f. the ssm family at full xlstm-1.3b width, its depth cut to 24 of its
+     48 layers (3 of its 6 x [7 mLSTM, 1 sLSTM] blocks) to make room for
+     3g (d_model 2048, mLSTM d_inner 4096 in 4 heads of 1024;
+     vocab 50304; no attention), bf16, seeded weights, one card:
      ``ContinuousBatcher`` with 3b's slots, max_len, prefill chunk and 16
      requests, paged and dense; fatal unless every request completes, paged
      tokens equal dense tokens, requests 0 and 1 re-run alone in the same
      slot geometry give the batched tokens (a reused slot's mLSTM and sLSTM
      state is reset), and the counters, zeroed just before and read just
-     after, show at least 55 B9 launches (48 ln1, 6 sLSTM output norms on
-     fp32 rows, the final norm) and 42 B10 launches (each mLSTM gate and
+     after, show at least 28 B9 launches (24 ln1, 3 sLSTM output norms on
+     fp32 rows, the final norm) and 21 B10 launches (each mLSTM gate and
      norm) a decode step, over the runs and in one decode step alone; a
      ``profile:`` line of one decode tick and one of the mLSTM state
-     update's ops on the 5.6 GB of matrix memory (CUDA events, its share
+     update's ops on the 2.8 GB of matrix memory (CUDA events, its share
      of the tick); two ``make_prefill_step`` forwards at B = 4, S = 512
-     (two mLSTM chunks) with finite logits and exactly 55 and 42 launches
+     (two mLSTM chunks) with finite logits and exactly 28 and 21 launches
      each, both timed (the first includes warm-up); the reduced fp32
      xlstm's loss and every gradient leaf at S = 300 (past the length
      where the reference's mLSTM gradient is NaN) on the card (B9, B10,
      B11 under their autograd Functions, remat on) against the CPU, loss
      rtol 1e-5, each leaf rtol 1e-4 / atol 1e-2 of its scale, every leaf
      nonzero;
+  3g. the moe family at full qwen3-moe-30b-a3b width (48 layers, d_model
+     2048, 32/4 heads of 128, 128 experts of d_ff 768, top-8, capacity
+     factor 1.25, skewed expert placement; vocab 151936), bf16, seeded
+     weights, one card: the whole model initialised on the card (its
+     parameter count, bytes and peak memory printed), one
+     ``make_prefill_step`` forwards at B = 4, S = 512 through all 48
+     layers with finite logits and exactly 97 B9 launches each, both timed
+     (the first includes warm-up); ``ContinuousBatcher``
+     with 3b's slots, max_len, prefill chunk and 16 requests over the
+     first ``MOE_SERVE_LAYERS`` layers (views of the same stacked tensors),
+     paged and dense, fatal unless every request completes, paged tokens
+     equal dense tokens at the config's capacity factor and the counter,
+     zeroed just before and read just after, shows at least 2 x layers + 1
+     B9 launches a decode step, over the runs and in one step alone; a
+     ``profile:`` line of one decode tick and one of the three expert
+     products over the served layers beside their byte bound; requests 0
+     and 1 batched and each alone at capacity factor 16 (>= E / k, so
+     nothing drops) give the same tokens; the reduced fp32 MoE (top-2 of 8,
+     capacity factor 1.0, so assignments drop) loss and every gradient leaf
+     on the card (B9, B11 under their autograd Functions, remat on) against
+     the CPU with the same expert picks and kept masks, loss rtol 1e-5,
+     each leaf within 1e-4 of its scale;
   4. each kernel against its plain PyTorch version on the same inputs at
      the main path's shapes (and at zamba2-1.2b's: B9 at (8, 2048) and
-     (2048, 2048), B10 at (8, 4096), bf16; and at xlstm-1.3b's sLSTM
-     norm: B9 on fp32 rows at (8, 2048) and (2048, 2048)), with the
+     (2048, 2048), B10 at (8, 4096), bf16; at xlstm-1.3b's sLSTM norm: B9
+     on fp32 rows at (8, 2048) and (2048, 2048); and at qwen3-moe-30b-a3b's
+     ln1 and ln2: B9 at (8, 2048) and (2048, 2048) bf16), with the
      tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
@@ -140,9 +164,10 @@ Phases, each fatal on failure:
      step, and the segmented triad's time over the flat triad's.
 
 A ``serve:`` line gives requests, generated tokens, seconds, tokens/s,
-ticks, ms a decode step, preemptions and the page size (for zamba2-1.2b
-and xlstm-1.3b also the B9 and B10 launches a step, and for xlstm-1.3b a
-summary with the card's busy share of a decode tick), and a ``profile:``
+ticks, ms a decode step, preemptions and the page size (for zamba2-1.2b,
+xlstm-1.3b and qwen3-moe-30b-a3b also the B9 (and B10) launches a step,
+and for xlstm-1.3b and qwen3-moe-30b-a3b a summary with the card's busy
+share of a decode tick), and a ``profile:``
 line where the device time of one decode tick goes; ``train:`` lines the loss at each
 step, ms a step (median of steps 1-7), tokens/s and the peak of
 ``torch.cuda.max_memory_allocated``, and a ``profile:`` line one train
@@ -207,7 +232,26 @@ DENSE_PREFILL_S = 512
 # reduced xlstm's train step at a length past the one where the reference's
 # mLSTM gradient is NaN
 XLSTM_ARCH = "xlstm-1.3b"
+# the depth of phase 3f, cut from 48 layers (3 of its 6 blocks of 7 mLSTM
+# and 1 sLSTM) so that the script with phase 3g stays near 13 minutes;
+# every width is the config's
+XLSTM_LAYERS = 24
 XLSTM_TRAIN_SEQ = 300
+# phase 3g: the moe family at full qwen3-moe-30b-a3b width (the dense
+# phase's slots, max_len, chunk and requests): the whole 48-layer model on
+# the card and its prefill forward; serving of its first MOE_SERVE_LAYERS
+# layers (views of the same stacked tensors, every width the config's) so
+# that the script stays near 13 minutes
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_PARAMS = 30_532_122_624
+MOE_SERVE_LAYERS = 16
+# isolated re-runs at a capacity factor >= E / k (128 / 8): cap >= T, so
+# nothing drops and a request alone must give its batched tokens; the
+# first MOE_ISOLATED requests batched, then each alone
+MOE_NO_DROP_CF, MOE_ISOLATED = 16.0, 2
+# the reduced MoE's train step with real routing (top-2 of 8) at a
+# capacity factor where assignments drop
+MOE_TRAIN_CF, MOE_TRAIN_SEQ = 1.0, 64
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # a replayed step after the first: a backward that sums with atomics may
 # change the last bits of a gradient, and a bf16 weight whose fp32 master
@@ -791,7 +835,7 @@ def xlstm_phase() -> dict[str, int]:
         counts["rmsnorm.gated"] += gated
         return plain, gated
 
-    cfg = get_config(XLSTM_ARCH)
+    cfg = dataclasses.replace(get_config(XLSTM_ARCH), n_layers=XLSTM_LAYERS)
     n_m = sum(n for kind, n in cfg.stages() if kind == "mlstm")
     n_s = sum(n for kind, n in cfg.stages() if kind == "slstm")
     # ln1 a layer, an sLSTM's output norm, the final norm; an mLSTM's gate
@@ -1007,6 +1051,317 @@ def xlstm_phase() -> dict[str, int]:
           f"scale): ok")
     del grads, want_g
     print(f"xlstm: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def moe_phase() -> dict[str, int]:
+    """Phase 3g: the moe family at full qwen3-moe-30b-a3b width (48 layers
+    of attention and 128 routed experts of d_ff 768, top-8, capacity factor
+    1.25, skewed expert placement; B9 behind the attention and the experts
+    of every layer): the whole model initialised on the card, a prefill
+    forward at full depth, continuous-batching serving of the first
+    ``MOE_SERVE_LAYERS`` layers (views of the same stacked tensors) paged
+    and dense, isolated re-runs where nothing drops, one profiled decode
+    tick beside the expert products' byte bound, and the reduced MoE's
+    train step on the card against the CPU.  The rmsnorm counter is zeroed
+    just before a run and read just after; returns the launches of each
+    kernel over the phase."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.interop import numpy_params
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.xent import kernel as xent_kernel
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.params import leaves, map_leaves
+    from repro_torch.parallel import steps
+    from repro_torch.parallel.steps import make_prefill_step
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    counts = {"rmsnorm": 0, "xent": 0}
+
+    def zero():
+        rms_kernel.LAUNCHES["plain"] = 0
+
+    def read():
+        counts["rmsnorm"] += rms_kernel.LAUNCHES["plain"]
+        return rms_kernel.LAUNCHES["plain"]
+
+    full = get_config(MOE_ARCH)
+    model = build_model(full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = [t for _, t in leaves(params) if t.is_floating_point()]
+    n_params = sum(t.numel() for t in weights)
+    n_bytes = sum(t.numel() * t.element_size() for t in weights)
+    print(f"init: {MOE_ARCH} bf16 full width, {full.n_layers} layers, "
+          f"{n_params} parameters, {n_bytes} B of weights, in {init_s:.1f} "
+          f"s; peak {torch.cuda.max_memory_allocated()} B "
+          f"(torch.cuda.max_memory_allocated) of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B")
+    if n_params != MOE_PARAMS:
+        fail(f"init {MOE_ARCH}: {n_params} parameters, want {MOE_PARAMS}")
+
+    # the prefill forward at full depth: B9 is ln1 and ln2 of every layer
+    # and the final norm (the qk-norm is plain torch)
+    full_step = 2 * full.n_layers + 1
+    prefill = make_prefill_step(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, full.vocab_size, (PREFILL_B, PREFILL_S),
+                           generator=gen, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(2):
+        zero()
+        with torch.inference_mode():
+            start.record()
+            logits = prefill(params, {"tokens": tokens})
+            end.record()
+        end.synchronize()
+        launched = read()
+        times.append(start.elapsed_time(end))
+        if tuple(logits.shape) != (PREFILL_B, full.vocab_size):
+            fail(f"prefill {MOE_ARCH}: logits shape {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"prefill {MOE_ARCH}: non-finite logits")
+        if launched != full_step:
+            fail(f"prefill {MOE_ARCH}: {launched} rmsnorm launches, want "
+                 f"{full_step}")
+    print(f"prefill: {MOE_ARCH} bf16 full depth B={PREFILL_B} S={PREFILL_S} "
+          f"(capacity {moe.capacity(full, PREFILL_B * PREFILL_S)} a expert; "
+          f"rmsnorm on {PREFILL_B * PREFILL_S} x {full.d_model} rows): first "
+          f"{times[0]:.3f} ms, second {times[1]:.3f} ms, logits finite, "
+          f"rmsnorm launches {launched} a forward; peak "
+          f"{torch.cuda.max_memory_allocated()} B")
+    del logits
+
+    # serving: the first MOE_SERVE_LAYERS layers, views of the stacked
+    # tensors of the full model
+    cfg = dataclasses.replace(full, n_layers=MOE_SERVE_LAYERS)
+    served = dict(params)
+    served["s00_moe"] = map_leaves(lambda a: a[:MOE_SERVE_LAYERS],
+                                   params["s00_moe"])
+    smodel = build_model(cfg)
+    per_step = 2 * cfg.n_layers + 1
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
+                         SERVE_GEN, SEED)
+
+    def serve(m, kv, subset):
+        batcher = ContinuousBatcher(m, served, slots=SERVE_SLOTS,
+                                    max_len=SERVE_MAX_LEN, kv_cache=kv,
+                                    prefill_chunk=SERVE_CHUNK)
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        out = batcher.run([Request(r.rid, list(r.prompt), r.max_new_tokens)
+                           for r in subset])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = read()
+        for r in subset:
+            if len(out.get(r.rid, ())) != r.max_new_tokens:
+                fail(f"serve {MOE_ARCH} {kv}: request {r.rid} did not "
+                     f"complete")
+        if launched < per_step * batcher.micro_steps:
+            fail(f"serve {MOE_ARCH} {kv}: {launched} rmsnorm launches for "
+                 f"{batcher.micro_steps} decode steps (< {per_step} a step)")
+        return batcher, out, secs, launched
+
+    runs, batcher = {}, None
+    for kv in ("paged", "dense"):
+        b, out, secs, launched = serve(smodel, kv, reqs)
+        tokens_out = sum(len(v) for v in out.values())
+        ms = secs / b.micro_steps * 1e3
+        runs[kv] = (out, tokens_out / secs, ms)
+        if kv == "paged":
+            batcher = b
+        page = b.geometry.page_len if b.geometry else None
+        print(f"serve: {MOE_ARCH} bf16 {cfg.n_layers} of {full.n_layers} "
+              f"layers {kv}, capacity factor {cfg.capacity_factor} "
+              f"(capacity {moe.capacity(cfg, b.padded_slots)} a expert for "
+              f"{b.padded_slots} rows): {len(out)} requests, {tokens_out} "
+              f"generated tokens in {secs:.3f} s, {tokens_out / secs:.2f} "
+              f"tokens/s, {b.ticks} ticks, {b.micro_steps} decode steps "
+              f"({ms:.2f} ms a step), {len(b.preemption_log)} preemptions, "
+              f"page {page}, rmsnorm launches {launched} "
+              f"({launched / b.micro_steps:.1f} a step)")
+        del b
+    if runs["paged"][0] != runs["dense"][0]:
+        bad = [r.rid for r in reqs
+               if runs["paged"][0][r.rid] != runs["dense"][0][r.rid]]
+        fail(f"serve {MOE_ARCH}: paged tokens differ from dense for "
+             f"requests {bad}")
+    print(f"serve: {MOE_ARCH}: paged tokens equal dense tokens for all "
+          f"{SERVE_REQUESTS} requests at capacity factor "
+          f"{cfg.capacity_factor}")
+
+    # one decode tick (all slots stepping): its B9 launches, where its
+    # device time goes, and the expert products' share of it
+    feed = torch.ones((batcher.padded_slots, 1), dtype=torch.int32,
+                      device="cuda")
+
+    def tick():
+        with torch.inference_mode():
+            batcher.decode(served, batcher.cache, feed)
+
+    tick()
+    torch.cuda.synchronize()
+    zero()
+    tick()
+    torch.cuda.synchronize()
+    launched = read()
+    if launched < per_step:
+        fail(f"decode step {MOE_ARCH}: {launched} rmsnorm launches "
+             f"(< {per_step})")
+    print(f"serve: {MOE_ARCH}: one decode step launches rmsnorm {launched} "
+          f"times (gate >= {per_step})")
+    wall, busy = device_profile(
+        f"decode tick {MOE_ARCH} ({cfg.n_layers} layers) {SERVE_SLOTS} "
+        f"slots paged max_len {SERVE_MAX_LEN}", tick, top=8)
+    # the three expert products of a decode step over every served layer,
+    # as models.moe.apply_moe runs them on an (E, cap, d) buffer
+    cap = moe.capacity(cfg, batcher.padded_slots)
+    stage = served["s00_moe"]["moe"]
+    eb = torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen,
+                     device="cuda").to(cfg.adtype)
+
+    def expert_products():
+        with torch.inference_mode():
+            for wi, wg, wo in zip(stage["wi"], stage["wg"], stage["wo"]):
+                h = torch.bmm(eb, wi)
+                torch.bmm(torch.nn.functional.silu(torch.bmm(eb, wg)) * h, wo)
+
+    expert_bytes = sum(stage[w].numel() * stage[w].element_size()
+                       for w in ("wi", "wg", "wo"))
+    expert_ms = time_ms(expert_products, samples=5, per_sample=2)
+    bw = datasheet(torch.cuda.get_device_name(0))[0]
+    bound_ms = expert_bytes / bw * 1e3
+    print(f"profile: {MOE_ARCH} expert products of a decode step (3 bmm "
+          f"over ({cfg.n_experts}, {cap}, {cfg.d_model}) x {cfg.n_layers} "
+          f"layers, {expert_bytes} B of weights): {expert_ms:.3f} ms "
+          f"against a byte bound of {bound_ms:.3f} ms ({bound_ms / expert_ms:.1%}"
+          f" of it; {full.n_layers} layers: {expert_ms * full.n_layers / cfg.n_layers:.3f}"
+          f" ms against {bound_ms * full.n_layers / cfg.n_layers:.3f}); "
+          f"{expert_ms / busy:.1%} of the tick's device time and "
+          f"{expert_ms / wall:.1%} of its {wall:.3f} ms")
+    print(f"serve: {MOE_ARCH} summary: paged {runs['paged'][1]:.2f} "
+          f"tokens/s, {runs['paged'][2]:.2f} ms a decode step; dense "
+          f"{runs['dense'][1]:.2f} tokens/s, {runs['dense'][2]:.2f} ms a "
+          f"decode step; the card busy {busy / wall:.1%} of a profiled "
+          f"decode tick ({busy:.3f} of {wall:.3f} ms), the expert products "
+          f"{expert_ms / wall:.1%} of it")
+    del batcher, runs, eb
+    torch.cuda.empty_cache()
+
+    # isolated re-runs where the reference's semantics make them hold: at
+    # a capacity factor >= E / k the capacity is >= T and nothing drops
+    nodrop = build_model(dataclasses.replace(cfg,
+                                             capacity_factor=MOE_NO_DROP_CF))
+    subset = reqs[:MOE_ISOLATED]
+    _, batched, _, _ = serve(nodrop, "paged", subset)
+    for r in subset:
+        _, alone, _, _ = serve(nodrop, "paged", [r])
+        if alone[r.rid] != batched[r.rid]:
+            fail(f"serve {MOE_ARCH} capacity factor {MOE_NO_DROP_CF}: "
+                 f"request {r.rid} alone gave other tokens than batched")
+    print(f"serve: {MOE_ARCH}: at capacity factor {MOE_NO_DROP_CF} (nothing "
+          f"drops), requests {[r.rid for r in subset]} each re-run alone in "
+          f"the same slot geometry give their batched tokens")
+    del model, smodel, nodrop, params, served, stage
+    torch.cuda.empty_cache()
+
+    # the reduced fp32 MoE with real routing (top-2 of 8) at a capacity
+    # factor where assignments drop: the card (B9, B11 under their autograd
+    # Functions, remat on) against the CPU (their plain versions), the same
+    # numpy weights and perm tables on both; the loss rtol 1e-5, each
+    # gradient leaf within 1e-4 of its scale; a pick that flips between
+    # the two (a near-tie in the router) is reported by layer and token
+    small = build_model(dataclasses.replace(
+        reduce_for_smoke(full), top_k=2, capacity_factor=MOE_TRAIN_CF,
+        remat=True))
+    tree = numpy_params(small.param_defs(), SEED, true_fan_in=True,
+                        cfg=small.cfg)
+    data = DataConfig(vocab_size=small.cfg.vocab_size, seq_len=MOE_TRAIN_SEQ,
+                      global_batch=4)
+    routes = {"cuda": [], "cpu": []}
+    route = moe.route
+
+    def spy(p, xf, c):
+        out = route(p, xf, c)
+        routes[xf.device.type].append((out[1].cpu(), out[5].cpu()))
+        return out
+
+    moe.route = spy
+    try:
+        zero()
+        before = xent_kernel.LAUNCHES["xent"]
+        loss, grads = steps.value_and_grad(
+            small, interop.params_from_jax(tree, small.cfg),
+            make_batch(data, 0))
+        launched = read()
+        counts["xent"] += xent_kernel.LAUNCHES["xent"] - before
+        want, want_g = steps.value_and_grad(
+            small, interop.params_from_jax(tree, small.cfg, device="cpu"),
+            make_batch(data, 0, device="cpu"))
+    finally:
+        moe.route = route
+    if len(routes["cuda"]) != len(routes["cpu"]):
+        fail(f"reduced {MOE_ARCH} train step: {len(routes['cuda'])} MoE "
+             f"calls on the card, {len(routes['cpu'])} on the cpu")
+    dropped = 0
+    for i, ((e_card, k_card), (e_cpu, k_cpu)) in enumerate(
+            zip(routes["cuda"], routes["cpu"])):
+        flips = (e_card.sort(-1).values != e_cpu.sort(-1).values).any(-1)
+        if bool(flips.any()):
+            t = int(flips.nonzero()[0])
+            fail(f"reduced {MOE_ARCH} train step: MoE call {i} (layer "
+                 f"{i % small.cfg.n_layers}), token {t}: experts "
+                 f"{e_card[t].tolist()} on the card, {e_cpu[t].tolist()} on "
+                 f"the cpu (a near-tie in the router)")
+        if not torch.equal(k_card, k_cpu):
+            fail(f"reduced {MOE_ARCH} train step: MoE call {i}: the kept "
+                 f"masks differ between the card and the cpu")
+        dropped += int((~k_card).sum())
+    if launched < 2 * small.cfg.n_layers + 1:
+        fail(f"reduced {MOE_ARCH} train step: {launched} rmsnorm launches")
+    if not dropped:
+        fail(f"reduced {MOE_ARCH} train step: capacity factor "
+             f"{MOE_TRAIN_CF} dropped nothing")
+    check_close(f"reduced {MOE_ARCH} train step loss, card vs cpu",
+                loss.cpu(), want, 1e-5, 0.0)
+    worst = 0.0
+    for (path, g), (_, w) in zip(leaves(grads), leaves(want_g)):
+        if g is None:           # the perm tables
+            continue
+        name = "/".join(path)
+        if not bool(g.abs().max() > 0):
+            fail(f"reduced {MOE_ARCH} train step: gradient of {name} is zero")
+        scale = float(w.abs().max())
+        err = check_close(f"reduced {MOE_ARCH} train step grad {name}, card "
+                          f"vs cpu", g.cpu(), w, 0.0, 1e-4 * scale)
+        worst = max(worst, err / scale)
+    print(f"train: reduced {MOE_ARCH} fp32 top-{small.cfg.top_k} of "
+          f"{small.cfg.n_experts}, capacity factor {MOE_TRAIN_CF} (remat on) "
+          f"S={MOE_TRAIN_SEQ}: loss {float(loss)!r} on the card, "
+          f"{float(want)!r} on the cpu; {len(routes['cuda'])} MoE calls with "
+          f"the same picks and kept masks on both, {dropped} assignments "
+          f"dropped; rmsnorm launches {launched}; every gradient leaf finite, "
+          f"nonzero and within 1e-4 of its scale (worst {worst:.3g} of "
+          f"scale): ok")
+    del grads, want_g
+    print(f"moe: the phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -1810,12 +2165,13 @@ def main() -> int:
     spmd_launches = spmd_phase(train_metrics)
     hybrid_launches = hybrid_phase()
     xlstm_launches = xlstm_phase()
+    moe_launches = moe_phase()
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
     launches["rmsnorm"] += train_launches["rmsnorm"]
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
-    for phase in (hybrid_launches, xlstm_launches):
+    for phase in (hybrid_launches, xlstm_launches, moe_launches):
         for name, count in phase.items():
             launches[name] += count
     print(f"main: launches {launches}")
@@ -1957,6 +2313,13 @@ def main() -> int:
                                            torch.float32, False, 20)
     cases["rmsnorm.prefill.xlstm.fp32"] = rms_case(
         (PREFILL_B * PREFILL_S, 2048), torch.float32, False, 21)
+    # qwen3-moe-30b-a3b's ln1 and ln2 (phase 3g), bf16: B9 at its decode
+    # (8, 2048) and prefill (2048, 2048) shapes (zamba2's shapes, other
+    # inputs)
+    cases["rmsnorm.moe"] = rms_case((SERVE_SLOTS, 2048), torch.bfloat16,
+                                    False, 22)
+    cases["rmsnorm.prefill.moe"] = rms_case((PREFILL_B * PREFILL_S, 2048),
+                                            torch.bfloat16, False, 23)
     def xent_case(t, v, logical_v, dtype, seed):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
         calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the

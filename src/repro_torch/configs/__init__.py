@@ -2,8 +2,8 @@
 
 Counterpart of ``repro.configs``.  The port carries the configurations of
 the families it runs, as data (dense ``qwen3-4b``, ``qwen2-0.5b``,
-``qwen3-14b``, ``minicpm-2b``; hybrid ``zamba2-1.2b``; ssm ``xlstm-1.3b``)
-with their schedule kinds (``get_schedule``); every
+``qwen3-14b``, ``minicpm-2b``; moe ``qwen3-moe-30b-a3b``, ``grok-1-314b``;
+hybrid ``zamba2-1.2b``; ssm ``xlstm-1.3b``) with their schedule kinds (``get_schedule``); every
 other architecture of the reference's pool is known by name and family and
 raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
@@ -21,13 +21,13 @@ _MODULES = {
     "qwen2-0.5b": "qwen2_0p5b",
     "qwen3-14b": "qwen3_14b",
     "xlstm-1.3b": "xlstm_1p3b",
+    "grok-1-314b": "grok_1_314b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
 }
 
 # architectures of the reference's pool not ported yet, by family
 _UNPORTED = {
     "pixtral-12b": "vlm",
-    "grok-1-314b": "moe",
-    "qwen3-moe-30b-a3b": "moe",
     "whisper-tiny": "encdec",
 }
 
@@ -71,6 +71,10 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.head_dim:
         kw["head_dim"] = 32
+    if cfg.n_experts:
+        kw["n_experts"] = min(cfg.n_experts, 8)
+        kw["moe_d_ff"] = min(cfg.moe_d_ff, 128)
+        kw["capacity_factor"] = 4.0
     if cfg.family == "hybrid":
         kw["shared_attn_period"] = 2
         kw["ssm_state"] = 16

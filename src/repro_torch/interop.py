@@ -53,12 +53,16 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def numpy_params(defs: Mapping, seed: int, *,
-                 true_fan_in: bool = False) -> dict:
+                 true_fan_in: bool = False, cfg=None) -> dict:
     """Seeded numpy weights for a parameter-definition tree, to hand to
     both frameworks: a normal leaf at its init std, ones as 1 + 0.1 noise
     and zeros as 0.02 noise, so every bias and norm scale reaches the loss.
     The two packages' trees match leaf for leaf, and the leaves are drawn
-    in sorted key order, so either tree gives the same arrays.
+    in sorted key order, so either tree gives the same arrays.  An integer
+    leaf (an MoE layer's expert permutation ``perm``) is not a weight: it
+    stays int32 and takes its init, zeros; with the model config ``cfg``
+    each MoE stage's ``perm`` is the skew table ``model.init`` writes
+    (``models.moe.make_perms``), on both sides.
 
     A normal leaf without an explicit ``scale`` takes 0.02 (embeddings) or
     1/sqrt(fan-in).  By default the fan-in is the reference's rule,
@@ -83,6 +87,9 @@ def numpy_params(defs: Mapping, seed: int, *,
                 raise TypeError(f"true_fan_in needs the port's ParamDefs, "
                                 f"got {type(d).__name__} at {key!r}")
             noise = rng.standard_normal(d.shape)
+            if _is_int(d.dtype):
+                out[key] = np.zeros(d.shape, np.int32)
+                continue
             if d.init == "ones":
                 a = 1.0 + 0.1 * noise
             elif d.init == "zeros":
@@ -96,7 +103,22 @@ def numpy_params(defs: Mapping, seed: int, *,
             out[key] = a.astype(np.float32)
         return out
 
-    return rec(defs)
+    tree = rec(defs)
+    if cfg is not None:
+        from repro_torch.models import moe, transformer
+
+        for i, (kind, count) in enumerate(cfg.stages()):
+            if kind == "moe":
+                tree[transformer.stage_name(i, kind)]["moe"]["perm"] = (
+                    moe.make_perms(cfg, count, transformer.expert_shards(cfg)))
+    return tree
+
+
+def _is_int(dtype) -> bool:
+    """Whether a torch or numpy/JAX dtype is an integer type."""
+    if isinstance(dtype, torch.dtype):
+        return not (dtype.is_floating_point or dtype.is_complex)
+    return np.dtype(dtype).kind in "iub"
 
 
 def plan_from_dict(fields: Mapping[str, Any]) -> KernelPlan:
@@ -131,7 +153,8 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
     """The port's parameter tree for model config ``cfg`` holding the
     reference's parameters ``tree`` (a nested dict of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``), on ``device`` (CUDA unless
-    named), converted to ``dtype`` when given.
+    named), its floating leaves converted to ``dtype`` when given (an
+    integer leaf, an MoE layer's ``perm``, stays int32).
 
     The two trees share names and shapes leaf for leaf (stacked stages
     included, an xlstm's mLSTM and sLSTM stages with their fp32 gate and
@@ -159,8 +182,9 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
+        cast = dtype if d.dtype.is_floating_point else None
         node[path[-1]] = to_torch(got[path], device=device,
-                                  dtype=dtype or d.dtype)
+                                  dtype=cast or d.dtype)
     return out
 
 

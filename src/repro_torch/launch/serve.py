@@ -10,7 +10,8 @@ one card, standing in for the reference's ``pod``/``multipod`` meshes until
 the SPMD slice (ROADMAP A11).  The run is on CUDA unless ``--device cpu``.
 Prompt lengths and new-token counts are drawn from the given ranges with
 ``--seed``.  The default arch is the reference's, ``zamba2-1.2b`` (the
-hybrid; ``xlstm-1.3b`` runs the ssm family).  Prints the decode batch's
+hybrid; ``xlstm-1.3b`` runs the ssm family, ``qwen3-moe-30b-a3b`` the moe
+family, 61 GB of bf16 weights at full width).  Prints the decode batch's
 RMSNorm plan (and, for a hybrid or an xlstm, the Mamba2's or the mLSTM's
 gated norm's over (slots, d_inner)), then requests, generated tokens,
 seconds and tokens/s.

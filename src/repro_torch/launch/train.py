@@ -214,7 +214,7 @@ def _main_mesh(args, device):
 
     shape = mesh_lib.parse_shape(args.mesh)
     require_mesh_ported(_config(args, device.type == "cuda"),
-                        {"model": shape[1]})
+                        {"data": shape[0], "model": shape[1]})
     if device.type == "cuda":
         from repro_torch.kernels import _build
 

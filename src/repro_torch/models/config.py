@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.models.config``.  ``ModelConfig`` carries the
 logical dimensions; ``adtype`` is a ``torch.dtype``.  The port runs the
-dense, hybrid (zamba2: Mamba2 and a shared attention block) and ssm
-(xlstm: mLSTM and sLSTM) families (``stages()``); the other families raise
+dense, moe (top-k routed experts behind attention), hybrid (zamba2: Mamba2
+and a shared attention block) and ssm (xlstm: mLSTM and sLSTM) families
+(``stages()``); the other families raise
 ``NotImplementedError`` naming the ROADMAP item that brings them, before
 any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
 engine: the physical config for a ``tp``-way model axis, with the Hopper
@@ -22,11 +23,10 @@ from repro_torch.core.layout import LayoutPolicy
 
 Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 # The ROADMAP item that ports each family the port does not run yet.
 UNPORTED_FAMILIES = {
-    "moe": "ROADMAP A9 (moe.py)",
     "encdec": "ROADMAP A9 (encdec.py)",
     "vlm": "ROADMAP A9 (prefix embeddings)",
 }
@@ -114,8 +114,8 @@ class ModelConfig:
     def stages(self) -> list[tuple[str, int]]:
         """Homogeneous layer runs, each one stacked stage."""
         require_ported(self.family, self.name)
-        if self.family == "dense":
-            return [("dense", self.n_layers)]
+        if self.family in ("dense", "moe"):
+            return [(self.family, self.n_layers)]
         out: list[tuple[str, int]] = []
         if self.family == "ssm":
             # runs of slstm_every - 1 mLSTM layers, each followed by one

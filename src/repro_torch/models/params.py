@@ -34,6 +34,15 @@ from repro_torch.kernels.util import resolve_device
 
 Tree = dict  # nested dict[str, ParamDef | Tree]
 
+# A normal leaf of more elements than this is drawn one slice of its leading
+# axis at a time into a tensor of its own dtype, so init never holds a whole
+# fp32 draw of it beside its result: qwen3-moe-30b-a3b's stacked experts
+# (48, 128, 2048, 768) are 9.66 G elements, 38.7 GB as one fp32 draw.  The
+# slices give other values than one whole draw, so the limit lies above
+# every leaf of the other configs (the largest, qwen3-14b's stacked MLP, is
+# 3.57 G elements): those keep the values of one whole draw.
+WHOLE_DRAW_LIMIT = 1 << 32
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
@@ -70,6 +79,13 @@ class ParamDef:
         std = self.scale
         if std is None:
             std = 0.02 if self.init == "embed" else 1.0 / math.sqrt(self.fan_in)
+        if math.prod(self.shape) > WHOLE_DRAW_LIMIT:
+            out = torch.empty(self.shape, dtype=self.dtype, device=device)
+            for part in out:          # views along the leading axis
+                part.copy_(torch.randn(self.shape[1:], generator=gen,
+                                       dtype=torch.float32,
+                                       device=device).mul_(std))
+            return out
         x = torch.randn(self.shape, generator=gen, dtype=torch.float32,
                         device=device)
         return x.mul_(std).to(self.dtype)

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense, hybrid and ssm families (counterpart of
+"""Decoder-only LM, dense, moe, hybrid and ssm families (counterpart of
 ``repro.models.transformer``).
 
 Layers are grouped into homogeneous stages (``cfg.stages()``); a stage's
@@ -9,6 +9,11 @@ recording, each layer runs under ``torch.utils.checkpoint`` (non-reentrant),
 the counterpart of the reference's ``jax.checkpoint`` of the scan body: its
 activations are recomputed in the backward pass instead of kept.
 
+An MoE layer (``models.moe``) is the dense layer with the routed experts in
+place of the MLP; ``forward`` returns the sum over the layers of their
+load-balance losses, which ``LM.loss`` adds to the cross-entropy, and a
+decode step discards it.
+
 The hybrid family (zamba2) runs stages of Mamba2 layers
 (``models.mamba2``) and, at every ``('shared_attn', 1)`` stage, one shared
 attention block: a single parameter set (``params["shared_attn"]``, not
@@ -16,7 +21,7 @@ stacked) whose input is ``concat([x, h0]) @ win``, h0 the embedded tokens,
 with a KV cache (or page pool) of its own for each application.  The ssm
 family (xlstm) runs stages of mLSTM layers and single sLSTM layers
 (``models.xlstm``), each behind its ``ln1``, and has no attention stage and
-no KV cache at all.  The other families (MoE, enc-dec, VLM) raise
+no KV cache at all.  The other families (enc-dec, VLM) raise
 ``NotImplementedError`` before any parameter is made (ROADMAP A9).
 
 ``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
@@ -44,7 +49,8 @@ Attention heads and the MLP stay whole (no tensor parallelism yet, ROADMAP
 A11): the model raises if the ambient rules shard "heads", "kv_heads",
 "mlp" or "expert" over a mesh axis of more than one rank.  The hybrid
 and ssm families on a mesh wait for A11 too: they raise under a model
-axis of more than one rank (``require_mesh_ported``).
+axis of more than one rank, and the moe family under any mesh of more than
+one rank (``require_mesh_ported``).
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -53,13 +59,15 @@ callers that need the old cache keep a copy.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api import context as context_lib
 from repro_torch.api import dispatch
 from repro_torch.api import spmd as spmd_lib
-from repro_torch.models import blocks, mamba2, xlstm
+from repro_torch.models import blocks, mamba2, moe, xlstm
 from repro_torch.models.config import ModelConfig, require_ported
 from repro_torch.models.params import (
     ParamDef,
@@ -92,14 +100,17 @@ _RECURRENT = {
 def block_defs(cfg: ModelConfig, kind: str) -> Tree:
     if kind in _RECURRENT:
         return {"ln1": blocks.norm_defs(cfg), kind: _RECURRENT[kind][0](cfg)}
-    if kind not in ("dense", "shared_attn"):
+    if kind not in ("dense", "moe", "shared_attn"):
         require_ported(kind)
     defs: Tree = {
         "ln1": blocks.norm_defs(cfg),
         "attn": blocks.attention_defs(cfg),
         "ln2": blocks.norm_defs(cfg),
-        "mlp": blocks.mlp_defs(cfg),
     }
+    if kind == "moe":
+        defs["moe"] = moe.moe_defs(cfg)
+    else:
+        defs["mlp"] = blocks.mlp_defs(cfg)
     if kind == "shared_attn":   # its input projection of concat([x, h0])
         defs["win"] = ParamDef((2 * cfg.d_model, cfg.d_model),
                                ("embed", "embed"), dtype=cfg.adtype)
@@ -130,7 +141,22 @@ def param_defs(cfg: ModelConfig) -> Tree:
 
 
 def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> Tree:
-    return init_params(seed, param_defs(cfg), device=device)
+    params = init_params(seed, param_defs(cfg), device=device)
+    # the skew permutations are structural, not random
+    for i, (kind, count) in enumerate(cfg.stages()):
+        if kind == "moe":
+            perms = moe.make_perms(cfg, count, expert_shards(cfg))
+            params[stage_name(i, kind)]["moe"]["perm"].copy_(
+                torch.from_numpy(perms))
+    return params
+
+
+def expert_shards(cfg: ModelConfig) -> int:
+    """The devices the expert axis is sharded over, for the skew tables:
+    16, the reference's single-pod model-axis width, so the tables are
+    deterministic; 1 (identity tables) when the experts are split by
+    tensor parallelism (``expert_tp``) instead."""
+    return 16 if (cfg.n_experts and not cfg.expert_tp) else 1
 
 
 def layers(tree: Tree) -> list[Tree]:
@@ -141,6 +167,19 @@ def layers(tree: Tree) -> list[Tree]:
     split = map_leaves(lambda a: a.unbind(0), tree)
     count = len(next(iter(leaves(split)))[1])
     return [map_leaves(lambda parts: parts[i], split) for i in range(count)]
+
+
+def stage_layers(params: Tree, i: int, kind: str) -> list[Tree]:
+    """The layers of stage ``i``; an MoE layer's ``moe`` subtree gains its
+    logical expert -> storage slot map ``slot_of``, one argsort of the
+    stage's (L, E) permutation table for all its layers."""
+    stage = params[stage_name(i, kind)]
+    lps = layers(stage)
+    if kind == "moe":
+        slots = moe.expert_slots(stage["moe"]["perm"]).unbind(0)
+        lps = [{**lp, "moe": {**lp["moe"], "slot_of": s}}
+               for lp, s in zip(lps, slots)]
+    return lps
 
 
 def _scalar(value: float, dtype: torch.dtype) -> float:
@@ -155,15 +194,16 @@ def _scalar(value: float, dtype: torch.dtype) -> float:
 
 
 def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor,
-                 h0: torch.Tensor | None = None) -> torch.Tensor:
-    """One layer: dense, a recurrent block (mamba, mlstm, slstm), or the
-    shared attention block (whose input projection takes ``concat([x,
-    h0])``)."""
+                 positions: torch.Tensor, h0: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer: dense, moe, a recurrent block (mamba, mlstm, slstm), or
+    the shared attention block (whose input projection takes ``concat([x,
+    h0])``).  Returns ``(x, aux)``: aux the MoE layer's load-balance loss,
+    ``None`` for the other kinds."""
     rs = _scalar(cfg.residual_scale, x.dtype)
     if kind in _RECURRENT:
         h = blocks.apply_norm(p["ln1"], x, cfg)
-        return x + rs * _RECURRENT[kind][2](p[kind], h, cfg)
+        return x + rs * _RECURRENT[kind][2](p[kind], h, cfg), None
     xin = x
     if kind == "shared_attn":
         xin = torch.matmul(torch.cat([x, h0], dim=-1), p["win"])
@@ -171,8 +211,12 @@ def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
     h = blocks.attention(p["attn"], h, cfg, positions=positions)
     x = x + rs * h
     h = blocks.apply_norm(p["ln2"], x, cfg)
-    h = blocks.apply_mlp(p["mlp"], h, cfg)
-    return x + rs * h
+    aux = None
+    if kind == "moe":
+        h, aux = moe.apply_moe(p["moe"], h, cfg)
+    else:
+        h = blocks.apply_mlp(p["mlp"], h, cfg)
+    return x + rs * h, aux
 
 
 def vocab_parallel(cfg: ModelConfig):
@@ -180,8 +224,8 @@ def vocab_parallel(cfg: ModelConfig):
     vocabulary shards over, or ``(None, ())`` outside a mesh or when the
     vocab stays whole (a model axis of one rank, or a vocab that does not
     divide).  Raises where the rules would shard a layer's heads or MLP,
-    or for a hybrid or ssm config under a model axis of more than one
-    rank, which the port does not do yet."""
+    or for a config whose family the port does not run on this mesh
+    (``require_mesh_ported``)."""
     mesh = spmd_lib.spmd_mesh()
     if mesh is None:
         return None, ()
@@ -204,8 +248,16 @@ def vocab_parallel(cfg: ModelConfig):
 
 def require_mesh_ported(cfg: ModelConfig, axis_sizes) -> None:
     """Raise for a hybrid or ssm config on a mesh ({axis: ranks}) whose
-    model axis has more than one rank: those families on a mesh are
-    ROADMAP A11."""
+    model axis has more than one rank, and for a moe config on any mesh of
+    more than one rank: those families on a mesh are ROADMAP A11.  An MoE
+    layer ranks capacity over the global token set, and a data-parallel
+    mesh would rank over each rank's tokens."""
+    ranks = math.prod(int(n) for n in axis_sizes.values())
+    if cfg.family == "moe" and ranks > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: the moe family on a mesh of {ranks} ranks is not "
+            f"ported (ROADMAP A11): capacity ranks over the global token "
+            f"set")
     if (cfg.family in ("hybrid", "ssm")
             and int(axis_sizes.get("model", 1)) > 1):
         raise NotImplementedError(
@@ -291,18 +343,20 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
                              device=x.device).expand(b, s)
     h0 = x
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(cfg.stages()):
         if kind == "shared_attn":
             stage = [(params["shared_attn"], h0)]
         else:
-            stage = [(lp, None) for lp in layers(params[stage_name(i, kind)])]
+            stage = [(lp, None) for lp in stage_layers(params, i, kind)]
         for lp, h in stage:
             if remat:
-                x = checkpoint(_apply_block, kind, lp, x, cfg, positions, h,
-                               use_reentrant=False)
+                x, a = checkpoint(_apply_block, kind, lp, x, cfg, positions,
+                                  h, use_reentrant=False)
             else:
-                x = _apply_block(kind, lp, x, cfg, positions, h)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                x, a = _apply_block(kind, lp, x, cfg, positions, h)
+            if a is not None:
+                aux = aux + a
     return unembed(params, x, cfg), aux
 
 
@@ -438,8 +492,9 @@ def _decode_block(kind: str, p: Tree, cache: Tree, x: torch.Tensor,
                   act: torch.Tensor | None = None,
                   h0: torch.Tensor | None = None):
     """One layer against its cache (that layer's slices, written in
-    place): the KV of a dense or shared attention layer, the state of a
-    recurrent layer."""
+    place): the KV of a dense, moe or shared attention layer, the state of
+    a recurrent layer.  An MoE layer routes all B rows, frozen ones
+    included, as the reference's does."""
     rs = _scalar(cfg.residual_scale, x.dtype)
     if kind in _RECURRENT:
         h = blocks.apply_norm(p["ln1"], x, cfg)
@@ -457,7 +512,10 @@ def _decode_block(kind: str, p: Tree, cache: Tree, x: torch.Tensor,
             p["attn"], h, cache["k"], cache["v"], idx, cfg, act=act)
     x = x + rs * h
     h = blocks.apply_norm(p["ln2"], x, cfg)
-    h = blocks.apply_mlp(p["mlp"], h, cfg)
+    if kind == "moe":
+        h, _ = moe.apply_moe(p["moe"], h, cfg, with_aux=False)
+    else:
+        h = blocks.apply_mlp(p["mlp"], h, cfg)
     return x + rs * h, {"k": ck, "v": cv}
 
 
@@ -482,7 +540,7 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
     for i, (kind, count) in enumerate(cfg.stages()):
         nm = stage_name(i, kind)
         lps = ([params["shared_attn"]] if kind == "shared_attn"
-               else layers(params[nm]))
+               else stage_layers(params, i, kind))
         for lp, lc in zip(lps, layers(cache[nm])):
             x, _ = _decode_block(kind, lp, lc, x, idx, cfg, pages, act, h0)
         new_cache[nm] = cache[nm]

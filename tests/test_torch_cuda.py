@@ -42,11 +42,21 @@ dense models, and its train step runs 300 tokens a row, across a chunk of
 the SSD, to the same tolerance.  B10 at zamba2-1.2b's shapes is held to
 its plain version at the bf16 tolerance; ``GatedRMSNormFn``'s gradients on
 the card (a plain fp32 backward behind the kernel's forward) to the same
-Function on the CPU at rtol 1e-4 / atol 1e-5.  The xlstm (reduced
+Function on the CPU at rtol 1e-4 / atol 1e-5 for x and z, and the scale's
+(a sum over the rows) within a bound derived from the sum of its terms'
+magnitudes (``_scale_grad_bound``), every input from a seeded generator;
+both backwards give the same bits on a second run.  The xlstm (reduced
 xlstm-1.3b) serves paged = dense the same way, and its train step runs 300
 tokens a row, past the length where the reference's mLSTM gradient is NaN,
 to the same tolerance; B9 on its sLSTM output norm's fp32 rows of 2048
 with the bf16 scale cast to fp32 is held to the fp32 tolerance.
+
+The MoE layer (``models.moe``, reduced top-2 of 8 at capacity factor 1.0)
+routes and drops the same assignments on the card as on the CPU, its
+output and aux at rtol 1e-5 / atol 1e-6; at qwen3-moe-30b-a3b's full
+layer width in bf16 two runs give the same bits (no float atomics in the
+dispatch or the combine) and agree with the CPU at the bf16 tolerance.
+The reduced qwen3-moe serves paged = dense and trains as the dense models.
 
 The STREAM kernels write every element of pitched and contiguous tiles
 once, bit-exact (both dtypes: one rounding of the same fp32 operations),
@@ -54,6 +64,7 @@ and leave the row padding alone.  A row normed by the RMSNorm kernel has
 the same bits whatever rows and blocks it is launched with.
 """
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -381,6 +392,55 @@ def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():
                           torch.ones(6, device="cuda"), d_logical=6)
 
 
+def _scale_grad_bound(x, z, g, eps=1e-6):
+    """Per-element bound on |card - cpu| of ``GatedRMSNormFn``'s scale
+    gradient ds_j = sum_r g_rj n_rj over the rows r, n = v rsqrt(mean(v^2)
+    + eps), v = x silu(z) (``blocks._gated_ref``): 2 c u sum_r |g_rj n_rj|,
+    the magnitudes in float64 from the inputs, u = 2^-24 fp32's unit
+    roundoff.
+
+    Each side rounds each term g n in fp32 with a relative error of at most
+    (ceil(log2 d) / 2 + 4) u: the row's mean of d squares summed pairwise
+    (ceil(log2 d) u, halved by the rsqrt), and four roundings (the
+    sigmoid, the gate's product, the scaling, the product with g).  It
+    then sums the rows in an order of its own (the card's reduction and
+    the CPU's differ); a pairwise sum of n terms errs by at most
+    ceil(log2 n) u times the sum of their magnitudes.  So each side lies
+    within c u sum|g n| of the exact value, c = ceil(log2 d) / 2 + 4 +
+    ceil(log2 n), and the two within twice that.  The old atol of 1e-5
+    held the difference to about 0.07 u sum|g n| at (2048, 4096), below a
+    single rounding of the partial sums, and failed on an element whose
+    sum cancels to near zero; at elements of a typical size (|ds| about
+    45) the old rtol of 1e-4 allowed more than this bound."""
+    xf, zf, gf = (t.detach().cpu().double() for t in (x, z, g))
+    v = xf * zf * torch.sigmoid(zf)
+    n = v * torch.rsqrt((v * v).mean(-1, keepdim=True) + eps)
+    rows, d = v.shape
+    c = math.ceil(math.log2(d)) / 2 + 4 + math.ceil(math.log2(rows))
+    return 2 * c * 2.0 ** -24 * (gf * n).abs().sum(0)
+
+
+def _gated_grads(x, z, scale, g, device):
+    """``GatedRMSNormFn``'s gradients (x, z, scale) on ``device``, fp32."""
+    ins = [t.detach().to(device).float().requires_grad_(True)
+           for t in (x, z, scale)]
+    blocks.GatedRMSNormFn.apply(*ins, 1e-6).backward(g.to(device))
+    return [t.grad.cpu() for t in ins]
+
+
+def _check_gated_grads(x, z, scale, g):
+    """The card's gradients against the CPU's: x and z at rtol 1e-4 /
+    atol 1e-5, the scale within ``_scale_grad_bound``; returns the scale
+    gradient's largest |difference| over its bound."""
+    card, cpu = (_gated_grads(x, z, scale, g, dev) for dev in ("cuda", "cpu"))
+    for a, b in zip(card[:2], cpu[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    err = (card[2] - cpu[2]).abs().double()
+    bound = _scale_grad_bound(x, z, g)
+    assert bool((err <= bound).all()), float((err / bound).max())
+    return float((err / bound).max())
+
+
 @pytest.mark.parametrize("rows", [8, 2048])
 def test_gated_kernel_at_the_zamba2_shapes(rows):
     """B10 at zamba2-1.2b's Mamba2 norm shapes, bf16: (8, 4096), a decode
@@ -388,7 +448,10 @@ def test_gated_kernel_at_the_zamba2_shapes(rows):
     d_inner of 4096 is a whole number of vectors, so d_logical is the
     width.  Through ``api.launch`` (one launch) and the kernel itself
     against its plain version, and under ``GatedRMSNormFn``, whose
-    gradients match the same Function on the CPU."""
+    gradients match the same Function on the CPU: x and z at rtol 1e-4 /
+    atol 1e-5, the scale's (a sum over the rows) within the bound that
+    ``_scale_grad_bound`` derives.  Every input, the upstream gradient
+    included, comes from a seeded generator."""
     x, z, scale = _rms_inputs(rows, 4096, 4096, torch.bfloat16,
                               torch.bfloat16, rows)
     before = rkernel.LAUNCHES["gated"]
@@ -399,14 +462,27 @@ def test_gated_kernel_at_the_zamba2_shapes(rows):
     torch.testing.assert_close(
         rkernel.gated_rmsnorm2d(x, z, scale, d_logical=4096), want,
         **tol(torch.bfloat16))
-    ins = [t.float().requires_grad_(True) for t in (x, z, scale)]
-    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
-    g = torch.randn(rows, 4096, device="cuda")
-    blocks.GatedRMSNormFn.apply(*ins, 1e-6).backward(g)
-    blocks.GatedRMSNormFn.apply(*cpu, 1e-6).backward(g.cpu())
-    for a, b in zip(ins, cpu):
-        torch.testing.assert_close(a.grad.cpu(), b.grad, rtol=1e-4,
-                                   atol=1e-5)
+    gen = torch.Generator(device="cuda").manual_seed(1000 + rows)
+    g = torch.randn(rows, 4096, generator=gen, device="cuda")
+    _check_gated_grads(x, z, scale, g)
+
+
+def test_gated_scale_gradient_is_deterministic_and_bounded_over_seeds():
+    """``GatedRMSNormFn``'s backward at (2048, 4096) over 20 seeds: on the
+    card and on the CPU the same inputs give the same bits twice, and the
+    card's gradients lie within ``_check_gated_grads``'s bounds of the
+    CPU's on every seed."""
+    for seed in range(20):
+        x, z, scale = _rms_inputs(2048, 4096, 4096, torch.bfloat16,
+                                  torch.bfloat16, 5000 + seed)
+        gen = torch.Generator(device="cuda").manual_seed(6000 + seed)
+        g = torch.randn(2048, 4096, generator=gen, device="cuda")
+        for dev in ("cuda", "cpu"):
+            first, again = (_gated_grads(x, z, scale, g, dev)
+                            for _ in range(2))
+            for a, b in zip(first, again):
+                exact(a, b)
+        _check_gated_grads(x, z, scale, g)
 
 
 @pytest.mark.parametrize("rows", [8, 2048])
@@ -430,7 +506,7 @@ def test_rmsnorm_on_fp32_rows_with_the_bf16_scale_in_fp32(rows):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "zamba2-1.2b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b"])
 def test_reduced_serving_paged_equals_dense(arch):
     # the reduced configs run in fp32: full-precision matmuls (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -451,6 +527,61 @@ def test_reduced_serving_paged_equals_dense(arch):
     assert rkernel.LAUNCHES["plain"] > before
     if model.cfg.family in ("hybrid", "ssm"):
         assert rkernel.LAUNCHES["gated"] > 0
+
+
+def _moe_inputs(cfg, t, seed):
+    """One MoE layer's seeded weights (perm: the skew table's row 3) and
+    (1, t, d) rows, on the CPU in the config's dtype."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(seed)
+    p = {k: (torch.randn(d.shape, generator=gen) / math.sqrt(d.shape[-2]))
+         .to(d.dtype) for k, d in moe.moe_defs(cfg).items() if k != "perm"}
+    p["perm"] = torch.as_tensor(moe.make_perms(cfg, 4, 16)[3])
+    x = torch.randn((1, t, cfg.d_model), generator=gen).to(cfg.adtype)
+    return p, x
+
+
+def test_moe_layer_on_the_card_matches_the_cpu():
+    """``models.moe.apply_moe`` at reduced size (8 experts top-2, d 128,
+    capacity factor 1.0, so assignments drop), fp32: the card's kept mask
+    equals the CPU's, its output and aux agree to rtol 1e-5 / atol 1e-6
+    (the products and sums in other orders)."""
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(
+        "qwen3-moe-30b-a3b")), top_k=2, capacity_factor=1.0)
+    p, x = _moe_inputs(cfg, 64, 0)
+    card = {k: v.cuda() for k, v in p.items()}
+    keep = moe.route(p, x[0], cfg)[5]
+    assert not bool(keep.all())
+    assert torch.equal(moe.route(card, x[0].cuda(), cfg)[5].cpu(), keep)
+    want, want_aux = moe.apply_moe(p, x, cfg)
+    got, aux = moe.apply_moe(card, x.cuda(), cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=0)
+
+
+def test_moe_layer_at_full_width_is_deterministic_on_the_card():
+    """One qwen3-moe-30b-a3b layer at full width (d 2048, 128 experts of
+    d_ff 768, top-8, capacity factor 1.25), bf16, on 8 rows (a decode step
+    of 8 slots) and 64: two runs give the same bits (the dispatch and the
+    combine use no float atomics), and the output agrees with the CPU's at
+    the bf16 tolerance."""
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b")
+    p, xs = _moe_inputs(cfg, 64, 1)
+    card = {k: v.cuda() for k, v in p.items()}
+    for x in (xs[:, :8], xs):
+        with torch.inference_mode():
+            first, _ = moe.apply_moe(card, x.cuda(), cfg, with_aux=False)
+            again, _ = moe.apply_moe(card, x.cuda(), cfg, with_aux=False)
+            want, _ = moe.apply_moe(p, x, cfg, with_aux=False)
+        exact(first, again)
+        torch.testing.assert_close(first.cpu().float(), want.float(),
+                                   **tol(torch.bfloat16))
 
 
 XENT = dict(rtol=1e-5, atol=1e-5)
@@ -486,8 +617,10 @@ def test_xent_launch_hands_the_callers_logits_to_the_kernel(monkeypatch):
     """(T, 151936) fp32 logits are whole float4 rows: the plan does not pad
     them, and the kernel reads the caller's storage (no copy)."""
     t, v = 64, 151936
-    x = torch.randn(t, v, device="cuda")
-    labels = torch.randint(0, v, (t,), device="cuda", dtype=torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn(t, v, generator=gen, device="cuda")
+    labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
     lib, fn = xkernel._entry()
     seen = []
 
@@ -503,7 +636,8 @@ def test_xent_launch_hands_the_callers_logits_to_the_kernel(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad():
-    x = torch.randn(8, 256, device="cuda", requires_grad=True)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn(8, 256, generator=gen, device="cuda", requires_grad=True)
     s = torch.ones(256, device="cuda")
     labels = torch.zeros(8, dtype=torch.int32, device="cuda")
     with pytest.raises(RuntimeError, match="RMSNormFn"):
@@ -538,7 +672,7 @@ def test_xent_grad_on_the_card_matches_the_cpu(dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b"])
 def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     """Loss and every gradient leaf of a reduced fp32 model: the card
     (B9/B11 kernels, and the hybrid's and the xlstm's B10, under their
@@ -576,6 +710,9 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
                                         make_batch(data, 0, device="cpu"))
     torch.testing.assert_close(loss.cpu(), want, rtol=1e-5, atol=0)
     for (path, g), (_, w) in zip(leaves(grads), leaves(want_g)):
+        if g is None:           # an MoE layer's perm table: no gradient
+            assert w is None and path[-1] == "perm", path
+            continue
         assert bool(g.abs().max() > 0), path
         scale = float(w.abs().max())
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-2 * scale,
@@ -607,16 +744,17 @@ def test_xent_partial_kernel_matches_plain(t, width, vl, off, lv, dtype):
 
 def test_xent_partial_wrapper_refuses_what_the_kernel_does_not_take():
     labels = torch.zeros(8, dtype=torch.int32, device="cuda")
-    x = torch.randn(8, 256, device="cuda", requires_grad=True)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(8, 256, generator=gen, device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="XentFn"):
         xkernel.xent_partials(x, labels, vl=256, off=0, logical_v=512)
     with pytest.raises(ValueError, match="16-B"):
-        xkernel.xent_partials(torch.randn(8, 6, device="cuda"), labels, vl=6,
-                              off=0, logical_v=12)
+        xkernel.xent_partials(torch.randn(8, 6, generator=gen, device="cuda"),
+                              labels, vl=6, off=0, logical_v=12)
     with pytest.raises(TypeError):
-        xkernel.xent_partials(torch.randn(8, 256, device="cuda",
-                                          dtype=torch.float64), labels,
-                              vl=256, off=0, logical_v=512)
+        xkernel.xent_partials(torch.randn(8, 256, generator=gen,
+                                          device="cuda", dtype=torch.float64),
+                              labels, vl=256, off=0, logical_v=512)
 
 
 def test_spmd_xent_on_two_ranks_of_the_card():

@@ -4,7 +4,9 @@ Ports of tests/test_serving.py's ten tests and of the tests of
 tests/test_paged_cache.py that do not read the reference's event bus, run
 against ``repro_torch``; the tests it parametrizes run the reference's
 zamba2-1.2b (the hybrid, whose Mamba2 state is per slot and never paged)
-and qwen2-0.5b, and beside them qwen3-4b and minicpm-2b (all reduced).  Where
+and qwen2-0.5b, and beside them qwen3-4b, minicpm-2b, xlstm-1.3b and
+qwen3-moe-30b-a3b (all reduced; the reduced MoE routes top-8 of its 8
+experts at capacity factor 4, where nothing drops).  Where
 the reference reads preemptions or pool saturation from its event bus, the
 port's tests read the batcher's ``preemption_log`` and the page pool.  The
 reference's tight-pool tests rely on its page length of 8 at these shapes;
@@ -49,7 +51,7 @@ from repro_torch.serving import (
 from repro_torch.serving.paged_cache import ATTN_TILE_ROWS, line_rows
 
 ARCHS = ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b", "minicpm-2b",
-         "xlstm-1.3b"]
+         "xlstm-1.3b", "qwen3-moe-30b-a3b"]
 CPU = dict(device="cpu")
 
 
@@ -143,7 +145,7 @@ def test_paged_equals_dense(arch):
     assert geom.page_len % line_rows(kv_width, 4) == 0
     pools = [paged.cache[k][kv] for k in paged.cache if k.startswith("s")
              and "k" in paged.cache[k] for kv in ("k", "v")]
-    attention = any(kind in ("dense", "shared_attn")
+    attention = any(kind in ("dense", "moe", "shared_attn")
                     for kind, _ in model.cfg.stages())
     assert bool(pools) == attention
     for pool in pools:
