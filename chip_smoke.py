@@ -148,12 +148,45 @@ Phases, each fatal on failure:
      on the card (B9, B11 under their autograd Functions, remat on) against
      the CPU with the same expert picks and kept masks, loss rtol 1e-5,
      each leaf within 1e-4 of its scale;
+  3h. the vlm family at full pixtral-12b width (40 layers, d_model 5120,
+     32/8 heads of 128, d_ff 14336, vocab 131072 untied, a 1,024-token
+     image prefix) and the encdec family at full whisper-tiny width (4
+     encoder and 4 decoder layers, d_model 384, 6 heads, LayerNorm, GELU,
+     vocab 51865 tied, 1,500 frames), seeded weights, one card, after
+     every earlier tensor is freed: pixtral's whole model initialised in
+     bf16 (its parameter count, equal to its param_defs', bytes and peak
+     memory printed), two forwards at full depth of B = 4 rows of 1,024
+     seeded image embeddings and 512 text tokens, fatal unless the logits
+     are finite of shape (4, 512, 131072) and B9 ran exactly 81 times
+     each; ``ContinuousBatcher`` serving text with 3b's slots, max_len,
+     prefill chunk and 16 requests through the first ``VLM_SERVE_LAYERS``
+     layers (views of the same tensors), paged and dense, fatal unless
+     every request completes, paged tokens equal dense tokens and B9 ran
+     at least 2 x layers + 1 times a decode step, over the runs and in one
+     step alone, and a ``profile:`` line of one decode tick; then
+     whisper's fp32 forward on the card against the CPU (TF32 off, rtol
+     1e-4 / atol 1e-4) and its decode steps against its forward over 32
+     positions (the reference's 2e-3); a static batch of 8 rows over 1,500
+     seeded frames, 64 prompt and 384 new tokens, served twice through
+     ``launch.serve.serve_static`` (``prefill_cross``, then one token a
+     step), fatal unless both runs give the same tokens and the bf16
+     model's decode steps match its forward over 32 positions within 8
+     bf16 ulps of the largest logit, with ``serve:`` and ``profile:``
+     lines; ``Trainer`` runs 8 steps at batch 8 x 448
+     tokens (bf16, fp32 master, remat), fatal unless every loss is finite,
+     the held-out loss falls and B11 ran once a step (on the logits padded
+     from 51865 to 51868 columns); and the reduced fp32 pixtral (8 image
+     embeddings) and whisper (2 + 4 layers, 16 frames) train steps on the
+     card (B9 and B11 under their autograd Functions, remat on) against
+     the CPU, loss rtol 1e-5, each leaf within 1e-4 of its scale;
   4. each kernel against its plain PyTorch version on the same inputs at
      the main path's shapes (and at zamba2-1.2b's: B9 at (8, 2048) and
      (2048, 2048), B10 at (8, 4096), bf16; at xlstm-1.3b's sLSTM norm: B9
      on fp32 rows at (8, 2048) and (2048, 2048); and at qwen3-moe-30b-a3b's
-     ln1 and ln2: B9 at (8, 2048) and (2048, 2048) bf16), with the
-     tolerance stated;
+     ln1 and ln2: B9 at (8, 2048) and (2048, 2048) bf16; at pixtral-12b's
+     norms: B9 at (8, 5120) and (6144, 5120) bf16; at whisper-tiny's loss:
+     B11 at (3584, 51865) fp32 padded to 51868 columns, the pad timed
+     apart), with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
      function, beside the least time the card could take (``bound_ms``),
@@ -165,9 +198,10 @@ Phases, each fatal on failure:
 
 A ``serve:`` line gives requests, generated tokens, seconds, tokens/s,
 ticks, ms a decode step, preemptions and the page size (for zamba2-1.2b,
-xlstm-1.3b and qwen3-moe-30b-a3b also the B9 (and B10) launches a step,
-and for xlstm-1.3b and qwen3-moe-30b-a3b a summary with the card's busy
-share of a decode tick), and a ``profile:``
+xlstm-1.3b, qwen3-moe-30b-a3b and pixtral-12b also the B9 (and B10)
+launches a step, and for xlstm-1.3b, qwen3-moe-30b-a3b, pixtral-12b and
+whisper-tiny a summary with the card's busy share of a decode tick), and
+a ``profile:``
 line where the device time of one decode tick goes; ``train:`` lines the loss at each
 step, ms a step (median of steps 1-7), tokens/s and the peak of
 ``torch.cuda.max_memory_allocated``, and a ``profile:`` line one train
@@ -252,6 +286,22 @@ MOE_NO_DROP_CF, MOE_ISOLATED = 16.0, 2
 # the reduced MoE's train step with real routing (top-2 of 8) at a
 # capacity factor where assignments drop
 MOE_TRAIN_CF, MOE_TRAIN_SEQ = 1.0, 64
+# phase 3h: the vlm family at full pixtral-12b width (the whole 40-layer
+# model on the card and its prefill forward behind its 1,024-token image
+# prefix; serving of text through its first VLM_SERVE_LAYERS layers, views
+# of the same stacked tensors, every width the config's, cut for time) and
+# the encdec family at full whisper-tiny width (a static batch of 8 rows
+# over 1,500 frames, 64 prompt and 384 new tokens: Whisper's 448-position
+# decoder context; training at batch 8 x 448 tokens)
+VLM_ARCH = "pixtral-12b"
+VLM_PARAMS = 12_247_782_400
+VLM_SERVE_LAYERS = 8
+VLM_PREFILL_S = 512            # text positions behind the image prefix
+ENCDEC_ARCH = "whisper-tiny"
+ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC_GEN = 8, 64, 384
+ENCDEC_CHECK = 32              # decode = forward over the first positions
+ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_STEPS = 448, 8, 8
+MULTIMODAL_DIR = ROOT / "build" / "chip_smoke_multimodal"
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # a replayed step after the first: a backward that sums with atomics may
 # change the last bits of a gradient, and a bf16 weight whose fp32 master
@@ -1365,6 +1415,415 @@ def moe_phase() -> dict[str, int]:
     return counts
 
 
+def multimodal_phase() -> dict[str, int]:
+    """Phase 3h: the vlm family at full pixtral-12b width and the encdec
+    family at full whisper-tiny width.  pixtral-12b: the whole model
+    initialised on the card, a prefill forward at full depth behind its
+    1,024-token image prefix, continuous-batching serving of text through
+    its first ``VLM_SERVE_LAYERS`` layers (views of the same stacked
+    tensors) paged and dense, one profiled decode tick.  whisper-tiny: its
+    fp32 forward on the card against the CPU and its decode against its
+    forward, a static batch served through ``launch.serve``'s encdec path
+    twice, training through ``Trainer`` (B11 a step over the padded
+    vocab).  Then the reduced vlm and encdec train steps on the card
+    against the CPU.  Each counter is zeroed just before a run and read
+    just after; returns the launches of each kernel over the phase."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+
+    from repro_torch import api, interop
+    from repro_torch.configs import get_config, get_schedule, reduce_for_smoke
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.interop import numpy_params
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.xent import kernel as xent_kernel
+    from repro_torch.launch.serve import (make_requests, serve_static,
+                                          static_inputs)
+    from repro_torch.models import build_model
+    from repro_torch.models.params import init_params, leaves, map_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedules import make_schedule
+    from repro_torch.parallel import steps
+    from repro_torch.parallel.steps import make_decode_step
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    # nothing of an earlier phase stays on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    counts = {"rmsnorm": 0, "xent": 0}
+
+    def zero():
+        rms_kernel.LAUNCHES["plain"] = 0
+        xent_kernel.LAUNCHES["xent"] = 0
+
+    def read():
+        counts["rmsnorm"] += rms_kernel.LAUNCHES["plain"]
+        counts["xent"] += xent_kernel.LAUNCHES["xent"]
+        return rms_kernel.LAUNCHES["plain"], xent_kernel.LAUNCHES["xent"]
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    # ---- pixtral-12b: the whole model, bf16 ----------------------------
+    full = get_config(VLM_ARCH)
+    model = build_model(full)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = [t for _, t in leaves(params)]
+    n_params = sum(t.numel() for t in weights)
+    n_bytes = sum(t.numel() * t.element_size() for t in weights)
+    n_defs = sum(math.prod(d.shape) for _, d in leaves(model.param_defs()))
+    print(f"init: {VLM_ARCH} bf16 full width, {full.n_layers} layers, "
+          f"{n_params} parameters ({n_defs} in its param_defs), {n_bytes} B "
+          f"of weights, in {init_s:.1f} s; {held} B allocated before the "
+          f"init; peak {torch.cuda.max_memory_allocated()} B "
+          f"(torch.cuda.max_memory_allocated) of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B")
+    if not n_params == n_defs == VLM_PARAMS:
+        fail(f"init {VLM_ARCH}: {n_params} parameters, {n_defs} in its "
+             f"param_defs, want {VLM_PARAMS}")
+
+    # the prefill forward at full depth behind the image prefix: B9 is ln1
+    # and ln2 of every layer and the final norm
+    full_step = 2 * full.n_layers + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, full.vocab_size, (PREFILL_B, VLM_PREFILL_S),
+                           generator=gen, device="cuda")
+    img = torch.randn((PREFILL_B, full.n_img_tokens, full.d_model),
+                      generator=gen, device="cuda")
+    want_shape = (PREFILL_B, VLM_PREFILL_S, full.vocab_size)
+    times = []
+    for _ in range(2):
+        zero()
+        with torch.inference_mode():
+            start.record()
+            logits, _ = model(params, tokens, img)
+            end.record()
+        end.synchronize()
+        launched, _ = read()
+        times.append(start.elapsed_time(end))
+        if tuple(logits.shape) != want_shape:
+            fail(f"prefill {VLM_ARCH}: logits shape {tuple(logits.shape)}, "
+                 f"want {want_shape}")
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"prefill {VLM_ARCH}: non-finite logits")
+        if launched != full_step:
+            fail(f"prefill {VLM_ARCH}: {launched} rmsnorm launches, want "
+                 f"{full_step}")
+        del logits
+    rows = PREFILL_B * (full.n_img_tokens + VLM_PREFILL_S)
+    print(f"prefill: {VLM_ARCH} bf16 full depth B={PREFILL_B}, "
+          f"{full.n_img_tokens} image + {VLM_PREFILL_S} text positions "
+          f"(rmsnorm on {rows} x {full.d_model} rows): first "
+          f"{times[0]:.3f} ms, second {times[1]:.3f} ms, logits "
+          f"{want_shape} finite, rmsnorm launches {launched} a forward; "
+          f"peak {torch.cuda.max_memory_allocated()} B")
+    del tokens, img
+
+    # serving text: the first VLM_SERVE_LAYERS layers, views of the stacked
+    # tensors of the full model
+    cfg = dataclasses.replace(full, n_layers=VLM_SERVE_LAYERS)
+    served = dict(params)
+    served["s00_dense"] = map_leaves(lambda a: a[:VLM_SERVE_LAYERS],
+                                     params["s00_dense"])
+    smodel = build_model(cfg)
+    per_step = 2 * cfg.n_layers + 1
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
+                         SERVE_GEN, SEED)
+    runs, batcher = {}, None
+    for kv in ("paged", "dense"):
+        b = ContinuousBatcher(smodel, served, slots=SERVE_SLOTS,
+                              max_len=SERVE_MAX_LEN, kv_cache=kv,
+                              prefill_chunk=SERVE_CHUNK)
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        out = b.run([Request(r.rid, list(r.prompt), r.max_new_tokens)
+                     for r in reqs])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched, _ = read()
+        for r in reqs:
+            if len(out.get(r.rid, ())) != r.max_new_tokens:
+                fail(f"serve {VLM_ARCH} {kv}: request {r.rid} did not "
+                     f"complete")
+        if launched < per_step * b.micro_steps:
+            fail(f"serve {VLM_ARCH} {kv}: {launched} rmsnorm launches for "
+                 f"{b.micro_steps} decode steps (< {per_step} a step)")
+        tokens_out = sum(len(v) for v in out.values())
+        ms = secs / b.micro_steps * 1e3
+        runs[kv] = (out, tokens_out / secs, ms)
+        page = b.geometry.page_len if b.geometry else None
+        print(f"serve: {VLM_ARCH} bf16 {cfg.n_layers} of {full.n_layers} "
+              f"layers {kv}: {len(out)} requests, {tokens_out} generated "
+              f"tokens in {secs:.3f} s, {tokens_out / secs:.2f} tokens/s, "
+              f"{b.ticks} ticks, {b.micro_steps} decode steps ({ms:.2f} ms "
+              f"a step), {len(b.preemption_log)} preemptions, page {page}, "
+              f"rmsnorm launches {launched} "
+              f"({launched / b.micro_steps:.1f} a step)")
+        if kv == "paged":
+            batcher = b
+        del b
+    if runs["paged"][0] != runs["dense"][0]:
+        bad = [r.rid for r in reqs
+               if runs["paged"][0][r.rid] != runs["dense"][0][r.rid]]
+        fail(f"serve {VLM_ARCH}: paged tokens differ from dense for "
+             f"requests {bad}")
+    print(f"serve: {VLM_ARCH}: paged tokens equal dense tokens for all "
+          f"{SERVE_REQUESTS} requests")
+    feed = torch.ones((batcher.padded_slots, 1), dtype=torch.int32,
+                      device="cuda")
+
+    def tick():
+        with torch.inference_mode():
+            batcher.decode(served, batcher.cache, feed)
+
+    tick()
+    torch.cuda.synchronize()
+    zero()
+    tick()
+    torch.cuda.synchronize()
+    launched, _ = read()
+    if launched < per_step:
+        fail(f"decode step {VLM_ARCH}: {launched} rmsnorm launches "
+             f"(< {per_step})")
+    wall, busy = device_profile(
+        f"decode tick {VLM_ARCH} ({cfg.n_layers} layers) {SERVE_SLOTS} slots "
+        f"paged max_len {SERVE_MAX_LEN}", tick, top=8)
+    print(f"serve: {VLM_ARCH} summary: paged {runs['paged'][1]:.2f} "
+          f"tokens/s, {runs['paged'][2]:.2f} ms a decode step; dense "
+          f"{runs['dense'][1]:.2f} tokens/s, {runs['dense'][2]:.2f} ms a "
+          f"decode step; one decode step launches rmsnorm {launched} times "
+          f"(gate >= {per_step}); the card busy {busy / wall:.1%} of a "
+          f"profiled decode tick ({busy:.3f} of {wall:.3f} ms)")
+    del batcher, runs, feed, tick, model, smodel, params, served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- whisper-tiny ---------------------------------------------------
+    wfull = get_config(ENCDEC_ARCH)
+    frames_np, prompts_np = static_inputs(wfull, ENCDEC_ROWS, ENCDEC_PROMPT,
+                                          SEED)
+    # the fp32 model: the card's forward against the CPU's (TF32 off), and
+    # the card's decode against its own forward (the reference's 2e-3)
+    m32 = build_model(dataclasses.replace(wfull, dtype="float32"))
+    cpu_params = m32.init(SEED, device="cpu")
+    card_params = map_leaves(lambda t: t.cuda(), cpu_params)
+    fr = torch.from_numpy(frames_np[:2])
+    toks = torch.from_numpy(prompts_np[:2, :ENCDEC_CHECK])
+    with torch.inference_mode():
+        want, _ = m32(cpu_params, toks, fr)
+        got, _ = m32(card_params, toks.cuda(), fr.cuda())
+        fwd_err = check_close(f"{ENCDEC_ARCH} fp32 forward, card vs cpu",
+                              got.cpu(), want, 1e-4, 1e-4)
+        cache = init_params(0, m32.cache_defs(2, ENCDEC_CHECK),
+                            device="cuda")
+        cache["cross_k"], cache["cross_v"] = m32.prefill_cross(card_params,
+                                                               fr.cuda())
+        outs = []
+        for t in range(ENCDEC_CHECK):
+            lg, cache = m32.decode_step(card_params, cache,
+                                        toks[:, t:t + 1].cuda())
+            outs.append(lg)
+        dec_err = float((torch.cat(outs, 1) - got).abs().max())
+    if not dec_err < 2e-3:
+        fail(f"{ENCDEC_ARCH} fp32 decode vs forward on the card: max abs "
+             f"err {dec_err} (reference tolerance 2e-3)")
+    print(f"check: {ENCDEC_ARCH} fp32 full width, {wfull.n_frames} frames, "
+          f"{ENCDEC_CHECK} tokens: the card's forward against the cpu's max "
+          f"abs err {fwd_err:.3g} (rtol 1e-4 atol 1e-4); the card's decode "
+          f"steps against its forward {dec_err:.3g} (< 2e-3): ok")
+    del m32, cpu_params, card_params, cache, outs, got, want
+
+    # the bf16 model served as launch.serve serves it: a static batch,
+    # twice; its decode against its forward within a bf16 bound
+    wmodel = build_model(wfull)
+    wparams = wmodel.init(SEED)
+    frames = torch.from_numpy(frames_np).cuda()
+    prompts = torch.from_numpy(prompts_np).cuda()
+    served_out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve_static(wmodel, wparams, frames, prompts, ENCDEC_GEN)
+        torch.cuda.synchronize()
+        served_out.append((out, time.perf_counter() - t0))
+    if not torch.equal(served_out[0][0], served_out[1][0]):
+        fail(f"serve {ENCDEC_ARCH}: a second run gave other tokens")
+    if tuple(served_out[0][0].shape) != (ENCDEC_ROWS, ENCDEC_GEN):
+        fail(f"serve {ENCDEC_ARCH}: tokens of shape "
+             f"{tuple(served_out[0][0].shape)}")
+    with torch.inference_mode():
+        start.record()
+        ck, cv = wmodel.prefill_cross(wparams, frames)
+        end.record()
+        end.synchronize()
+        enc_ms = start.elapsed_time(end)
+        cache = init_params(0, wmodel.cache_defs(
+            ENCDEC_ROWS, ENCDEC_PROMPT + ENCDEC_GEN), device="cuda")
+        cache["cross_k"], cache["cross_v"] = ck, cv
+        decode = make_decode_step(wmodel)
+        fwd, _ = wmodel(wparams, prompts[:, :ENCDEC_CHECK], frames)
+        outs = []
+        for t in range(ENCDEC_CHECK):
+            lg, cache = wmodel.decode_step(wparams, cache,
+                                           prompts[:, t:t + 1])
+            outs.append(lg)
+        bf16_err = float((torch.cat(outs, 1) - fwd).abs().max())
+        top = float(fwd.abs().max())
+    # the logits are a bf16 product cast to fp32, so the two paths differ by
+    # whole bf16 ulps of the largest logit (8 bits of mantissa: 2^(e-7) at
+    # 2^e <= |x| < 2^(e+1)); a few roundings of the residual stream a layer
+    # make a few ulps, a fault in the cross attention or the cache O(1)
+    bf16_bound = 8 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    if not bf16_err <= bf16_bound:
+        fail(f"serve {ENCDEC_ARCH}: bf16 decode vs forward max abs err "
+             f"{bf16_err:.3g} above {bf16_bound:.3g} (8 bf16 ulps of the "
+             f"largest logit {top:.4g})")
+    n_steps = ENCDEC_PROMPT + ENCDEC_GEN - 1
+    secs = served_out[1][1]
+    n_tok = ENCDEC_ROWS * ENCDEC_GEN
+    print(f"serve: {ENCDEC_ARCH} bf16 full width, static batch of "
+          f"{ENCDEC_ROWS} rows, {wfull.n_frames} frames, {ENCDEC_PROMPT} "
+          f"prompt + {ENCDEC_GEN} new tokens a row: {n_tok} generated tokens "
+          f"in {secs:.3f} s (first run {served_out[0][1]:.3f} s), "
+          f"{n_tok / secs:.2f} tokens/s, {n_steps} decode steps "
+          f"({secs / n_steps * 1e3:.2f} ms a step, the encoder pass "
+          f"{enc_ms:.3f} ms included); the same tokens on both runs; bf16 "
+          f"decode vs forward over {ENCDEC_CHECK} positions max abs err "
+          f"{bf16_err:.3g} (<= {bf16_bound:.3g}, 8 bf16 ulps of the largest "
+          f"logit {top:.4g})")
+
+    def tick():
+        with torch.inference_mode():
+            decode(wparams, cache, prompts[:, :1])
+
+    wall, busy = device_profile(f"decode tick {ENCDEC_ARCH} {ENCDEC_ROWS} "
+                                f"rows", tick, top=8)
+    print(f"serve: {ENCDEC_ARCH} summary: {n_tok / secs:.2f} tokens/s, "
+          f"{secs / n_steps * 1e3:.2f} ms a decode step; the card busy "
+          f"{busy / wall:.1%} of a profiled decode tick ({busy:.3f} of "
+          f"{wall:.3f} ms)")
+    del cache, ck, cv, fwd, outs, served_out, frames, prompts, tick, decode
+
+    # training at full width: bf16 with an fp32 master, remat; B11 once a
+    # step over the (tokens, vocab) logits padded to whole 16-B vectors
+    shutil.rmtree(MULTIMODAL_DIR, ignore_errors=True)
+    data = DataConfig(vocab_size=wfull.vocab_size, seq_len=ENCDEC_TRAIN_SEQ,
+                      global_batch=ENCDEC_TRAIN_BATCH,
+                      n_frames=wfull.n_frames, d_model=wfull.d_model)
+    n_rows = ENCDEC_TRAIN_SEQ * ENCDEC_TRAIN_BATCH
+    plan = api.plan_for("xent", (n_rows, wfull.vocab_size), torch.float32)
+    held_out = make_batch(data, ENCDEC_TRAIN_STEPS)
+    with torch.no_grad():
+        before = float(wmodel.loss(wparams, held_out))
+    del wparams
+    run = Trainer(
+        wmodel, data, AdamWConfig(),
+        make_schedule(get_schedule(ENCDEC_ARCH), peak=TRAIN_PEAK,
+                      warmup=TRAIN_WARMUP, total=ENCDEC_TRAIN_STEPS),
+        TrainerConfig(n_steps=ENCDEC_TRAIN_STEPS,
+                      ckpt_every=ENCDEC_TRAIN_STEPS,
+                      ckpt_dir=str(MULTIMODAL_DIR), keep=1, log_every=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    metrics = run.train(SEED)
+    rms, xent = read()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in metrics]
+    if [m["step"] for m in metrics] != list(range(ENCDEC_TRAIN_STEPS)):
+        fail(f"train {ENCDEC_ARCH}: steps run {[m['step'] for m in metrics]}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"train {ENCDEC_ARCH}: non-finite loss in {losses}")
+    if xent != ENCDEC_TRAIN_STEPS:
+        fail(f"train {ENCDEC_ARCH}: {xent} xent launches for "
+             f"{ENCDEC_TRAIN_STEPS} steps (want one a step)")
+    with torch.no_grad():
+        after = float(wmodel.loss(run.state["params"], held_out))
+    if not after < before:
+        fail(f"train {ENCDEC_ARCH}: the loss of held-out batch "
+             f"{ENCDEC_TRAIN_STEPS} is {after!r} after training, not below "
+             f"{before!r} at the initial weights")
+    step_ms = statistics.median(m["step_s"] for m in metrics[1:]) * 1e3
+    print(f"train: {ENCDEC_ARCH} bf16 + fp32 master, remat, batch "
+          f"{ENCDEC_TRAIN_BATCH} x seq {ENCDEC_TRAIN_SEQ} ({n_rows} tokens) "
+          f"against {wfull.n_frames} frames a row: losses {losses}; "
+          f"held-out batch {ENCDEC_TRAIN_STEPS}: loss {before!r} at the "
+          f"initial weights, {after!r} after training; {step_ms:.1f} ms a "
+          f"step (median of steps 1-{ENCDEC_TRAIN_STEPS - 1}), "
+          f"{n_rows / step_ms * 1e3:.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; xent launches {xent} "
+          f"({xent // ENCDEC_TRAIN_STEPS} a step) on ({n_rows}, "
+          f"{wfull.vocab_size}) "
+          f"fp32 logits padded to {plan.padded_shape}, rmsnorm {rms}")
+    state = run.state
+    batch = make_batch(data, ENCDEC_TRAIN_STEPS)
+    device_profile(f"train step {ENCDEC_ARCH} {n_rows} tokens",
+                   lambda: run.step_fn(state, batch), top=8)
+    run.ckpt.wait()
+    del run, state, batch, held_out, wmodel
+    shutil.rmtree(MULTIMODAL_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the reduced fp32 vlm and encdec train steps: the card (B9 and B11
+    # under their autograd Functions, remat on) against the CPU (their
+    # plain versions), the same numpy weights; the loss rtol 1e-5, each
+    # gradient leaf within 1e-4 of its scale, every leaf nonzero
+    for arch in (VLM_ARCH, ENCDEC_ARCH):
+        small = build_model(dataclasses.replace(
+            reduce_for_smoke(get_config(arch)), remat=True))
+        c = small.cfg
+        tree = numpy_params(small.param_defs(), SEED, true_fan_in=True)
+        data = DataConfig(vocab_size=c.vocab_size, seq_len=64, global_batch=4,
+                          n_img_tokens=c.n_img_tokens,
+                          n_frames=c.n_frames if c.family == "encdec" else 0,
+                          d_model=c.d_model)
+        zero()
+        loss, grads = steps.value_and_grad(
+            small, interop.params_from_jax(tree, c), make_batch(data, 0))
+        rms, xent = read()
+        want, want_g = steps.value_and_grad(
+            small, interop.params_from_jax(tree, c, device="cpu"),
+            make_batch(data, 0, device="cpu"))
+        need = 2 * c.n_layers + 1 if c.family == "vlm" else 0
+        if rms < need or xent != 1:
+            fail(f"reduced {arch} train step: {rms} rmsnorm (want >= {need}) "
+                 f"and {xent} xent launches (want 1)")
+        check_close(f"reduced {arch} train step loss, card vs cpu",
+                    loss.cpu(), want, 1e-5, 0.0)
+        worst = 0.0
+        for (path, g), (_, w) in zip(leaves(grads), leaves(want_g)):
+            name = "/".join(path)
+            if not bool(g.abs().max() > 0):
+                fail(f"reduced {arch} train step: gradient of {name} is zero")
+            scale = float(w.abs().max())
+            err = check_close(f"reduced {arch} train step grad {name}, card "
+                              f"vs cpu", g.cpu(), w, 0.0, 1e-4 * scale)
+            worst = max(worst, err / scale)
+        extra = (f"{c.n_img_tokens} image embeddings" if c.family == "vlm"
+                 else f"{c.n_enc_layers} encoder layers, {c.n_frames} frames")
+        print(f"train: reduced {arch} fp32 (remat on, {extra}) S=64: loss "
+              f"{float(loss)!r} on the card, {float(want)!r} on the cpu; "
+              f"rmsnorm launches {rms}, xent {xent}; every one of "
+              f"{len(list(leaves(grads)))} gradient leaves nonzero and within "
+              f"1e-4 of its scale (worst {worst:.3g} of scale): ok")
+        del grads, want_g
+    print(f"multimodal: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def training_phase() -> tuple[dict[str, int], list[float]]:
     """Phase 3c: training at full Qwen2-0.5B width, with a checkpoint round
     trip.  Each kernel counter is zeroed just before a training run and
@@ -2166,12 +2625,14 @@ def main() -> int:
     hybrid_launches = hybrid_phase()
     xlstm_launches = xlstm_phase()
     moe_launches = moe_phase()
+    multimodal_launches = multimodal_phase()
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
     launches["rmsnorm"] += train_launches["rmsnorm"]
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
-    for phase in (hybrid_launches, xlstm_launches, moe_launches):
+    for phase in (hybrid_launches, xlstm_launches, moe_launches,
+                  multimodal_launches):
         for name, count in phase.items():
             launches[name] += count
     print(f"main: launches {launches}")
@@ -2320,6 +2781,13 @@ def main() -> int:
                                     False, 22)
     cases["rmsnorm.prefill.moe"] = rms_case((PREFILL_B * PREFILL_S, 2048),
                                             torch.bfloat16, False, 23)
+    # pixtral-12b's ln1, ln2 and final norm (phase 3h), bf16: B9 at its
+    # decode (8, 5120) and its prefix prefill's (4 x 1536, 5120) shapes
+    cases["rmsnorm.pixtral"] = rms_case((SERVE_SLOTS, 5120), torch.bfloat16,
+                                        False, 24)
+    cases["rmsnorm.prefill.pixtral"] = rms_case(
+        (PREFILL_B * (1024 + VLM_PREFILL_S), 5120), torch.bfloat16, False,
+        25)
     def xent_case(t, v, logical_v, dtype, seed):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
         calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the
@@ -2349,6 +2817,33 @@ def main() -> int:
     cases["xent"] = xent_case(TRAIN_SEQ * TRAIN_BATCH, 151936, 151936,
                               torch.float32, 13)
     cases["xent.ragged.bf16"] = xent_case(*XENT_RAGGED, torch.bfloat16, 14)
+
+    def xent_padded_case(t, v, seed):
+        """B11 at whisper-tiny's training shape (phase 3h): (t, v) fp32
+        logits whose rows are no whole number of 16-B vectors, padded with
+        zero columns to the plan's width as ``_launch_xent`` pads them,
+        masked at v; the library call computes the same loss on the
+        unpadded logits, and the pad is timed apart."""
+        plan = api.plan_for("xent", (t, v), torch.float32)
+        vp = plan.padded_shape[1]
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = 3 * torch.randn((t, v), generator=gen, device="cuda")
+        xp = F.pad(x, (0, vp - v))
+        labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                               dtype=torch.int32)
+        labels64 = labels.to(torch.int64)
+        return dict(
+            kernel=lambda: xent_kernel.xent_nll(xp, labels, logical_v=v,
+                                                brows=plan.block_rows),
+            plain=lambda: xent_kernel.plain(xp, labels, v),
+            exact=False, dtype=torch.float32, tol=(1e-5, 1e-5),
+            bytes=t * vp * 4 + 8 * t, ops=4 * t * v,
+            library=lambda: F.cross_entropy(x, labels64),
+            pad=lambda: F.pad(x, (0, vp - v)), pad_bytes=t * (v + vp) * 4,
+            shape=f"({t}, {v}) padded to ({t}, {vp})")
+
+    cases["xent.whisper"] = xent_padded_case(
+        ENCDEC_TRAIN_SEQ * ENCDEC_TRAIN_BATCH, 51865, 26)
 
     def xent_partial_case(t, width, vl, off, lv, dtype, seed):
         """B12 at a vocab shard of the mesh path, through the wrapper as
@@ -2464,6 +2959,17 @@ def main() -> int:
               f"bound {t['bound_ms']:.4g} ms ({t['bound_by']}), "
               f"{ratio}, {t['bound_ms'] / t['ms']:.1%} of bound, "
               f"{case['bytes'] / t['ms'] / 1e6:.1f} GB/s effective")
+
+    # the pad in front of B11 at whisper's vocab: the (T, V) logits read
+    # and the (T, V + 3) copy written
+    case = cases["xent.whisper"]
+    pad_ms = time_ms(case["pad"])
+    pad_bound = case["pad_bytes"] / bw * 1e3
+    print(f"time: xent.whisper pad (F.pad, {case['shape']} fp32): "
+          f"{pad_ms:.4f} ms, bound {pad_bound:.4g} ms (bytes, "
+          f"{case['pad_bytes']} B), {pad_bound / pad_ms:.1%} of bound; the "
+          f"kernel on the padded rows {times['xent.whisper']['ms']:.4f} ms, "
+          f"pad + kernel {pad_ms + times['xent.whisper']['ms']:.4f} ms")
 
     # the host's cost of one call: what a decode step pays 73 times
     for name in ("rmsnorm", "rmsnorm.prefill", "rmsnorm.gated"):

@@ -1,18 +1,18 @@
 """Architecture registry: ``--arch <id>`` resolution + reduced smoke configs.
 
-Counterpart of ``repro.configs``.  The port carries the configurations of
-the families it runs, as data (dense ``qwen3-4b``, ``qwen2-0.5b``,
-``qwen3-14b``, ``minicpm-2b``; moe ``qwen3-moe-30b-a3b``, ``grok-1-314b``;
-hybrid ``zamba2-1.2b``; ssm ``xlstm-1.3b``) with their schedule kinds (``get_schedule``); every
-other architecture of the reference's pool is known by name and family and
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Counterpart of ``repro.configs``.  The port carries every configuration
+of the reference's pool as data (dense ``qwen3-4b``, ``qwen2-0.5b``,
+``qwen3-14b``, ``minicpm-2b``; vlm ``pixtral-12b``; moe
+``qwen3-moe-30b-a3b``, ``grok-1-314b``; hybrid ``zamba2-1.2b``; ssm
+``xlstm-1.3b``; encdec ``whisper-tiny``) with its schedule kind
+(``get_schedule``).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig, require_ported
+from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "zamba2-1.2b": "zamba2_1p2b",
@@ -20,26 +20,19 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-0.5b": "qwen2_0p5b",
     "qwen3-14b": "qwen3_14b",
+    "pixtral-12b": "pixtral_12b",
     "xlstm-1.3b": "xlstm_1p3b",
     "grok-1-314b": "grok_1_314b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
-}
-
-# architectures of the reference's pool not ported yet, by family
-_UNPORTED = {
-    "pixtral-12b": "vlm",
-    "whisper-tiny": "encdec",
+    "whisper-tiny": "whisper_tiny",
 }
 
 ARCHS = tuple(_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in _UNPORTED:
-        require_ported(_UNPORTED[name], name)
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: "
-                       f"{sorted([*_MODULES, *_UNPORTED])}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[name]}").CONFIG
 
@@ -55,7 +48,6 @@ def get_schedule(name: str) -> str:
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Same family/block structure, laptop-sized dims: the reference's
     reduced shapes (``repro.configs.reduce_for_smoke``)."""
-    require_ported(cfg.family, cfg.name)
     heads = min(cfg.n_heads, 4)
     kv = max(1, min(cfg.n_kv_heads, heads))
     kw: dict = dict(
@@ -81,6 +73,11 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw["ssm_head_dim"] = 32
     if cfg.family == "ssm" and cfg.slstm_every:
         kw["slstm_every"] = 4
+    if cfg.family == "encdec":
+        kw["n_enc_layers"] = 2
+        kw["n_frames"] = 16
+    if cfg.family == "vlm":
+        kw["n_img_tokens"] = 8
     if cfg.vocab_logical:
         kw["vocab_logical"] = 0
     return dataclasses.replace(cfg, **kw)

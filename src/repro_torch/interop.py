@@ -159,14 +159,15 @@ def params_from_jax(tree: Mapping[str, Any], cfg, *, device=None,
     The two trees share names and shapes leaf for leaf (stacked stages
     included, an xlstm's mLSTM and sLSTM stages with their fp32 gate and
     recurrence leaves, and a hybrid's one ``shared_attn`` subtree,
-    unstacked);
+    unstacked; an encoder-decoder's stacked ``enc`` and ``dec``, its
+    ``enc_norm`` and the LayerNorm ``bias`` leaves);
     every reference leaf must land exactly once, with its shape
     unchanged, or this raises naming the leaves that do not."""
-    from repro_torch.models import transformer
+    from repro_torch.models import build_model
     from repro_torch.models.params import leaves
 
     device = resolve_device(device)
-    want = dict(leaves(transformer.param_defs(cfg)))
+    want = dict(leaves(build_model(cfg).param_defs()))
     got = dict(leaves(tree))
     missing = sorted("/".join(p) for p in want.keys() - got.keys())
     extra = sorted("/".join(p) for p in got.keys() - want.keys())
@@ -204,7 +205,7 @@ def train_state_from_jax(state: Mapping[str, Any], cfg, *,
     ambient rules, else ``make_rules(tensor_parallel=False)``)."""
     device = resolve_device(device)
     if mesh is not None:
-        from repro_torch.models import transformer
+        from repro_torch.models import build_model
         from repro_torch.parallel import rules as rules_lib
         from repro_torch.parallel import specs as specs_lib
 
@@ -213,7 +214,7 @@ def train_state_from_jax(state: Mapping[str, Any], cfg, *,
             rules or rules_lib.current_rules()
             or rules_lib.make_rules(tensor_parallel=False), mesh)
         specs = specs_lib.state_specs(
-            transformer.param_defs(cfg), table,
+            build_model(cfg).param_defs(), table,
             master="master" in state["opt"],
             axis_sizes=rules_lib.axis_sizes_of(mesh))
         return specs_lib.shard_tree(full, specs, mesh, rank)

@@ -17,7 +17,10 @@ on CUDA (every rank on card 0 when the ranks outnumber the cards, over
 gloo) and the reduced one on the CPU, and pads the configuration for the
 model axis (``padded_for_mesh``) unless ``--baseline``; a hybrid or ssm
 arch (``zamba2-1.2b``, ``xlstm-1.3b``) raises under a model axis of more
-than one rank (ROADMAP A11).  The learning-rate schedule is the arch's (``configs.get_schedule``:
+than one rank, and a moe, vlm or encdec arch (``qwen3-moe-30b-a3b``,
+``pixtral-12b``, ``whisper-tiny``) under any mesh of more than one rank
+(ROADMAP A11).  A vlm batch carries seeded image embeddings and an encdec
+batch seeded audio frames (``data.pipeline``).  The learning-rate schedule is the arch's (``configs.get_schedule``:
 ``wsd`` for ``minicpm-2b``, ``cosine`` for the others).  The run is on CUDA
 unless ``--device cpu``.  ``--layers``/``--d-model`` override the depth and
 width.  Checkpoints go under ``--ckpt-dir`` (inside the checkout by
@@ -93,8 +96,12 @@ def _trainer(args, cfg, device, mesh=None):
     from repro_torch.optim.schedules import make_schedule
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
+    # the vlm's image embeddings and the encdec's frames, seeded stubs
     data = DataConfig(vocab_size=cfg.vocab_logical or cfg.vocab_size,
-                      seq_len=args.seq_len, global_batch=args.global_batch)
+                      seq_len=args.seq_len, global_batch=args.global_batch,
+                      n_img_tokens=cfg.n_img_tokens,
+                      n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
+                      d_model=cfg.d_model)
     return Trainer(
         build_model(cfg), data, AdamWConfig(),
         make_schedule(get_schedule(args.arch), peak=3e-4, warmup=10,

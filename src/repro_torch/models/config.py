@@ -1,13 +1,14 @@
 """Model configuration: one dataclass covers the reference's whole pool.
 
 Counterpart of ``repro.models.config``.  ``ModelConfig`` carries the
-logical dimensions; ``adtype`` is a ``torch.dtype``.  The port runs the
-dense, moe (top-k routed experts behind attention), hybrid (zamba2: Mamba2
-and a shared attention block) and ssm (xlstm: mLSTM and sLSTM) families
-(``stages()``); the other families raise
-``NotImplementedError`` naming the ROADMAP item that brings them, before
-any parameter is made.  ``padded_for_mesh(tp)`` is the reference's layout
-engine: the physical config for a ``tp``-way model axis, with the Hopper
+logical dimensions; ``adtype`` is a ``torch.dtype``.  ``FAMILIES`` are the
+reference's (``stages()``): dense, vlm (the dense decoder behind a prefix
+of image embeddings), moe (top-k routed experts behind attention), hybrid
+(zamba2: Mamba2 and a shared attention block), ssm (xlstm: mLSTM and
+sLSTM) and encdec (whisper: its decoder's stage here, the encoder in
+``models.encdec``); an unknown family raises ``ValueError``.
+``padded_for_mesh(tp)`` is the reference's layout engine: the physical
+config for a ``tp``-way model axis, with the Hopper
 ``core.layout.LayoutPolicy`` in place of the TPU one (a sharded minor dim
 pads to ``tp`` warp-wide vector spans) and the logical vocab kept in
 ``vocab_logical``.
@@ -15,7 +16,7 @@ pads to ``tp`` warp-wide vector spans) and the logical vocab kept in
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, get_args
 
 import torch
 
@@ -23,24 +24,7 @@ from repro_torch.core.layout import LayoutPolicy
 
 Family = Literal["dense", "moe", "hybrid", "ssm", "encdec", "vlm"]
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
-
-# The ROADMAP item that ports each family the port does not run yet.
-UNPORTED_FAMILIES = {
-    "encdec": "ROADMAP A9 (encdec.py)",
-    "vlm": "ROADMAP A9 (prefix embeddings)",
-}
-
-
-def require_ported(family: str, name: str = "") -> None:
-    """Raise unless the port runs ``family``."""
-    if family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{name or 'model'}: the {family} family is not ported yet; the "
-            f"port runs the {', '.join(PORTED_FAMILIES)} families "
-            f"({UNPORTED_FAMILIES[family]})")
-    if family not in PORTED_FAMILIES:
-        raise ValueError(f"unknown model family {family!r}")
+FAMILIES = get_args(Family)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +96,14 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     def stages(self) -> list[tuple[str, int]]:
-        """Homogeneous layer runs, each one stacked stage."""
-        require_ported(self.family, self.name)
-        if self.family in ("dense", "moe"):
-            return [(self.family, self.n_layers)]
+        """Homogeneous layer runs, each one stacked stage; ``ValueError``
+        for a family outside ``FAMILIES``."""
+        if self.family in ("dense", "vlm", "encdec"):
+            # vlm: the dense decoder; encdec: its decoder (the encoder's
+            # layers are models.encdec's own stack)
+            return [("dense", self.n_layers)]
+        if self.family == "moe":
+            return [("moe", self.n_layers)]
         out: list[tuple[str, int]] = []
         if self.family == "ssm":
             # runs of slstm_every - 1 mLSTM layers, each followed by one
@@ -132,6 +120,9 @@ class ModelConfig:
                     out.append(("slstm", 1))
                     remaining -= 1
             return out
+        if self.family != "hybrid":
+            raise ValueError(f"{self.name or 'model'}: unknown model family "
+                             f"{self.family!r}; the families are {FAMILIES}")
         # hybrid: runs of mamba layers, the shared attention block after
         # each full run (and after a short last run only if it is full)
         period = self.shared_attn_period or self.n_layers

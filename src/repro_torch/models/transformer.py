@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense, moe, hybrid and ssm families (counterpart of
-``repro.models.transformer``).
+"""Decoder-only LM, dense, vlm, moe, hybrid and ssm families (counterpart
+of ``repro.models.transformer``).
 
 Layers are grouped into homogeneous stages (``cfg.stages()``); a stage's
 per-layer parameters stay stacked along a leading layer axis, as in the
@@ -21,8 +21,11 @@ stacked) whose input is ``concat([x, h0]) @ win``, h0 the embedded tokens,
 with a KV cache (or page pool) of its own for each application.  The ssm
 family (xlstm) runs stages of mLSTM layers and single sLSTM layers
 (``models.xlstm``), each behind its ``ln1``, and has no attention stage and
-no KV cache at all.  The other families (enc-dec, VLM) raise
-``NotImplementedError`` before any parameter is made (ROADMAP A9).
+no KV cache at all.  The vlm family (pixtral) is the dense decoder whose
+``forward`` takes a prefix of image embeddings (``prefix_embeds``, the
+batch's ``img_embeds`` in ``LM.loss``); it serves text alone, from position
+0, as the reference does.  The encdec family (whisper) is
+``models.encdec.EncDecLM``.
 
 ``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
 (B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch.
@@ -49,8 +52,8 @@ Attention heads and the MLP stay whole (no tensor parallelism yet, ROADMAP
 A11): the model raises if the ambient rules shard "heads", "kv_heads",
 "mlp" or "expert" over a mesh axis of more than one rank.  The hybrid
 and ssm families on a mesh wait for A11 too: they raise under a model
-axis of more than one rank, and the moe family under any mesh of more than
-one rank (``require_mesh_ported``).
+axis of more than one rank, and the moe, vlm and encdec families under any
+mesh of more than one rank (``require_mesh_ported``).
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -68,7 +71,7 @@ from repro_torch.api import context as context_lib
 from repro_torch.api import dispatch
 from repro_torch.api import spmd as spmd_lib
 from repro_torch.models import blocks, mamba2, moe, xlstm
-from repro_torch.models.config import ModelConfig, require_ported
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import (
     ParamDef,
     Tree,
@@ -101,7 +104,7 @@ def block_defs(cfg: ModelConfig, kind: str) -> Tree:
     if kind in _RECURRENT:
         return {"ln1": blocks.norm_defs(cfg), kind: _RECURRENT[kind][0](cfg)}
     if kind not in ("dense", "moe", "shared_attn"):
-        require_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     defs: Tree = {
         "ln1": blocks.norm_defs(cfg),
         "attn": blocks.attention_defs(cfg),
@@ -167,6 +170,14 @@ def layers(tree: Tree) -> list[Tree]:
     split = map_leaves(lambda a: a.unbind(0), tree)
     count = len(next(iter(leaves(split)))[1])
     return [map_leaves(lambda parts: parts[i], split) for i in range(count)]
+
+
+def apply_layer(cfg: ModelConfig, body, *args):
+    """``body(*args)``, one layer: under ``checkpoint`` (non-reentrant) when
+    ``cfg.remat`` and autograd records, else a plain call."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
 
 
 def stage_layers(params: Tree, i: int, kind: str) -> list[Tree]:
@@ -248,16 +259,17 @@ def vocab_parallel(cfg: ModelConfig):
 
 def require_mesh_ported(cfg: ModelConfig, axis_sizes) -> None:
     """Raise for a hybrid or ssm config on a mesh ({axis: ranks}) whose
-    model axis has more than one rank, and for a moe config on any mesh of
-    more than one rank: those families on a mesh are ROADMAP A11.  An MoE
-    layer ranks capacity over the global token set, and a data-parallel
-    mesh would rank over each rank's tokens."""
+    model axis has more than one rank, and for a moe, vlm or encdec config
+    on any mesh of more than one rank: those families on a mesh are ROADMAP
+    A11.  An MoE layer ranks capacity over the global token set, and a
+    data-parallel mesh would rank over each rank's tokens; the batch's
+    image embeddings and audio frames are not cut into a rank's rows, and
+    the encoder-decoder's embedding and head are not vocab-parallel."""
     ranks = math.prod(int(n) for n in axis_sizes.values())
-    if cfg.family == "moe" and ranks > 1:
+    if cfg.family in ("moe", "vlm", "encdec") and ranks > 1:
         raise NotImplementedError(
-            f"{cfg.name}: the moe family on a mesh of {ranks} ranks is not "
-            f"ported (ROADMAP A11): capacity ranks over the global token "
-            f"set")
+            f"{cfg.name}: the {cfg.family} family on a mesh of {ranks} "
+            f"ranks is not ported (ROADMAP A11)")
     if (cfg.family in ("hybrid", "ssm")
             and int(axis_sizes.get("model", 1)) > 1):
         raise NotImplementedError(
@@ -333,16 +345,18 @@ def unembed(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
             prefix_embeds: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits, aux_loss).  ``prefix_embeds`` (the VLM stub) waits
-    for the VLM family."""
-    if prefix_embeds is not None:
-        require_ported("vlm", cfg.name)
+    """Returns (logits, aux_loss).  ``prefix_embeds`` (B, P, d), the VLM
+    stub's image embeddings, are cast to the activation dtype and run
+    before the embedded tokens, at positions 0..P-1 (the text at P..P+S-1);
+    their logits are dropped after the head, so the logits are the text's
+    (B, S, V)."""
     x = embed_tokens(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     h0 = x
-    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (kind, count) in enumerate(cfg.stages()):
         if kind == "shared_attn":
@@ -350,14 +364,14 @@ def forward(params: Tree, tokens: torch.Tensor, cfg: ModelConfig,
         else:
             stage = [(lp, None) for lp in stage_layers(params, i, kind)]
         for lp, h in stage:
-            if remat:
-                x, a = checkpoint(_apply_block, kind, lp, x, cfg, positions,
-                                  h, use_reentrant=False)
-            else:
-                x, a = _apply_block(kind, lp, x, cfg, positions, h)
+            x, a = apply_layer(cfg, _apply_block, kind, lp, x, cfg,
+                               positions, h)
             if a is not None:
                 aux = aux + a
-    return unembed(params, x, cfg), aux
+    logits = unembed(params, x, cfg)
+    if prefix_embeds is not None:
+        logits = logits[:, prefix_embeds.shape[1]:]
+    return logits, aux
 
 
 def _xent_ref(logits: torch.Tensor, labels: torch.Tensor,

@@ -185,9 +185,19 @@ def init_train_state(model, opt_cfg: adamw.AdamWConfig, seed: int = 0, *,
 
 def make_prefill_step(model) -> Callable:
     """Inference prefill: full forward; returns the fp32 logits of the last
-    position (the serving handoff)."""
+    position (the serving handoff).  An encdec model reads the batch's
+    ``frames``, a vlm model its ``img_embeds`` when there are any."""
+    family = model.cfg.family
+
     def prefill_step(params: dict, batch: dict) -> torch.Tensor:
-        logits, _ = model.forward(params, batch["tokens"])
+        if family == "encdec":
+            logits, _ = model.forward(params, batch["tokens"],
+                                      batch["frames"])
+        elif family == "vlm":
+            logits, _ = model.forward(params, batch["tokens"],
+                                      batch.get("img_embeds"))
+        else:
+            logits, _ = model.forward(params, batch["tokens"])
         return logits[:, -1, :]
 
     return prefill_step

@@ -36,6 +36,10 @@ Decisions of the port:
     ``torch.inference_mode()``.
   * **Device.**  The cache is made on ``device`` (CUDA unless named), which
     must be where the parameters are.
+  * **No encoder-decoder.**  An encdec model raises: the reference's
+    batcher never calls ``prefill_cross``, so it would decode against
+    all-zero cross K/V (dense) or fail on the missing ``paged_cache_defs``
+    (ROADMAP §C); ``launch.serve`` serves it as a static batch.
   * **No event bus.**  The reference's ``obs.emit`` calls are left out until
     the port has one (ROADMAP A7); preemptions are kept in
     ``preemption_log`` and a pool shrink is logged.
@@ -127,6 +131,13 @@ class ContinuousBatcher:
         if kv_cache not in ("dense", "paged"):
             raise ValueError(f"kv_cache must be 'dense' or 'paged', "
                              f"got {kv_cache!r}")
+        cfg = getattr(model, "cfg", None)
+        if getattr(cfg, "family", None) == "encdec":
+            raise ValueError(
+                f"{cfg.name}: the continuous batcher does not serve an "
+                f"encoder-decoder (it never fills the cross K/V); serve it "
+                f"on the static-batch path of launch.serve (prefill_cross, "
+                f"then make_decode_step)")
         self.device = resolve_device(device)
         pdev = _first_device(params)
         if pdev is not None:
@@ -141,7 +152,6 @@ class ContinuousBatcher:
         self.eos_id = eos_id
         self.kv_cache = kv_cache
         self.prefill_chunk = max(1, int(prefill_chunk))
-        cfg = getattr(model, "cfg", None)
         self._d_model = int(getattr(cfg, "d_model", 0))
         self._adtype = getattr(cfg, "adtype", torch.float32)
         self.decode_plan = self._batch_plan(slots)

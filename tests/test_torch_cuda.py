@@ -506,7 +506,8 @@ def test_rmsnorm_on_fp32_rows_with_the_bf16_scale_in_fp32(rows):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2-0.5b", "zamba2-1.2b",
-                                  "xlstm-1.3b", "qwen3-moe-30b-a3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b",
+                                  "pixtral-12b"])
 def test_reduced_serving_paged_equals_dense(arch):
     # the reduced configs run in fp32: full-precision matmuls (the default)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -613,6 +614,33 @@ def test_xent_kernel_matches_plain(t, v, lv, dtype):
         xkernel.plain(ragged.cpu(), lab.cpu(), lv).mean().cuda(), **XENT)
 
 
+@pytest.mark.parametrize("dtype,padded", [(torch.float32, 51868),
+                                          (torch.bfloat16, 51872)])
+def test_xent_at_a_vocab_that_needs_the_pad(dtype, padded):
+    """whisper-tiny's vocab, 51,865, is no whole number of 16-B vectors:
+    ``api.launch("xent")`` pads the logits with zero columns into one copy
+    of the planned width (masked by the logical vocab) and launches B11
+    once; the mean NLL agrees with the plain version on the unpadded
+    logits, and the kernel's NLL on the padded copy with the plain NLL."""
+    import torch.nn.functional as F
+
+    t, v = 64, 51865
+    plan = api.plan_for("xent", (t, v), dtype)
+    assert plan.padded_shape == (t, padded)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = (3 * torch.randn(t, v, generator=gen, device="cuda")).to(dtype)
+    labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[0], labels[-1] = 0, v - 1
+    want = xkernel.plain(x, labels, v)
+    before = xkernel.LAUNCHES["xent"]
+    loss = api.launch("xent", x, labels)
+    assert xkernel.LAUNCHES["xent"] == before + 1
+    torch.testing.assert_close(loss, want.mean(), **XENT)
+    got = xkernel.xent_nll(F.pad(x, (0, padded - v)), labels, logical_v=v)
+    torch.testing.assert_close(got, want, **XENT)
+
+
 def test_xent_launch_hands_the_callers_logits_to_the_kernel(monkeypatch):
     """(T, 151936) fp32 logits are whole float4 rows: the plan does not pad
     them, and the kernel reads the caller's storage (no copy)."""
@@ -672,7 +700,8 @@ def test_xent_grad_on_the_card_matches_the_cpu(dtype):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-4b", "zamba2-1.2b",
-                                  "xlstm-1.3b", "qwen3-moe-30b-a3b"])
+                                  "xlstm-1.3b", "qwen3-moe-30b-a3b",
+                                  "pixtral-12b", "whisper-tiny"])
 def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     """Loss and every gradient leaf of a reduced fp32 model: the card
     (B9/B11 kernels, and the hybrid's and the xlstm's B10, under their
@@ -680,7 +709,9 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     Every leaf must get a nonzero gradient: a kernel output without
     autograd history would drop the norms'.  The hybrid and the xlstm run
     300 tokens a row, across a chunk boundary of the SSD and past the
-    length where the reference's mLSTM gradient is NaN."""
+    length where the reference's mLSTM gradient is NaN.  The vlm's batch
+    carries its 8 image embeddings, the encdec's its 16 frames (its norms
+    are LayerNorm, plain torch: B11 is its one kernel)."""
     import dataclasses
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -692,7 +723,10 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
 
     recurrent = cfg.family in ("hybrid", "ssm")
     data = DataConfig(vocab_size=cfg.vocab_size,
-                      seq_len=300 if recurrent else 16, global_batch=4)
+                      seq_len=300 if recurrent else 16, global_batch=4,
+                      n_img_tokens=cfg.n_img_tokens,
+                      n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
+                      d_model=cfg.d_model)
     before = (rkernel.LAUNCHES["plain"], xkernel.LAUNCHES["xent"],
               rkernel.LAUNCHES["gated"])
     loss, grads = steps.value_and_grad(model, card, make_batch(data, 0))
@@ -702,6 +736,8 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
     plain, gated = 2 * cfg.n_layers + 1, cfg.n_layers
     if cfg.family == "ssm":
         plain, gated = cfg.n_layers + stages["slstm"] + 1, stages["mlstm"]
+    if cfg.family == "encdec":
+        plain = 0
     assert rkernel.LAUNCHES["plain"] - before[0] >= plain
     assert xkernel.LAUNCHES["xent"] == before[1] + 1
     if recurrent:
@@ -717,6 +753,42 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(arch):
         scale = float(w.abs().max())
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-2 * scale,
                                    msg=lambda m, p=path: f"{p}: {m}")
+
+
+def test_whisper_static_decode_matches_its_forward_on_the_card():
+    """The reduced fp32 whisper-tiny on the card: ``launch.serve``'s
+    static path's decode steps (``prefill_cross``, then one token a step)
+    against the forward of the same tokens within the reference's
+    decode-consistency 2e-3, at 16 frames and at 300 (non-causal chunked
+    attention in the encoder and the cross attention); the greedy tokens
+    of ``serve_static`` twice equal."""
+    from repro_torch.launch.serve import serve_static, static_inputs
+    from repro_torch.models.params import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for n_frames in (16, 300):
+        cfg = dataclasses.replace(
+            reduce_for_smoke(get_config("whisper-tiny")), n_frames=n_frames)
+        model = build_model(cfg)
+        params = model.init(0)
+        frames, prompts = static_inputs(cfg, 2, 12, 0)
+        frames = torch.from_numpy(frames).cuda()
+        tokens = torch.from_numpy(prompts).cuda()
+        with torch.inference_mode():
+            fwd, _ = model(params, tokens, frames)
+            cache = init_params(0, model.cache_defs(2, 12), device="cuda")
+            cache["cross_k"], cache["cross_v"] = model.prefill_cross(params,
+                                                                     frames)
+            outs = []
+            for i in range(12):
+                lg, cache = model.decode_step(params, cache,
+                                              tokens[:, i:i + 1])
+                outs.append(lg)
+        assert float((torch.cat(outs, 1) - fwd).abs().max()) < 2e-3
+        first = serve_static(model, params, frames, tokens[:, :4], 8)
+        assert first.shape == (2, 8)
+        assert torch.equal(first, serve_static(model, params, frames,
+                                               tokens[:, :4], 8))
 
 
 @pytest.mark.parametrize("t,width,vl,off,lv", [

@@ -49,7 +49,7 @@ from repro_torch.core import sharding_skew as skew
 from repro_torch.interop import numpy_params
 from repro_torch.models import build_model, moe, transformer
 from repro_torch.models import params as params_lib
-from repro_torch.models.config import PORTED_FAMILIES
+from repro_torch.models.config import FAMILIES
 from repro_torch.models.params import ParamDef, init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
@@ -161,7 +161,7 @@ def one_thread():
 
 @pytest.mark.parametrize("arch", [ARCH, GROK])
 def test_configs_stages_and_trees_match_the_reference(arch):
-    assert "moe" in PORTED_FAMILIES
+    assert "moe" in FAMILIES
     full, jfull = get_config(arch), jget_config(arch)
     for f in dataclasses.fields(full):
         assert getattr(full, f.name) == getattr(jfull, f.name), f.name
