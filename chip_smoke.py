@@ -174,8 +174,11 @@ Phases, each fatal on failure:
      bf16 ulps of the largest logit, with ``serve:`` and ``profile:``
      lines; ``Trainer`` runs 8 steps at batch 8 x 448
      tokens (bf16, fp32 master, remat), fatal unless every loss is finite,
-     the held-out loss falls and B11 ran once a step (on the logits padded
-     from 51865 to 51868 columns); and the reduced fp32 pixtral (8 image
+     the held-out loss falls and B11 ran once a step, reading the (3584,
+     51865) logits in place (the pointer it gets in the profiled step
+     and its warm-up is the logits' ``data_ptr``, and a step traced with
+     its shapes pads no tensor of the vocab's width); and the reduced fp32
+     pixtral (8 image
      embeddings) and whisper (2 + 4 layers, 16 frames) train steps on the
      card (B9 and B11 under their autograd Functions, remat on) against
      the CPU, loss rtol 1e-5, each leaf within 1e-4 of its scale;
@@ -185,8 +188,9 @@ Phases, each fatal on failure:
      on fp32 rows at (8, 2048) and (2048, 2048); and at qwen3-moe-30b-a3b's
      ln1 and ln2: B9 at (8, 2048) and (2048, 2048) bf16; at pixtral-12b's
      norms: B9 at (8, 5120) and (6144, 5120) bf16; at whisper-tiny's loss:
-     B11 at (3584, 51865) fp32 padded to 51868 columns, the pad timed
-     apart), with the tolerance stated;
+     B11 at (3584, 51865) fp32 and bf16 on the unpadded logits; at
+     minicpm-2b's vocab: B11 at (2048, 122753) fp32; B11 and B12 on views
+     at storage offset 1), with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
      function, beside the least time the card could take (``bound_ms``),
@@ -213,6 +217,7 @@ reports them, the ``kernels`` JSON object and
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -308,6 +313,9 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 # crosses a rounding boundary then moves by one bf16 ulp
 REPLAY_RTOL = 1e-3
 XENT_RAGGED = (1000, 32_008, 32_000)   # (tokens, width, logical vocab) bf16
+# B11 at minicpm-2b's vocab, no whole number of 16-B vectors a row:
+# (tokens, width, logical vocab) fp32
+XENT_MINICPM = (2048, 122_753, 122_753)
 # vocab-parallel training on two ranks of the one card
 SPMD_MESH, SPMD_STEPS, SPMD_CKPT_EVERY = "1x2", 4, 2
 SPMD_DIR = ROOT / "build" / "chip_smoke_spmd"
@@ -462,6 +470,51 @@ def device_profile(label: str, fn, top: int = 6) -> None:
           + "; ".join(f"{e.key[:48]} {e.device_time_total / 1e3:.3f} ms "
                       f"x{e.count}" for e in rows[:top]))
     return wall, busy
+
+
+@contextlib.contextmanager
+def xent_pointers():
+    """Yield (handed, received), filled while the block runs: the
+    ``data_ptr`` of every logits tensor handed to ``dispatch.launch("xent")``
+    and every logits pointer B11's C entry ``xent_launch`` received, in
+    order."""
+    from repro_torch.api import dispatch
+    from repro_torch.kernels.xent import kernel as xent_kernel
+
+    launch, entry = dispatch.launch, xent_kernel._entry
+    lib, c_fn = entry()
+    handed, received = [], []
+
+    def spy_launch(kernel, *tensors, **kw):
+        if kernel == "xent":
+            handed.append(tensors[0].data_ptr())
+        return launch(kernel, *tensors, **kw)
+
+    def spy_entry(*args):
+        received.append(args[2])
+        return c_fn(*args)
+
+    dispatch.launch = spy_launch
+    xent_kernel._entry = lambda: (lib, spy_entry)
+    try:
+        yield handed, received
+    finally:
+        dispatch.launch, xent_kernel._entry = launch, entry
+
+
+def pad_inputs(fn) -> list[list[int]]:
+    """Run ``fn`` once under torch.profiler with shapes recorded; return
+    the input shape of every ``aten::constant_pad_nd`` or ``aten::pad``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [list(e.input_shapes[0]) if e.input_shapes else []
+            for e in prof.events()
+            if e.name in ("aten::constant_pad_nd", "aten::pad")]
 
 
 def check_close(what: str, got, want, rtol: float, atol: float) -> float:
@@ -1424,9 +1477,9 @@ def multimodal_phase() -> dict[str, int]:
     tensors) paged and dense, one profiled decode tick.  whisper-tiny: its
     fp32 forward on the card against the CPU and its decode against its
     forward, a static batch served through ``launch.serve``'s encdec path
-    twice, training through ``Trainer`` (B11 a step over the padded
-    vocab).  Then the reduced vlm and encdec train steps on the card
-    against the CPU.  Each counter is zeroed just before a run and read
+    twice, training through ``Trainer`` (B11 a step, reading the loss's
+    logits in place).  Then the reduced vlm and encdec train steps on the
+    card against the CPU.  Each counter is zeroed just before a run and read
     just after; returns the launches of each kernel over the phase."""
     import dataclasses
     import gc
@@ -1434,7 +1487,7 @@ def multimodal_phase() -> dict[str, int]:
 
     import torch
 
-    from repro_torch import api, interop
+    from repro_torch import interop
     from repro_torch.configs import get_config, get_schedule, reduce_for_smoke
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.interop import numpy_params
@@ -1717,13 +1770,12 @@ def multimodal_phase() -> dict[str, int]:
     del cache, ck, cv, fwd, outs, served_out, frames, prompts, tick, decode
 
     # training at full width: bf16 with an fp32 master, remat; B11 once a
-    # step over the (tokens, vocab) logits padded to whole 16-B vectors
+    # step over the (tokens, vocab) logits, read where they lie
     shutil.rmtree(MULTIMODAL_DIR, ignore_errors=True)
     data = DataConfig(vocab_size=wfull.vocab_size, seq_len=ENCDEC_TRAIN_SEQ,
                       global_batch=ENCDEC_TRAIN_BATCH,
                       n_frames=wfull.n_frames, d_model=wfull.d_model)
     n_rows = ENCDEC_TRAIN_SEQ * ENCDEC_TRAIN_BATCH
-    plan = api.plan_for("xent", (n_rows, wfull.vocab_size), torch.float32)
     held_out = make_batch(data, ENCDEC_TRAIN_STEPS)
     with torch.no_grad():
         before = float(wmodel.loss(wparams, held_out))
@@ -1765,12 +1817,31 @@ def multimodal_phase() -> dict[str, int]:
           f"{n_rows / step_ms * 1e3:.0f} tokens/s, peak memory "
           f"{peak / 2**30:.2f} GiB; xent launches {xent} "
           f"({xent // ENCDEC_TRAIN_STEPS} a step) on ({n_rows}, "
-          f"{wfull.vocab_size}) "
-          f"fp32 logits padded to {plan.padded_shape}, rmsnorm {rms}")
+          f"{wfull.vocab_size}) fp32 logits, rmsnorm {rms}")
     state = run.state
     batch = make_batch(data, ENCDEC_TRAIN_STEPS)
-    device_profile(f"train step {ENCDEC_ARCH} {n_rows} tokens",
-                   lambda: run.step_fn(state, batch), top=8)
+    # B11 reads the loss's own logits: in the profile's warm-up step and
+    # its profiled one, the pointer xent_launch gets is the data_ptr of the
+    # logits the model hands the loss, once a step; and a step pads no
+    # tensor of the vocab's width
+    with xent_pointers() as (handed, received):
+        device_profile(f"train step {ENCDEC_ARCH} {n_rows} tokens",
+                       lambda: run.step_fn(state, batch), top=8)
+    if len(received) != 2 or received != handed:
+        fail(f"train {ENCDEC_ARCH}: over two steps xent_launch got logits "
+             f"pointers {[hex(p) for p in received]}, the loss was handed "
+             f"{[hex(p) for p in handed]} (want the same one, once a step)")
+    pads = pad_inputs(lambda: run.step_fn(state, batch))
+    vocab_pads = [p for p in pads if p[-1:] == [wfull.vocab_size]]
+    if vocab_pads:
+        fail(f"train {ENCDEC_ARCH}: the step pads tensors of the vocab's "
+             f"width {vocab_pads}")
+    print(f"train: {ENCDEC_ARCH} B11 reads the loss's logits in place: "
+          f"xent_launch got {[hex(p) for p in received]} over two steps, "
+          f"the data_ptr of the ({n_rows}, {wfull.vocab_size}) logits the "
+          f"loss was handed each step; a step runs {len(pads)} pads (input "
+          f"shapes {sorted(set(map(tuple, pads)))}), none of the vocab's "
+          f"width: ok")
     run.ckpt.wait()
     del run, state, batch, held_out, wmodel
     shutil.rmtree(MULTIMODAL_DIR, ignore_errors=True)
@@ -2470,7 +2541,7 @@ def main() -> int:
     from repro_torch.core.layout import hopper_limits
     from repro_torch.core.segmented import SegmentedArray
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
-    from repro_torch.kernels.util import to_tiles
+    from repro_torch.kernels.util import at_storage_offset, to_tiles
     from repro_torch.kernels.xent import kernel as xent_kernel
 
     # Full fp32 in the library yardstick's convolution (cuDNN would take
@@ -2788,13 +2859,15 @@ def main() -> int:
     cases["rmsnorm.prefill.pixtral"] = rms_case(
         (PREFILL_B * (1024 + VLM_PREFILL_S), 5120), torch.bfloat16, False,
         25)
-    def xent_case(t, v, logical_v, dtype, seed):
+    def xent_case(t, v, logical_v, dtype, seed, offset=0):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
         calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the
-        first ``logical_v`` columns, labels in [0, logical_v)."""
+        first ``logical_v`` columns, labels in [0, logical_v), read where
+        they lie (at any width, and at storage offset ``offset``)."""
         plan = api.plan_for("xent", (t, v), dtype)
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        x = (3 * torch.randn((t, v), generator=gen, device="cuda")).to(dtype)
+        x = at_storage_offset((3 * torch.randn(
+            (t, v), generator=gen, device="cuda")).to(dtype), offset)
         labels = torch.randint(0, logical_v, (t,), generator=gen,
                                device="cuda", dtype=torch.int32)
         labels64 = labels.to(torch.int64)
@@ -2817,42 +2890,28 @@ def main() -> int:
     cases["xent"] = xent_case(TRAIN_SEQ * TRAIN_BATCH, 151936, 151936,
                               torch.float32, 13)
     cases["xent.ragged.bf16"] = xent_case(*XENT_RAGGED, torch.bfloat16, 14)
+    # B11 at whisper-tiny's training shape (phase 3h) on the caller's
+    # unpadded logits, rows of no whole number of 16-B vectors, in fp32 (its
+    # loss) and bf16; at minicpm-2b's vocab; and on a view at storage
+    # offset 1
+    n_whisper = ENCDEC_TRAIN_SEQ * ENCDEC_TRAIN_BATCH
+    cases["xent.whisper"] = xent_case(n_whisper, 51865, 51865, torch.float32,
+                                      26)
+    cases["xent.whisper.bf16"] = xent_case(n_whisper, 51865, 51865,
+                                           torch.bfloat16, 27)
+    cases["xent.minicpm"] = xent_case(*XENT_MINICPM, torch.float32, 28)
+    cases["xent.offset"] = xent_case(n_whisper, 51865, 51865, torch.float32,
+                                     29, offset=1)
 
-    def xent_padded_case(t, v, seed):
-        """B11 at whisper-tiny's training shape (phase 3h): (t, v) fp32
-        logits whose rows are no whole number of 16-B vectors, padded with
-        zero columns to the plan's width as ``_launch_xent`` pads them,
-        masked at v; the library call computes the same loss on the
-        unpadded logits, and the pad is timed apart."""
-        plan = api.plan_for("xent", (t, v), torch.float32)
-        vp = plan.padded_shape[1]
-        gen = torch.Generator(device="cuda").manual_seed(seed)
-        x = 3 * torch.randn((t, v), generator=gen, device="cuda")
-        xp = F.pad(x, (0, vp - v))
-        labels = torch.randint(0, v, (t,), generator=gen, device="cuda",
-                               dtype=torch.int32)
-        labels64 = labels.to(torch.int64)
-        return dict(
-            kernel=lambda: xent_kernel.xent_nll(xp, labels, logical_v=v,
-                                                brows=plan.block_rows),
-            plain=lambda: xent_kernel.plain(xp, labels, v),
-            exact=False, dtype=torch.float32, tol=(1e-5, 1e-5),
-            bytes=t * vp * 4 + 8 * t, ops=4 * t * v,
-            library=lambda: F.cross_entropy(x, labels64),
-            pad=lambda: F.pad(x, (0, vp - v)), pad_bytes=t * (v + vp) * 4,
-            shape=f"({t}, {v}) padded to ({t}, {vp})")
-
-    cases["xent.whisper"] = xent_padded_case(
-        ENCDEC_TRAIN_SEQ * ENCDEC_TRAIN_BATCH, 51865, 26)
-
-    def xent_partial_case(t, width, vl, off, lv, dtype, seed):
+    def xent_partial_case(t, width, vl, off, lv, dtype, seed, offset=0):
         """B12 at a vocab shard of the mesh path, through the wrapper as
         ``_spmd_xent`` calls it: (m, l, ll) of (t, width) logits (3 x N(0,
-        1)) at global offset ``off``, labels anywhere in [0, lv)."""
+        1)) at global offset ``off``, labels anywhere in [0, lv), read
+        where they lie (at storage offset ``offset``)."""
         plan = api.plan_for("xent", (t, vl), dtype, local=True)
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        x = (3 * torch.randn((t, width), generator=gen, device="cuda")).to(
-            dtype)
+        x = at_storage_offset((3 * torch.randn(
+            (t, width), generator=gen, device="cuda")).to(dtype), offset)
         labels = torch.randint(0, lv, (t,), generator=gen, device="cuda",
                                dtype=torch.int32)
 
@@ -2883,6 +2942,9 @@ def main() -> int:
         torch.float32, 15)
     cases["xent.partial.ragged.bf16"] = xent_partial_case(
         *XENT_PARTIAL_RAGGED, torch.bfloat16, 16)
+    cases["xent.partial.offset"] = xent_partial_case(
+        TRAIN_SEQ * TRAIN_BATCH, vshard, vshard, vshard, 151936,
+        torch.float32, 30, offset=1)
     jplan = api.plan_for("jacobi", (GRID - 2, GRID), torch.float32)
     jsrc = jacobi_ops.pitched(grid, jplan)
     jdst = torch.empty_like(jsrc)
@@ -2943,9 +3005,9 @@ def main() -> int:
         }
         t = times[name]
         base = name.removesuffix(".zamba2").removesuffix(".bf16")
-        base = base.removesuffix(".fp32")
-        base = base.replace(".prefill", "").replace("partial.ragged",
-                                                    "partial")
+        base = base.removesuffix(".fp32").replace(".prefill", "")
+        if base.startswith("xent.partial"):
+            base = "xent.partial"
         if "nearest" in case:
             lib = (f"none; nearest {time_ms(case['nearest']):.4f} ms "
                    f"({NEAREST[base]})")
@@ -2959,17 +3021,6 @@ def main() -> int:
               f"bound {t['bound_ms']:.4g} ms ({t['bound_by']}), "
               f"{ratio}, {t['bound_ms'] / t['ms']:.1%} of bound, "
               f"{case['bytes'] / t['ms'] / 1e6:.1f} GB/s effective")
-
-    # the pad in front of B11 at whisper's vocab: the (T, V) logits read
-    # and the (T, V + 3) copy written
-    case = cases["xent.whisper"]
-    pad_ms = time_ms(case["pad"])
-    pad_bound = case["pad_bytes"] / bw * 1e3
-    print(f"time: xent.whisper pad (F.pad, {case['shape']} fp32): "
-          f"{pad_ms:.4f} ms, bound {pad_bound:.4g} ms (bytes, "
-          f"{case['pad_bytes']} B), {pad_bound / pad_ms:.1%} of bound; the "
-          f"kernel on the padded rows {times['xent.whisper']['ms']:.4f} ms, "
-          f"pad + kernel {pad_ms + times['xent.whisper']['ms']:.4f} ms")
 
     # the host's cost of one call: what a decode step pays 73 times
     for name in ("rmsnorm", "rmsnorm.prefill", "rmsnorm.gated"):

@@ -21,9 +21,11 @@ Plans are memoized in a process-level cache keyed on
 Under a mesh (``api.plan_context(mesh=)``) a *global* plan widens the minor
 dim so every model-axis shard keeps whole 16-B vectors, and a *local* plan
 (``local=True``: one rank's shard under the SPMD path) pads to the plain
-vector width, since a shard has no shard boundary inside it.  A local plan
-also prices the collectives of its launch (``predicted_comm_bytes``, the
-ring cost model of ``COMM_MODEL``).
+vector width, since a shard has no shard boundary inside it.  A
+column-tiled plan, whose kernel reads rows of any width, pads nothing on
+one device or in a local plan, and a global one only to equal shards.  A
+local plan also prices the collectives of its launch
+(``predicted_comm_bytes``, the ring cost model of ``COMM_MODEL``).
 """
 from __future__ import annotations
 
@@ -215,7 +217,9 @@ class KernelPlan:
     layout: LayoutPlan
     naive_balance: float
     # Minor-dim unit the width is a multiple of: the dtype's vector unit,
-    # or the fp32 unit when the narrow-dtype rule took the fp32 geometry.
+    # or the fp32 unit when the narrow-dtype rule took the fp32 geometry;
+    # 1 (one element) for a column-tiled family, whose kernel reads rows of
+    # any width.
     minor_unit: int = 128
     # ((axis, size), ...) of the mesh the plan was made under; () for one
     # device.
@@ -318,7 +322,10 @@ class KernelPlan:
         return (
             f"plan[{self.kernel}] logical={self.logical_shape} {self.dtype}"
             f" -> physical {self.padded_shape}, block {block}, grid {grid},"
-            f" minor unit {self.minor_unit}\n"
+            f" minor unit {self.minor_unit}"
+            + (" (column-tiled: the kernel reads rows of any width in"
+               " place)" if self.kernel in COL_TILED else "")
+            + "\n"
             f"  streams: {sig.n_read}R+{sig.n_write}W x {sig.elem_bytes}B"
             f"  align={self.layout.align_bytes}B"
             f" offsets={self.layout.offsets_bytes}B"
@@ -469,7 +476,7 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
         padded, block = _plan_lbm(kernel, shape, unit)
     elif kernel in COL_TILED:
         padded, block = _plan_col_tiled(kernel, shape, size, sms, tp)
-        unit = VEC_BYTES // size
+        unit = 1
     elif len(shape) == 1:
         padded, block = _plan_1d(shape[0], size, unit, n_buffers, budget, sms)
     elif len(shape) == 2:
@@ -496,8 +503,8 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
     # 128 multiple can pad more bytes at bf16.  The fp32 geometry is legal
     # at bf16 (128 bf16 elements = 256 B keeps every row 16-B aligned) and
     # costs exactly itemsize/4 of the fp32 padding bytes, so take the
-    # cheaper of the two.  A column-tiled plan pads under one 16-B vector a
-    # row at every dtype, and the fp32 geometry is not 16-B aligned at bf16.
+    # cheaper of the two.  A column-tiled plan pads nothing on one device
+    # (its kernel reads any width), so the rule has nothing to save there.
     if size < 4 and kernel not in COL_TILED:
         f32 = plan_kernel(kernel, shape, torch.float32, mesh=mesh_key,
                           model=model, smem_budget=budget, sm_count=sms,
@@ -615,12 +622,13 @@ def _plan_col_tiled(kernel: str, shape: tuple[int, ...], size: int,
     """(rows, cols) online-softmax layout: a CTA owns whole rows and folds
     each in passes of its ``CTA_THREADS`` threads, one 16-B vector a thread.
 
-    * width: cols rounded up to whole 16-B vectors (4 fp32, 8 bf16), so
-      every row starts 16-B aligned; a width already a whole number of
-      vectors is not padded, and the caller's tensor reaches the kernel
-      without a copy.  Rows are not padded either: the kernel stops at the
-      last row.  Under a model axis of ``tp`` ranks the width pads to
-      ``tp`` whole vectors, so every vocab shard is whole vectors too.
+    * width: cols as they are, on one device and in a shard-local plan.
+      The kernel reads a row of any width in place (its ragged head and
+      tail by scalar loads, ``csrc/xent.cu``), so nothing is padded and
+      the caller's tensor reaches it without a copy; rows are not padded
+      either, the kernel stops at the last row.  A global plan under a
+      model axis of ``tp`` ranks rounds the width up to a multiple of
+      ``tp`` only, so that the vocab shards are equal.
     * block: (rows a CTA walks, the columns one pass covers).  A CTA holds
       one pass in flight whatever its row count, so no shared-memory budget
       bounds the rows; they are the fewest that stream
@@ -631,7 +639,7 @@ def _plan_col_tiled(kernel: str, shape: tuple[int, ...], size: int,
     if len(shape) != 2:
         raise ValueError(f"{kernel}: needs a (rows, cols) shape, got {shape}")
     rows, cols = max(int(shape[0]), 1), max(int(shape[1]), 1)
-    width = round_up(cols, (VEC_BYTES // size) * tp)
+    width = round_up(cols, tp)
     fill = rows // (CTAS_PER_SM * sms)
     want = cdiv(COL_TILED_CTA_BYTES, width * size)
     brows = max(1, min(want, fill, rows))

@@ -36,18 +36,50 @@
 // between CTAs, and no atomics are used, so the results are deterministic.
 //
 // Bound on this card: bytes.  The logits are read once (4 B an fp32
-// element) against about ten operations an element (a max, a subtract, an
-// exp, an add and the vector bookkeeping), far below the card's balance
-// point; the labels and the outputs are one word a row.
+// element, 2 B a bf16 one) against about ten operations an element (a
+// max, a subtract, an exp, an add and the vector bookkeeping), far below
+// the card's balance point; the labels and the outputs are one word a row.
 //
-// Design against that bound: each thread loads kUnroll 16-B vectors of the
-// row (float4 for fp32, 8 x bf16) before it folds any, so a CTA keeps
-// kUnroll x 4 KB of loads in flight and a warp moves whole 128-B lines.  A
-// thread keeps its own running (max, sum of exps) in registers, rescaling
-// its sum once a batch of vectors to the batch's new max.  At the end of a
-// row the CTA merges the threads' (m, l) pairs with warp shuffles, then
-// across warps through shared memory, each pair rescaled to the larger max.
-// One thread reads the label's logit once and writes the row's outputs.
+// Design against that bound: a thread loads one 16-B vector of the row a
+// batch (float4 for fp32, 8 x bf16), so a warp moves whole 128-B lines,
+// and keeps its own running (max, sum of exps) in registers, rescaling its
+// sum once a batch to the batch's new max.  The loads in flight come from
+// occupancy, not from depth per thread: at one vector a thread a batch the
+// kernel needs 32 registers a thread and eight CTAs share an SM, where
+// four vectors a thread took 48-72 and left three or four, and ran slower
+// at every shape timed on the H100 (PERF.md §6).  At the end of a row the
+// CTA merges the threads' (m, l) pairs with warp shuffles, then warp 0
+// merges the warps' pairs from shared memory the same way, each pair
+// rescaled to the larger max.  The thread that writes a row's outputs
+// loads the label's logit when the row starts, so that load's latency
+// hides behind the row's own loads.
+//
+// The exp of an element is __expf (ex2.approx of d log2 e), which the CUDA
+// Math API bounds by 2 + floor(1.173 |d|) ulp for d = x - max <= 0.  A
+// term's share of l is p = exp(d) / l, so the relative error of l is at
+// most sum(p (2 + 1.173 |d|)) ulp = (2 + 1.173 (H - log l)) ulp, H the
+// entropy of the row's softmax, at most log(width): 16 ulp, under 2e-6,
+// at 151,936 columns, whatever the logits' spread, so lse moves by under
+// 2e-6 (the plain version's tolerance is 1e-5).  The rescales between
+// batches and in the merges keep the exact expf.
+//
+// The ragged row.  A row starts at element r * width, so at a width that
+// is no whole number of 16-B vectors (whisper-tiny's 51,865 fp32 columns,
+// minicpm-2b's 122,753) most rows start off a 16-B boundary: at 51,865
+// fp32, 4 B aligned in three rows of four.  Each row is read in place as
+// three parts: the head, the elements before its first 16-B aligned
+// address (at most 3 fp32 or 7 bf16); the body, whole aligned 16-B vectors
+// loaded as above; and the tail, under one vector.  Head and tail are
+// scalar loads, one element to a thread (threads 0.. take the head, the
+// last threads of the CTA the tail), folded into that thread's running
+// (m, l) before the body's batches.  The column mask is taken on the
+// column index, so a limit inside the head or the tail masks correctly.
+// No load touches memory outside the tensor: the aligned vector that
+// straddles a row's end is never loaded, and the logits pointer need only
+// be aligned to its element size, so a view at any storage offset is read
+// in place too.  TMA does not serve here: a tensor map needs 16-B row
+// strides and a 1-D bulk copy 16-B aligned addresses and sizes, which an
+// odd-width row has neither of.
 
 #include "common.cuh"
 
@@ -55,7 +87,6 @@ namespace {
 
 using repro::Vec;
 
-constexpr int kUnroll = 4;            // 16-B vectors a thread loads per batch
 constexpr int kWarps = repro::kThreads / 32;
 constexpr float kMask = -1e30f;       // value of a masked column
 constexpr float kDead = -1e29f;       // at or below: contributes no exp
@@ -69,44 +100,50 @@ __device__ __forceinline__ void merge(float& m, float& l, float m_o, float l_o) 
   m = mn;
 }
 
-// Online (max, sum of exps) of one row of nvec 16-B vectors, columns at or
+// Online (max, sum of exps) of one row of `width` elements, columns at or
 // past `limit` masked.  Every thread of the CTA calls it; the row's (m, l)
-// lands in thread 0's (mt, lt).  sm[] and sl[] are the CTA's kWarps-entry
-// scratch; the caller syncs before reusing them.
+// lands in thread 0's (mt, lt).  sm[] and sl[] are kWarps-entry scratch
+// that no other thread reads or writes until every thread has passed this
+// call's barrier again (the callers alternate two of them by row).
 template <typename T>
-__device__ __forceinline__ void fold_row(const T* __restrict__ row, int64_t nvec, int64_t limit,
+__device__ __forceinline__ void fold_row(const T* __restrict__ row, int64_t width, int64_t limit,
                                          float* sm, float* sl, float& mt, float& lt) {
   constexpr int N = Vec<T>::N;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  // head: the elements before the row's first 16-B aligned address
+  const int64_t mis = static_cast<int64_t>(reinterpret_cast<uintptr_t>(row) & 15u) / sizeof(T);
+  const int64_t head = mis == 0 ? 0 : (N - mis < width ? N - mis : width);
+  const int64_t nvec = (width - head) / N;
+  const int64_t tail = width - head - nvec * N;
+  const T* body = row + head;
   float m = kMask, l = 0.f;
-  for (int64_t j0 = threadIdx.x; j0 < nvec; j0 += kUnroll * repro::kThreads) {
-    float v[kUnroll][N];
+  {
+    int64_t c = -1;
+    if (threadIdx.x < head)
+      c = threadIdx.x;
+    else if (threadIdx.x >= repro::kThreads - tail)
+      c = width - (repro::kThreads - threadIdx.x);
+    if (c >= 0) {
+      m = c < limit ? repro::widen(row[c]) : kMask;
+      l = m <= kDead ? 0.f : 1.f;
+    }
+  }
+  for (int64_t j = threadIdx.x; j < nvec; j += repro::kThreads) {
+    float v[N];
+    Vec<T>::load(body + j * N, v);
+    const int64_t c0 = head + j * N;
+    if (c0 + N > limit) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int64_t j = j0 + u * repro::kThreads;
-      if (j < nvec) {
-        Vec<T>::load(row + j * N, v[u]);
-        if ((j + 1) * N > limit) {
-#pragma unroll
-          for (int e = 0; e < N; ++e)
-            if (j * N + e >= limit) v[u][e] = kMask;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < N; ++e) v[u][e] = kMask;
-      }
+      for (int e = 0; e < N; ++e)
+        if (c0 + e >= limit) v[e] = kMask;
     }
     float bm = m;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int e = 0; e < N; ++e) bm = fmaxf(bm, v[u][e]);
+    for (int e = 0; e < N; ++e) bm = fmaxf(bm, v[e]);
     float s = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int e = 0; e < N; ++e) s += v[u][e] <= kDead ? 0.f : expf(v[u][e] - bm);
+    for (int e = 0; e < N; ++e) s += v[e] <= kDead ? 0.f : __expf(v[e] - bm);
     l = l * expf(m - bm) + s;
     m = bm;
   }
@@ -121,10 +158,17 @@ __device__ __forceinline__ void fold_row(const T* __restrict__ row, int64_t nvec
     sl[warp] = l;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    mt = sm[0];
-    lt = sl[0];
-    for (int w = 1; w < kWarps; ++w) merge(mt, lt, sm[w], sl[w]);
+  if (warp == 0) {
+    m = lane < kWarps ? sm[lane] : kMask;
+    l = lane < kWarps ? sl[lane] : 0.f;
+#pragma unroll
+    for (int o = kWarps / 2; o > 0; o >>= 1) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m, o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l, o);
+      merge(m, l, m_o, l_o);
+    }
+    mt = m;
+    lt = l;
   }
 }
 
@@ -133,22 +177,21 @@ __global__ void __launch_bounds__(repro::kThreads)
 xent_kernel(const T* __restrict__ logits, const int32_t* __restrict__ labels,
             float* __restrict__ nll, int64_t rows, int64_t width, int64_t brows,
             int64_t logical_v) {
-  __shared__ float sm[kWarps], sl[kWarps];
-  const int64_t nvec = width / Vec<T>::N;
+  __shared__ float sm[2][kWarps], sl[2][kWarps];
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * brows;
   const int64_t r1 = r0 + brows < rows ? r0 + brows : rows;
   for (int64_t r = r0; r < r1; ++r) {
     const T* row = logits + r * width;
-    float mt, lt;
-    fold_row(row, nvec, logical_v, sm, sl, mt, lt);
+    float ll = 0.f;
     if (threadIdx.x == 0) {
       const int64_t lab = labels[r];
-      float ll = 0.f;
       if (lab >= 0 && lab < width)
         ll = lab < logical_v ? repro::widen(row[lab]) : kMask;
-      nll[r] = (logf(fmaxf(lt, 1e-30f)) + mt) - ll;
     }
-    __syncthreads();   // sm[] and sl[] are reused by the next row
+    const int buf = (r - r0) & 1;
+    float mt = kMask, lt = 0.f;
+    fold_row(row, width, logical_v, sm[buf], sl[buf], mt, lt);
+    if (threadIdx.x == 0) nll[r] = (logf(fmaxf(lt, 1e-30f)) + mt) - ll;
   }
 }
 
@@ -158,30 +201,37 @@ xent_partial_kernel(const T* __restrict__ logits, const int32_t* __restrict__ la
                     float* __restrict__ m_out, float* __restrict__ l_out,
                     float* __restrict__ ll_out, int64_t rows, int64_t width, int64_t brows,
                     int64_t vl, int64_t off, int64_t logical_v) {
-  __shared__ float sm[kWarps], sl[kWarps];
-  const int64_t nvec = width / Vec<T>::N;
+  __shared__ float sm[2][kWarps], sl[2][kWarps];
   const int64_t limit = vl < logical_v - off ? vl : logical_v - off;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * brows;
   const int64_t r1 = r0 + brows < rows ? r0 + brows : rows;
   for (int64_t r = r0; r < r1; ++r) {
     const T* row = logits + r * width;
-    float mt, lt;
-    fold_row(row, nvec, limit, sm, sl, mt, lt);
+    float ll = 0.f;
     if (threadIdx.x == 0) {
       const int64_t col = static_cast<int64_t>(labels[r]) - off;
+      if (col >= 0 && col < limit) ll = repro::widen(row[col]);
+    }
+    const int buf = (r - r0) & 1;
+    float mt = kMask, lt = 0.f;
+    fold_row(row, width, limit, sm[buf], sl[buf], mt, lt);
+    if (threadIdx.x == 0) {
       m_out[r] = mt;
       l_out[r] = lt;
-      ll_out[r] = col >= 0 && col < limit ? repro::widen(row[col]) : 0.f;
+      ll_out[r] = ll;
     }
-    __syncthreads();   // sm[] and sl[] are reused by the next row
   }
+}
+
+template <typename T>
+bool element_aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % sizeof(T) == 0;
 }
 
 template <typename T>
 cudaError_t launch(const void* logits, const void* labels, void* nll, int64_t rows, int64_t width,
                    int64_t brows, int64_t logical_v, cudaStream_t stream) {
-  if (width % Vec<T>::N) return cudaErrorInvalidValue;
-  if (!repro::aligned16(logits)) return cudaErrorInvalidValue;
+  if (!element_aligned<T>(logits)) return cudaErrorInvalidValue;
   const int64_t grid = (rows + brows - 1) / brows;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
   xent_kernel<T><<<static_cast<unsigned>(grid), repro::kThreads, 0, stream>>>(
@@ -194,8 +244,7 @@ template <typename T>
 cudaError_t launch_partial(const void* logits, const void* labels, void* m, void* l, void* ll,
                            int64_t rows, int64_t width, int64_t brows, int64_t vl, int64_t off,
                            int64_t logical_v, cudaStream_t stream) {
-  if (width % Vec<T>::N) return cudaErrorInvalidValue;
-  if (!repro::aligned16(logits)) return cudaErrorInvalidValue;
+  if (!element_aligned<T>(logits)) return cudaErrorInvalidValue;
   const int64_t grid = (rows + brows - 1) / brows;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
   xent_partial_kernel<T><<<static_cast<unsigned>(grid), repro::kThreads, 0, stream>>>(
@@ -208,11 +257,11 @@ cudaError_t launch_partial(const void* logits, const void* labels, void* m, void
 }  // namespace
 
 // nll[r] = logsumexp(x[r, :logical_v]) - x[r, labels[r]] for contiguous
-// (rows, width) logits of `dtype` (fp32 or bf16), int32 labels and fp32 nll
-// of `rows` each; a CTA walks `brows` rows.  `logits` 16-B aligned, `width`
-// a whole number of 16-B vectors, 0 < logical_v <= width.  Runs on CUDA
-// device `device`, on `stream`.  Returns cudaGetLastError() after the
-// launch.
+// (rows, width) logits of `dtype` (fp32 or bf16) of any width, int32 labels
+// and fp32 nll of `rows` each; a CTA walks `brows` rows.  `logits` aligned
+// to its element size (any storage offset), 0 < logical_v <= width.  Runs
+// on CUDA device `device`, on `stream`.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int xent_launch(int device, int dtype, const void* logits, const void* labels,
                            void* nll, int64_t rows, int64_t width, int64_t brows,
                            int64_t logical_v, void* stream) {
@@ -233,13 +282,13 @@ extern "C" int xent_launch(int device, int dtype, const void* logits, const void
 }
 
 // (m, l, ll)[r]: the online-softmax partials of row r of one vocab shard,
-// contiguous (rows, width) logits of `dtype` (fp32 or bf16) whose local
-// column c is global column c + off; columns c >= vl or c + off >=
-// logical_v are masked; int32 global labels; fp32 m, l and ll of `rows`
-// each; a CTA walks `brows` rows.  `logits` 16-B aligned, `width` a whole
-// number of 16-B vectors, 0 < vl <= width, off >= 0, logical_v > 0.  Runs
-// on CUDA device `device`, on `stream`.  Returns cudaGetLastError() after
-// the launch.
+// contiguous (rows, width) logits of `dtype` (fp32 or bf16) of any width
+// whose local column c is global column c + off; columns c >= vl or c +
+// off >= logical_v are masked; int32 global labels; fp32 m, l and ll of
+// `rows` each; a CTA walks `brows` rows.  `logits` aligned to its element
+// size (any storage offset), 0 < vl <= width, off >= 0, logical_v > 0.
+// Runs on CUDA device `device`, on `stream`.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int xent_partial_launch(int device, int dtype, const void* logits,
                                    const void* labels, void* m, void* l, void* ll, int64_t rows,
                                    int64_t width, int64_t brows, int64_t vl, int64_t off,

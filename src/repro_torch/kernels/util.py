@@ -98,3 +98,15 @@ def refuse_autograd(kernel: str, function: str, *tensors) -> None:
             f"{kernel} kernel got an input that requires grad with grad mode "
             f"on; its output would have no gradient.  Call it through "
             f"{function}, or under torch.no_grad()")
+
+
+def at_storage_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` elements into a
+    fresh buffer, so that at a nonzero offset its base is no longer 16-B
+    aligned: the input that shows a kernel reads views in place."""
+    if not offset:
+        return x
+    base = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    view = base[offset:].view(x.shape)
+    view.copy_(x)
+    return view

@@ -6,15 +6,17 @@ with their plain versions.
 vocabulary, by online softmax over the row.
 
 On CUDA tensors it launches ``csrc/xent.cu`` and counts the launch in
-``LAUNCHES``; the kernel's output has no autograd history, so with grad mode
-on, logits that require grad raise (``models.transformer.XentFn``
-differentiates the loss).  On CPU tensors it returns the plain PyTorch
-version (``plain``), which computes what the TPU kernel computes: logits
-cast to fp32 before the padding columns are masked to -1e30, exps of masked
-values counted as 0, ``lse = log(max(l, 1e-30)) + m``, and the label's logit
-taken by the masked-sum rule (a label in the padding picks -1e30, one past
-the row picks 0).  The kernel sums in another order, so the two agree to a
-tolerance.
+``LAUNCHES``.  The kernel reads the logits where they lie: any width (a
+row need not be a whole number of 16-B vectors) and any storage offset,
+so a contiguous view is never copied.  The kernel's output has no autograd
+history, so with grad mode on, logits that require grad raise
+(``models.transformer.XentFn`` differentiates the loss).  On CPU tensors it
+returns the plain PyTorch version (``plain``), which computes what the TPU
+kernel computes: logits cast to fp32 before the padding columns are masked
+to -1e30, exps of masked values counted as 0, ``lse = log(max(l, 1e-30)) +
+m``, and the label's logit taken by the masked-sum rule (a label in the
+padding picks -1e30, one past the row picks 0).  The kernel sums in another order, with a faster exp
+(``__expf``), so the two agree to a tolerance.
 
 ``xent_partials(logits, labels, vl=, off=, logical_v=)``: the online-softmax
 partials ``(m, l, ll)`` of each row of one vocab shard (B12), whose local
@@ -123,9 +125,6 @@ def _check_cuda(logits: torch.Tensor) -> None:
     if logits.dtype not in DTYPES:
         raise TypeError(f"xent kernel supports {list(DTYPES)}, got "
                         f"{logits.dtype}")
-    if logits.shape[1] * logits.element_size() % 16:
-        raise ValueError(f"xent kernel needs rows of whole 16-B vectors, got "
-                         f"width {logits.shape[1]} of {logits.dtype}")
 
 
 def xent_nll(logits: torch.Tensor, labels: torch.Tensor, *, logical_v: int,

@@ -3,12 +3,13 @@ vocab-parallel shard body and its gradient.
 
 Counterpart of ``repro.kernels.xent.ops``.  ``api.launch("xent", logits,
 labels, logical_v=)`` returns the mean NLL over the (T,) tokens.  The plan
-is column-tiled (``core.planner._plan_col_tiled``): rows are never padded,
-and a vocab that is a whole number of 16-B vectors (151936 fp32 = 37984
-float4) is not padded either, so the caller's (T, V) logits reach the kernel
-as they are, with no copy.  ``xent_grad`` is the backward half: in the
-reference it is the jnp vjp of the plain math (not Pallas), and here it is
-plain PyTorch.
+is column-tiled (``core.planner._plan_col_tiled``) and pads nothing: the
+kernel reads rows of any width in place (``csrc/xent.cu``), so the caller's
+contiguous (T, V) logits reach it as they are, with no copy, at every
+vocab (whisper-tiny's 51,865 and minicpm-2b's 122,753 as well as
+151,936).  The plan gives the rows a CTA walks.  ``xent_grad`` is the
+backward half: in the reference it is the jnp vjp of the plain math (not
+Pallas), and here it is plain PyTorch.
 
 Under a mesh of ranks the loss is *vocab-parallel* (Megatron layout): the
 logits' vocab axis shards over the model axis, each rank folds its own
@@ -30,7 +31,6 @@ backward.  A vocab that does not split evenly stays whole on every rank
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.api import dispatch
 from repro_torch.api import spmd as spmd_lib
@@ -54,16 +54,11 @@ def _ref(logits, labels, *, logical_v: int = 0):
     return ref.xent(logits, labels, logical_v=lv).mean()
 
 
-def _xent_partial_padded(plan, logits, labels, off: int, *, vl: int,
+def _xent_shard_partials(plan, logits, labels, off: int, *, vl: int,
                          logical_v: int):
-    """Per-token (m, l, ll) partials of one vocab shard in the plan's
-    layout: the shard's columns padded with zeros to the planned width
-    (masked by ``vl``) only when they are not whole 16-B vectors."""
-    _, vp = plan.padded_shape
-    lg = logits.contiguous()
-    if vp != lg.shape[1]:
-        lg = F.pad(lg, (0, vp - lg.shape[1]))
-    return kernel.xent_partials(lg, labels, vl=vl, off=off,
+    """Per-token (m, l, ll) partials of one vocab shard: B12 reads the
+    shard's contiguous logits in place, ``plan.block_rows`` rows a CTA."""
+    return kernel.xent_partials(logits.contiguous(), labels, vl=vl, off=off,
                                 logical_v=logical_v, brows=plan.block_rows)
 
 
@@ -86,7 +81,7 @@ def _spmd_xent(ctx, logits, labels, *, logical_v: int = 0):
     else:
         lv = logical_v or vl * n_vocab
         off = ctx.index(vocab_axes) * vl
-        m, l, ll = _xent_partial_padded(plan, logits, labels, off, vl=vl,
+        m, l, ll = _xent_shard_partials(plan, logits, labels, off, vl=vl,
                                         logical_v=lv)
         # Rescale each shard's sumexp to the global max before summing; the
         # label's logit lives in exactly one shard, the others add zero.
@@ -111,15 +106,11 @@ def _spmd_xent(ctx, logits, labels, *, logical_v: int = 0):
                      out_axes=SCALAR, reduce="mean"),
                  spmd_body=_spmd_xent)
 def _launch_xent(plan, logits, labels, *, logical_v: int = 0):
-    """Mean NLL over the (T,) tokens.  Logits already in the plan's layout
-    (contiguous, width as planned) go to the kernel as they are; others are
-    padded with zero columns into one copy, masked by ``logical_v``."""
-    t, v = logits.shape
-    _, vp = plan.padded_shape
-    lg = logits.contiguous()
-    if vp != v:
-        lg = F.pad(lg, (0, vp - v))
-    nll = kernel.xent_nll(lg, labels, logical_v=logical_v or v,
+    """Mean NLL over the (T,) tokens.  The logits go to the kernel as
+    ``logits.contiguous()``: for contiguous logits, the caller's storage,
+    at any width."""
+    nll = kernel.xent_nll(logits.contiguous(), labels,
+                          logical_v=logical_v or logits.shape[1],
                           brows=plan.block_rows)
     return nll.mean()
 

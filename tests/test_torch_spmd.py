@@ -103,6 +103,11 @@ STEPS = 3
 # vocab that does not split in two
 XENT_CASE = (16, 512, 500)
 FALLBACK_CASE = (16, 1111, 1111)
+# a vocab whose shards are odd (501 columns on a two-way model axis, no
+# whole number of 16-B vectors at either dtype; the whole 1002 on one), the
+# logical vocab ending inside the last shard's ragged tail
+ODD_CASE = (16, 1002, 1001)
+ODD_DTYPES = ["float32", "bfloat16"]
 # the reduced config with this vocab, padded for a two-way model axis by the
 # layout policy (``padded_for_mesh``, what ``launch.train --mesh DxM`` does
 # by default): 500 logical columns in 512, the limit inside the last shard
@@ -340,13 +345,13 @@ class TestPlanner:
         assert api.plan_for("xent", shape, torch.float32).predicted_comm_bytes \
             == 0
 
-    def test_local_plans_pad_to_the_vector_only(self):
+    def test_local_plans_pad_nothing_global_plans_pad_to_equal_shards(self):
         with api.plan_context(mesh={"data": 2, "model": 4}):
             local = api.plan_for("xent", (32, 1001), torch.float32,
                                  local=True)
             glob = api.plan_for("xent", (32, 1001), torch.float32)
-        assert local.padded_shape == (32, 1004)       # whole float4s
-        assert glob.padded_shape == (32, 1008)        # 4 shards of float4s
+        assert local.padded_shape == (32, 1001)       # read in place
+        assert glob.padded_shape == (32, 1004)        # 4 equal shards
         assert "local shard plan for mesh" in local.explain()
         assert "comm 0B" in api.explain("xent", (32, 512), torch.float32)
         with api.plan_context(mesh={"data": 2, "model": 4}):
@@ -436,6 +441,11 @@ def reference():
     out["fallback"] = float(japi.ref("xent", jnp.asarray(fx),
                                      jnp.asarray(fl)))
     out["inputs"] = (x, labels, fx, fl)
+    ox, ol = xent_inputs(*ODD_CASE[:2], seed=9)
+    out["odd"] = {dtype: float(japi.launch(
+        "xent", jnp.asarray(ox).astype(dtype), jnp.asarray(ol),
+        logical_v=ODD_CASE[2])) for dtype in ODD_DTYPES}
+    out["odd_inputs"] = (ox, ol)
 
     jcfg = jreduce(jget_config("qwen2-0.5b"))
     jmodel = jbuild_model(jcfg)
@@ -570,6 +580,9 @@ def mesh_run(request, reference, tmp_path_factory):
     jobs.append(("train", dict(cfg=cfg, state=well, data_cfg=data,
                                steps_run=0, schedule=SCHEDULE)))
     jobs.append(("seeded_grads", dict(cfg=cfg, seed=5, data_cfg=data)))
+    ox, ol = reference["odd_inputs"]
+    jobs += [("xent", dict(logits=ox, labels=ol, logical_v=ODD_CASE[2],
+                           dtype=dtype)) for dtype in ODD_DTYPES]
     results = mesh_lib.spawn(mesh_checks.run, shape, AXES, device="cpu",
                              args=(jobs,))
     return {"shape": shape, "ranks": results, "cfg": cfg, "data": data,
@@ -619,6 +632,27 @@ def test_nondivisible_vocab_falls_back_with_its_reason(mesh_run, reference):
             logs[0]
     else:
         assert not logs
+
+
+@pytest.mark.parametrize("dtype", ODD_DTYPES)
+def test_xent_at_odd_widths_matches_the_reference_launch(mesh_run, reference,
+                                                         dtype):
+    """``api.launch("xent")`` at a vocab of odd shards, through the
+    vocab-parallel shard body (B12 partials on each 501-column shard,
+    plain on the CPU, read where they lie) or, on a model axis of one,
+    B11 on the whole 1002-column rows, against the reference's
+    single-device ``api.launch`` (its Pallas kernel in interpret mode) on
+    the same logits in the same dtype; and the port's own single-device
+    launch likewise."""
+    k = 8 + ODD_DTYPES.index(dtype)
+    want = reference["odd"][dtype]
+    for r in mesh_run["ranks"]:
+        np.testing.assert_allclose(r[k]["loss"], want, **XENT)
+        assert r[k]["spec"] == ("data", "model") and not r[k]["logs"]
+    ox, ol = reference["odd_inputs"]
+    one = api.launch("xent", interop.to_torch(ox, device="cpu", dtype=dtype),
+                     torch.from_numpy(ol), logical_v=ODD_CASE[2])
+    np.testing.assert_allclose(float(one), want, **XENT)
 
 
 def test_train_step_loss_and_grads_match_reference(mesh_run, reference):

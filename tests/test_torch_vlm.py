@@ -102,6 +102,49 @@ def test_the_attention_init_takes_the_true_fan_in_at_pixtral_width():
         assert std == pytest.approx(1 / math.sqrt(fan_in), rel=1e-2), name
 
 
+def test_the_fan_in_gap_lies_inside_the_references_own_sensitivity():
+    """Why pixtral's parity weights take the true fan-ins
+    (tests/test_torch_models.py ``TRUE_FAN_IN``).  At the reference's
+    attention fan-in (``shape[-2]``: wq std 1/sqrt(4) on a 128-wide input)
+    the two packages' reduced logits differ by about 6.1e-5, past the
+    parity tolerance.  That is the model's conditioning, not a fault of
+    the port: one rounding's worth of change to every weight (each scaled
+    by 1 + s 2**-24 with random signs s, in float64, rounded back to fp32)
+    moves the reference's own logits by more than that gap, 0.9e-4 to
+    2.3e-4 over three draws.  At the true fan-ins the same change moves
+    them by about 5e-6, and the packages agree within the tolerance (3.2e-6
+    apart).  fp32 on the CPU, seed-0 numpy weights, the tokens of
+    tests/test_torch_models.py's ``test_forward_logits_match_reference``."""
+    jmodel = jbuild_model(jreduce(jget_config(ARCH)))
+    model = build_model(reduce_for_smoke(get_config(ARCH)))
+    tokens = np.random.default_rng(1).integers(0, 512, size=(2, 12))
+    jtokens = jnp.asarray(tokens, jnp.int32)
+    forward = jax.jit(jmodel.forward)
+    rng = np.random.default_rng(0)
+
+    def nudged(tree):
+        return jax.tree.map(lambda w: (w.astype(np.float64) * (
+            1 + rng.choice([-1.0, 1.0], size=w.shape) * 2.0 ** -24)).astype(
+                w.dtype), tree)
+
+    for true_fan_in in (False, True):
+        defs = model.param_defs() if true_fan_in else jmodel.param_defs()
+        tree = numpy_params(defs, 0, true_fan_in=true_fan_in)
+        want = np.asarray(forward(jax.tree.map(jnp.asarray, tree),
+                                  jtokens)[0])
+        got, _ = model(interop.params_from_jax(tree, model.cfg, **CPU),
+                       torch.as_tensor(tokens))
+        gap = float(np.abs(to_np(got) - want).max())
+        move = max(float(np.abs(np.asarray(forward(
+            jax.tree.map(jnp.asarray, nudged(tree)), jtokens)[0]) - want).max())
+            for _ in range(3))
+        if true_fan_in:
+            np.testing.assert_allclose(to_np(got), want, rtol=1e-4,
+                                       atol=1e-5)
+        else:
+            assert move > gap > 1e-5, (move, gap)
+
+
 @pytest.mark.parametrize("s", [16, 512])
 def test_prefix_forward_matches_the_reference(s):
     jmodel, jparams, model, params = pair()

@@ -127,34 +127,33 @@ def test_grad_matches_reference(t, v, lv, dtype, monkeypatch):
 @pytest.mark.parametrize("t,v", [(1, 1), (37, 501), (4096, 151936),
                                  (100, 8), (3, 4099)])
 def test_col_tiled_plan_invariants(t, v, dtype):
-    """The Hopper geometry of a column-tiled plan: rows never padded, the
-    width whole 16-B vectors (so under one vector of padding a row), no
-    padding at all when the vocab already is whole vectors, a block of
-    whole rows by one pass of a CTA's threads, and the traffic of the
-    logits read once plus the labels and the NLL."""
+    """The Hopper geometry of a column-tiled plan: nothing padded, rows or
+    columns, at any width (the kernel reads a row's ragged head and tail in
+    place), a minor unit of one element, a block of whole rows by one pass
+    of a CTA's threads, and the traffic of the logits read once plus the
+    labels and the NLL, the logical bytes."""
     p = planner.plan_kernel("xent", (t, v), dtype,
                             smem_budget=layout.H100_SMEM_PER_CTA,
                             sm_count=layout.H100_SM_COUNT)
     size = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
     vec = layout.VEC_BYTES // size
-    assert p.padded_shape == (t, layout.round_up(v, vec))
-    assert p.minor_unit == vec and p.width * size % layout.VEC_BYTES == 0
-    assert 0 <= (p.width - v) * size < layout.VEC_BYTES
-    if v * size % layout.VEC_BYTES == 0:
-        assert p.padded_shape == (t, v) and p.waste_bytes == 0
+    assert p.padded_shape == (t, v)
+    assert p.waste_bytes == 0 and p.minor_unit == 1
     assert 1 <= p.block_rows <= t
     assert p.block_cols == min(layout.CTA_THREADS * vec, p.width)
     assert p.grid[0] * p.block_rows >= t
     if t >= layout.CTAS_PER_SM * layout.H100_SM_COUNT:
         assert p.grid[0] >= layout.CTAS_PER_SM * layout.H100_SM_COUNT
-    assert p.predicted_hbm_bytes == t * p.width * size + 8 * t
+    assert p.predicted_hbm_bytes == p.predicted_logical_bytes
     assert p.predicted_logical_bytes == t * v * size + 8 * t
+    assert "any width" in p.explain()
     assert "xent" in planner.COL_TILED
 
 
 def test_main_path_shape_plans_without_a_copy(monkeypatch):
-    """(4096, 151936) fp32 is 37984 float4 a row: the plan keeps it as it
-    is, and ``_launch_xent`` hands the caller's storage to the kernel."""
+    """(4096, 151936) fp32 keeps its shape in the plan, and
+    ``_launch_xent`` hands the caller's storage to the kernel, as it does
+    ragged (t, 501) logits, no whole number of 16-B vectors a row."""
     t, v = 64, 151936
     p = api.plan_for("xent", (4096, v), torch.float32)
     assert p.padded_shape == (4096, v) and p.block_rows == 1
@@ -171,7 +170,7 @@ def test_main_path_shape_plans_without_a_copy(monkeypatch):
     assert seen == [logits.data_ptr()]
     ragged = torch.zeros((t, 501))
     api.launch("xent", ragged, torch.zeros(t, dtype=torch.int32))
-    assert seen[-1] != ragged.data_ptr()    # 501 fp32 pads to 504: a copy
+    assert seen[-1] == ragged.data_ptr()    # 501 fp32: read in place
 
 
 def test_autograd_guard():
