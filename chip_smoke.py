@@ -182,8 +182,29 @@ Phases, each fatal on failure:
      embeddings) and whisper (2 + 4 layers, 16 frames) train steps on the
      card (B9 and B11 under their autograd Functions, remat on) against
      the CPU, loss rtol 1e-5, each leaf within 1e-4 of its scale;
+  3i. the Jacobi and LBM halo-exchange shard bodies on a (2, 1) mesh of
+     two ranks of the one card in one spawn, gloo with the halos staged
+     through pinned host buffers (``launch.mesh_checks.halo_card``): each
+     rank makes the main path's 16384 x 16384 fp32 grid and its N = 256
+     and 250 lattices from the seed and keeps its half (8,192 rows; 128 or
+     125 X planes), its counters zeroed just before ``jacobi_sweeps`` (20
+     sweeps) and ``lbm_run`` (20 steps, both layouts) and read just after;
+     fatal unless on both ranks each result equals one device's by
+     ``torch.equal``, the overlapped Jacobi body equals the blocking one,
+     B7 and B8 give every interior site the same bits, ``overlap_report``
+     finds both shifts of the overlapped bodies overlappable and none of
+     the blocking body's, the bytes ``Mesh.comm`` counted equal
+     ``predicted_comm_bytes``, and B6, B7 and B8 launched.  ``halo:``
+     lines give ms a sweep or step overlapped, blocking and on one device
+     (rank 0 alone), the interior's CUDA-event time, the halo's bytes and
+     host seconds, and, once step 5 has timed the B1 copy, the planner's
+     predicted exposed bytes at the copy's and the bare shifts' measured
+     rates beside the overlapped time less the interior's.  Two ranks on
+     one card share its memory: not a scaling result;
   4. each kernel against its plain PyTorch version on the same inputs at
-     the main path's shapes (and at zamba2-1.2b's: B9 at (8, 2048) and
+     the main path's shapes (and phase 3i's boundary launches: B6 on a
+     3-row slab of the grid, B7 on two planes at N = 256; and at
+     zamba2-1.2b's: B9 at (8, 2048) and
      (2048, 2048), B10 at (8, 4096), bf16; at xlstm-1.3b's sLSTM norm: B9
      on fp32 rows at (8, 2048) and (2048, 2048); and at qwen3-moe-30b-a3b's
      ln1 and ln2: B9 at (8, 2048) and (2048, 2048) bf16; at pixtral-12b's
@@ -317,6 +338,9 @@ XENT_RAGGED = (1000, 32_008, 32_000)   # (tokens, width, logical vocab) bf16
 # (tokens, width, logical vocab) fp32
 XENT_MINICPM = (2048, 122_753, 122_753)
 # vocab-parallel training on two ranks of the one card
+# phase 3i: the Jacobi and LBM halo bodies on a (2, 1) mesh of two ranks
+# of the one card, each rank a half of the main path's grid and lattices
+HALO_MESH = (2, 1)
 SPMD_MESH, SPMD_STEPS, SPMD_CKPT_EVERY = "1x2", 4, 2
 SPMD_DIR = ROOT / "build" / "chip_smoke_spmd"
 # the mesh's first two losses against the one-device run's: the schedule's
@@ -2394,6 +2418,144 @@ def full_width_backward_check() -> None:
     torch.cuda.empty_cache()
 
 
+def require_default_compute_mode(label: str) -> None:
+    """Two ranks on one card need its Default compute mode."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"{label}: compute mode {mode}")
+    if mode.splitlines()[0].strip() != "Default":
+        fail(f"{label}: two ranks on one card need the Default compute mode, "
+             f"not {mode!r}")
+
+
+def halo_phase() -> tuple[dict[str, int], dict]:
+    """Phase 3i: the Jacobi and LBM halo-exchange shard bodies on a (2, 1)
+    mesh of two ranks of the one card (gloo, the halos staged through
+    pinned host buffers), in one spawn, at the main path's sizes: each
+    rank holds half of the 16384 x 16384 fp32 grid and of the N = 256 and
+    250 lattices (``launch.mesh_checks.halo_card``).  Each rank zeroes its
+    kernel counters just before its drive and reads them just after.
+    Fatal unless, on every rank, the mesh's ``jacobi_sweeps`` and
+    ``lbm_run`` equal one device's by ``torch.equal`` (both layouts), the
+    overlapped Jacobi body equals the blocking one, B7 and B8 give every
+    site the same bits, the overlap report finds both shifts of each body
+    overlappable and none of the blocking body's, the bytes ``Mesh.comm``
+    counted equal ``predicted_comm_bytes``, and B6, B7 and B8 launched.
+    Returns the launches summed over the ranks and rank 0's results (the
+    exposed-comm line is printed once the copy's rate is measured)."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import mesh_checks
+
+    require_default_compute_mode("halo")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = [r[0] for r in mesh_lib.spawn(
+        mesh_checks.run, HALO_MESH, device="cuda", args=([(
+            "halo_card", dict(grid=GRID, sweeps=SWEEPS, lbm_sizes=LBM_SIZES,
+                              steps=LBM_STEPS, omega=OMEGA, seed=SEED))],))]
+
+    def check_report(what, rep, overlappable):
+        want = 2 if overlappable else 0
+        if len(rep.collectives) != 2 or rep.n_overlappable != want or \
+                any(c.primitive != "ppermute" for c in rep.collectives):
+            fail(f"halo: {what}: overlap report {rep} (want 2 shifts, "
+                 f"{want} overlappable)")
+
+    for r in ranks:
+        what = f"rank {r['rank']}"
+        j = r["jacobi"]
+        if not (j["equal_one_device"] and j["equal_blocking"]):
+            fail(f"halo: {what}: jacobi mesh = one device "
+                 f"{j['equal_one_device']}, overlapped = blocking "
+                 f"{j['equal_blocking']}")
+        check_report(f"{what} jacobi", j["report"], True)
+        check_report(f"{what} jacobi blocking", j["blocking_report"], False)
+        cases = [("jacobi", j)] + [(f"lbm {k}", v) for k, v in
+                                   r["lbm"].items() if isinstance(v, dict)]
+        for name, c in cases:
+            if c["comm_bytes"] != c["predicted_comm_bytes"]:
+                fail(f"halo: {what} {name}: comm bytes {c['comm_bytes']} != "
+                     f"predicted {c['predicted_comm_bytes']}")
+        for name, c in cases[1:]:
+            if not c["equal_one_device"]:
+                fail(f"halo: {what} {name}: the mesh's lbm_run differs from "
+                     f"one device's")
+            check_report(f"{what} {name}", c["report"], True)
+        for n in LBM_SIZES:
+            if not r["lbm"][f"b7_equals_b8 N={n}"]:
+                fail(f"halo: {what}: B7 and B8 differ on a site at N={n}")
+        missing = [k for k, v in r["launches"].items() if v == 0]
+        if missing:
+            fail(f"halo: {what}: {missing} never launched on the mesh path "
+                 f"({r['launches']})")
+    r0 = ranks[0]
+    j = r0["jacobi"]
+    per_sweep = j["halo_calls"] // 2
+    print(f"halo: jacobi {GRID}x{GRID} fp32 x{SWEEPS} on a {HALO_MESH} mesh "
+          f"of two ranks on one card ({r0['transport']}), "
+          f"{GRID // 2} rows a rank: equal to one device and to the blocking "
+          f"body bit for bit, both shifts overlappable (blocking: 0), comm "
+          f"{j['comm_bytes']} B a sweep = predicted; rank 0: overlapped "
+          f"{j['ms']:.4f} ms a sweep, blocking {j['blocking_ms']:.4f} ms, one "
+          f"device {j['one_device_ms']:.4f} ms (rank 0 alone), interior "
+          f"kernel {j['interior_ms']:.4f} ms; halo {j['halo_bytes']} B and "
+          f"{j['halo_seconds'] * 1e3:.3f} ms on the host's clock over "
+          f"{per_sweep} sweeps; bare shifts {j['link'][0]} B in "
+          f"{j['link'][1] * 1e3:.3f} ms")
+    for key, c in r0["lbm"].items():
+        if key.startswith("link"):
+            print(f"halo: lbm {key}: bare shifts {c[0]} B in "
+                  f"{c[1] * 1e3:.3f} ms")
+        if not isinstance(c, dict):
+            continue
+        print(f"halo: lbm {key} fp32 x{LBM_STEPS}: equal to one device bit "
+              f"for bit, both slabs overlappable, comm {c['comm_bytes']} B a "
+              f"step = predicted; rank 0: overlapped {c['ms']:.4f} ms a step, "
+              f"one device {c['one_device_ms']:.4f} ms, interior (propagate + "
+              f"collide) {c['interior_ms']:.4f} ms, its collision "
+              f"{c['collide_ms']:.4f} ms; halo {c['halo_bytes']} B and "
+              f"{c['halo_seconds'] * 1e3:.3f} ms on the host's clock")
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    print(f"halo: launches a rank {[r['launches'] for r in ranks]}, B7 = B8 "
+          f"per site at N = {LBM_SIZES}; peak memory "
+          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f} GiB"
+                      for r in ranks)
+          + f"; the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, r0
+
+
+def halo_exposure(r0: dict, copy_bytes_per_s: float) -> None:
+    """The halo's predicted exposed bytes, at the B1 copy's measured rate
+    and the rate of bare shifts of the same payload, beside the measured
+    exposed time (the overlapped step less its interior)."""
+    from repro_torch import api
+
+    j = r0["jacobi"]
+    mesh = dict(zip(("data", "model"), HALO_MESH))
+    rows = [("jacobi", (GRID // HALO_MESH[0], GRID), j, j["link"])]
+    for n in LBM_SIZES:
+        for layout in ("soa", "ivjk"):
+            rows.append((f"lbm.{layout}", (19, n // HALO_MESH[0], n, n),
+                         r0["lbm"][f"{layout} N={n}"],
+                         r0["lbm"][f"link N={n}"]))
+    for kernel, shape, c, (nbytes, secs) in rows:
+        link = nbytes / secs
+        with api.plan_context(mesh=mesh):
+            plan = api.plan_for(kernel, shape, "float32", local=True)
+        exposed = plan.predicted_exposed_comm_bytes(
+            hbm_bytes_per_s=copy_bytes_per_s, link_bytes_per_s=link)
+        print(f"halo: exposed {kernel} {shape}: predicted "
+              f"{exposed} of {plan.predicted_comm_bytes} B "
+              f"({exposed / link * 1e3:.4f} ms at the link's "
+              f"{link / 1e9:.4f} GB/s, memory at the copy's "
+              f"{copy_bytes_per_s / 1e9:.1f} GB/s); measured overlapped "
+              f"less interior {c['ms'] - c['interior_ms']:.4f} ms")
+
+
 def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
     """Phase 3d: the vocab-parallel loss and backward checked on the card,
     then vocab-parallel training of Qwen2-0.5B at full width on a (1, 2)
@@ -2408,13 +2570,7 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
 
     from repro_torch.launch import train as train_launcher
 
-    mode = subprocess.run(
-        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(f"spmd: compute mode {mode}")
-    if mode.splitlines()[0].strip() != "Default":
-        fail(f"spmd: two ranks on one card need the Default compute mode, "
-             f"not {mode!r}")
+    require_default_compute_mode("spmd")
     t_phase = time.perf_counter()
     partial_kernel_checks()
     mesh_backward_checks()
@@ -2697,13 +2853,16 @@ def main() -> int:
     xlstm_launches = xlstm_phase()
     moe_launches = moe_phase()
     multimodal_launches = multimodal_phase()
+    del grid            # the ranks hold the grids of phase 3i
+    halo_launches, halo_results = halo_phase()
+    grid = jacobi_ops.init_grid(GRID, GRID, torch.float32, seed=4)
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
     launches["rmsnorm"] += train_launches["rmsnorm"]
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
     for phase in (hybrid_launches, xlstm_launches, moe_launches,
-                  multimodal_launches):
+                  multimodal_launches, halo_launches):
         for name, count in phase.items():
             launches[name] += count
     print(f"main: launches {launches}")
@@ -2957,6 +3116,22 @@ def main() -> int:
         exact=True, dtype=torch.float32, bytes=2 * GRID * GRID * 4,
         ops=4 * (GRID - 2) * (GRID - 2),
         library=lambda: F.conv2d(grid[None, None], weight))
+    # the boundary launches of phase 3i's shard bodies: B6 on a rank's
+    # 3-row slab, B7 on its two boundary planes at N = 256
+    slab = jacobi_ops.pitched(grid[GRID // 2 - 1:GRID // 2 + 2], jplan)
+    cases["jacobi.slab"] = dict(
+        kernel=lambda: jacobi_kernel.sweep(slab, torch.empty_like(slab),
+                                           n_cols=GRID),
+        plain=lambda: jacobi_kernel.plain(slab, torch.empty_like(slab), GRID),
+        exact=True, dtype=torch.float32, bytes=2 * 3 * GRID * 4,
+        ops=4 * (GRID - 2), library=lambda: F.conv2d(slab[None, None], weight))
+    planes = lattice(LBM_SIZES[0], torch.float32, 7)[:, :2].reshape(
+        19, -1).contiguous()
+    cases["lbm.soa.slab"] = dict(
+        kernel=lambda: lbm_kernel.collide_soa(planes, OMEGA),
+        plain=lambda: lbm_kernel.plain(planes, OMEGA, "soa"),
+        exact=True, dtype=torch.float32, bytes=2 * planes.numel() * 4,
+        ops=lbm_kernel.OPS_PER_SITE * planes.shape[1], library=None)
 
     errors = {}
     for name, case in cases.items():
@@ -3005,7 +3180,8 @@ def main() -> int:
         }
         t = times[name]
         base = name.removesuffix(".zamba2").removesuffix(".bf16")
-        base = base.removesuffix(".fp32").replace(".prefill", "")
+        base = base.removesuffix(".fp32").removesuffix(".slab")
+        base = base.replace(".prefill", "")
         if base.startswith("xent.partial"):
             base = "xent.partial"
         if "nearest" in case:
@@ -3029,6 +3205,9 @@ def main() -> int:
                  if lib else "")
         print(f"host: {name} bf16: {host_ms(cases[name]['kernel'], 100):.4f} "
               f"ms to enqueue one wrapper call{extra}")
+
+    halo_exposure(halo_results, cases["stream.copy"]["bytes"]
+                  / (times["stream.copy"]["ms"] * 1e-3))
 
     print(f"time: jacobi kernel "
           f"{jacobi_ops.mlups(GRID, GRID, times['jacobi']['ms'] / 1e3):.1f} "

@@ -17,9 +17,12 @@ multi-rank ``launch.mesh.Mesh`` (``spmd_mesh``) and routes through
     the cross-entropy's token mean);
   * a kernel whose shards must talk declares an ``spmd_body``, which gets a
     ``ShardContext`` (the mesh axes each operand dim mapped to, and the
-    collectives over them) and owns its communication: the cross-entropy
-    combines its vocab shards' online-softmax partials with a cross-shard
-    log-sum-exp.
+    collectives and shifts over them) and owns its communication: the
+    cross-entropy combines its vocab shards' online-softmax partials with a
+    cross-shard log-sum-exp; Jacobi shards its grid rows and LBM its X
+    planes, and each rank shifts its boundary rows or direction planes to
+    its neighbours, sweeps its interior while they travel, and finishes the
+    boundary from what arrived (the reference's docs/OVERLAP.md).
 
 The reference is single-controller: ``launch`` takes the global arrays and
 ``shard_map`` cuts them.  The port is multi-controller: each rank passes
@@ -32,9 +35,23 @@ one tuple an operand, ``None`` for an extent to infer) -- as the model does
 for the vocab, which falls back to replication when it does not divide.
 
 The path never nests: inside a shard body ``spmd_mesh`` returns None, and
-``plan_context(spmd=False)`` opts a scope out.  The reference's
-``overlap_report``/``CollectiveSite`` read a jaxpr for the Jacobi and LBM
-halo bodies; they wait for those bodies (ROADMAP A11).
+``plan_context(spmd=False)`` opts a scope out.  A loop of many sweeps or
+steps (``jacobi_sweeps``, ``lbm_run``) enters one ``shard_scope`` and runs
+its shard body's step on buffers it keeps.
+
+``overlap_report`` says which collectives and shifts of a call can hide
+behind a kernel.  The reference reads the dataflow of a jaxpr; torch runs
+eagerly and has none.  Its analogue here is program order, recorded while
+the call runs (``kernels.util.tracing``): ``launch.mesh.Mesh`` traces the
+issue of every collective and shift and its ``wait()``, and the kernel
+wrappers trace every launch, on the card and on the CPU's plain path.  A
+site is overlappable when at least one kernel launch lies between its
+issue and its wait.  Such a launch reads nothing the transfer delivers,
+since what a transfer delivers exists only once its ``wait()`` returns,
+and the transfer reads nothing the launch writes, since its payload is
+taken when it is issued (on the card, copied behind an event recorded
+then).  A blocking collective waits where it is issued, so it is never
+overlappable.
 """
 from __future__ import annotations
 
@@ -47,10 +64,13 @@ from typing import Mapping
 import torch
 
 from repro_torch.api import context as context_lib
+from repro_torch.kernels.util import tracing
 from repro_torch.parallel import rules as rules_lib
 
 __all__ = ["Partitioning", "SCALAR", "replicated", "partitioning_for",
-           "spmd_mesh", "spmd_launch", "ShardContext", "shard_specs"]
+           "spmd_mesh", "spmd_launch", "shard_scope", "ShardContext",
+           "shard_specs", "overlap_report", "OverlapReport",
+           "CollectiveSite"]
 
 _log = logging.getLogger(__name__)
 
@@ -170,6 +190,17 @@ class ShardContext:
     def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
         return self.mesh.all_reduce(x, axes, "mean")
 
+    def ppermute(self, x: torch.Tensor, axes, perm):
+        """Start shifting ``x`` by ``perm`` along ``axes``; the returned
+        transfer's ``wait()`` gives what this rank received
+        (``launch.mesh.Mesh.ppermute``)."""
+        return self.mesh.ppermute(x, axes, perm)
+
+    def all_gather(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Every rank's ``x`` along ``axes`` stacked on a new leading dim in
+        the order of their index, as ``jax.lax.all_gather(tiled=False)``."""
+        return self.mesh.all_gather(x[None], axes, 0)
+
 
 def global_shape(local_shape, axes: tuple, table, sizes, given=None
                  ) -> tuple[int, ...]:
@@ -231,17 +262,6 @@ def _spec_mesh_axes(spec: tuple) -> tuple[str, ...]:
     return tuple(names)
 
 
-def halo_body_pending(ctx, *tensors, **scalars):
-    """The shard body of a stencil kernel whose halo exchange is not ported
-    yet (Jacobi's one-row halos, LBM's direction planes; ROADMAP A11): its
-    rows cannot be cut without one, so a launch over a mesh raises instead
-    of sweeping each shard on its own."""
-    raise NotImplementedError(
-        "the halo-exchange shard body of this stencil kernel is not ported "
-        "(ROADMAP A11); launch it outside a mesh, or under "
-        "plan_context(spmd=False) on whole arrays")
-
-
 _TLS = threading.local()
 
 
@@ -296,16 +316,17 @@ def _log_fallbacks(entry, mesh, shapes, fallbacks) -> None:
         "replicated (%s)", entry.name, mesh.axis_sizes, "; ".join(fallbacks))
 
 
-def spmd_launch(entry, mesh, tensors, scalars, global_shapes=None):
-    """Launch ``entry`` on this rank's shards ``tensors`` over ``mesh``.
+@contextlib.contextmanager
+def shard_scope(entry, mesh, tensors, global_shapes=None):
+    """Enter the shard body of ``entry`` (a registry entry, or a kernel
+    name) on this rank's shards ``tensors`` over ``mesh``: checks the local
+    shapes against the declared partitioning, logs any fallback to
+    replication, and yields ``(ctx, specs)``, the ``ShardContext`` and the
+    operands' specs; inside, ``spmd_mesh`` is None."""
+    if isinstance(entry, str):
+        from repro_torch.api import registry  # lazy: registry imports this
 
-    A kernel that registered an ``spmd_body`` owns its shard body: it gets
-    a ``ShardContext`` and does its own exchange or combine.  Otherwise the
-    generic body plans the rank's *local* shape, runs the registered body
-    on it and applies the declared scalar reduce over every mesh axis the
-    data operand was split across."""
-    from repro_torch.api import dispatch  # lazy: dispatch imports this module
-
+        entry = registry.resolve(entry)
     part = partitioning_for(entry, len(tensors))
     if len(part.in_axes) != len(tensors):
         raise ValueError(
@@ -317,8 +338,23 @@ def spmd_launch(entry, mesh, tensors, scalars, global_shapes=None):
     ctx = ShardContext(operand_axes=operand_axes, axis_sizes=sizes,
                        mesh=mesh)
     with _inside_body():
+        yield ctx, specs
+
+
+def spmd_launch(entry, mesh, tensors, scalars, global_shapes=None):
+    """Launch ``entry`` on this rank's shards ``tensors`` over ``mesh``.
+
+    A kernel that registered an ``spmd_body`` owns its shard body: it gets
+    a ``ShardContext`` and does its own exchange or combine.  Otherwise the
+    generic body plans the rank's *local* shape, runs the registered body
+    on it and applies the declared scalar reduce over every mesh axis the
+    data operand was split across."""
+    from repro_torch.api import dispatch  # lazy: dispatch imports this module
+
+    with shard_scope(entry, mesh, tensors, global_shapes) as (ctx, specs):
         if entry.spmd_body is not None:
             return entry.spmd_body(ctx, *tensors, **scalars)
+        part = partitioning_for(entry, len(tensors))
         shape, dtype = entry.plan_args(*tensors, **scalars)
         plan = dispatch.plan_for(entry.name, shape, dtype, local=True)
         dispatch._validate(entry, plan, shape, dtype)
@@ -329,3 +365,78 @@ def spmd_launch(entry, mesh, tensors, scalars, global_shapes=None):
             out = (ctx.pmean(out, reduce_axes) if part.reduce == "mean"
                    else ctx.psum(out, reduce_axes))
         return out
+
+
+# ---------------------------------------------------------------------------
+# Overlap structure (see the module doc for the torch analogue of the
+# reference's jaxpr dataflow).
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveSite:
+    """One collective or shift a call issued on this rank.
+
+    axes:
+        mesh axis names it communicates over.
+    result_bytes:
+        the payload this rank put on the wire, the bytes ``Mesh.comm``
+        counts and the planner prices (a shift's result has its size).
+    overlappable:
+        True iff some kernel launch lies between its issue and its wait.
+    """
+
+    primitive: str
+    axes: tuple[str, ...]
+    result_bytes: int
+    overlappable: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class OverlapReport:
+    collectives: tuple[CollectiveSite, ...]
+    n_kernel_launches: int
+
+    @property
+    def n_overlappable(self) -> int:
+        return sum(1 for c in self.collectives if c.overlappable)
+
+    @property
+    def all_overlappable(self) -> bool:
+        """Every collective can hide (vacuously true with none)."""
+        return all(c.overlappable for c in self.collectives)
+
+
+def _report_of(events) -> OverlapReport:
+    """The report of a trace (``kernels.util.tracing``'s events)."""
+    sites, launches = [], 0
+    for i, (kind, ev) in enumerate(events):
+        if kind == "launch":
+            launches += 1
+        if kind != "issue":
+            continue
+        between = 0
+        for later_kind, later in events[i + 1:]:
+            if later_kind == "wait" and later["tag"] == ev["tag"]:
+                break
+            between += later_kind == "launch"
+        else:
+            between = 0               # never waited on: nothing hid it
+        sites.append(CollectiveSite(primitive=ev["primitive"],
+                                    axes=ev["axes"],
+                                    result_bytes=ev["nbytes"],
+                                    overlappable=between > 0))
+    return OverlapReport(collectives=tuple(sites), n_kernel_launches=launches)
+
+
+def overlap_report(fn, *args, **kwargs) -> OverlapReport:
+    """Run ``fn(*args, **kwargs)`` on this rank and classify every
+    collective and shift it issued as overlappable or blocking (the module
+    doc says how).  The overlapped Jacobi and LBM shard bodies pass: their
+    shifts are issued before the interior sweep and waited on after it.
+    The blocking Jacobi body (``kernels.jacobi.ops._spmd_jacobi_blocking``)
+    and the cross-entropy's log-sum-exp combine fail: nothing runs while
+    they are in flight.  Under a mesh every rank calls it, as it runs
+    ``fn``."""
+    with tracing() as events:
+        fn(*args, **kwargs)
+    return _report_of(events)

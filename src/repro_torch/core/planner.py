@@ -25,7 +25,9 @@ vector width, since a shard has no shard boundary inside it.  A
 column-tiled plan, whose kernel reads rows of any width, pads nothing on
 one device or in a local plan, and a global one only to equal shards.  A
 local plan also prices the collectives of its launch
-(``predicted_comm_bytes``, the ring cost model of ``COMM_MODEL``).
+(``predicted_comm_bytes``, the ring cost model of ``COMM_MODEL``) and,
+given the rates measured on the card, the part of them its interior cannot
+hide (``predicted_exposed_comm_bytes``, ``HALO_MODEL``).
 """
 from __future__ import annotations
 
@@ -115,17 +117,42 @@ COL_TILED_CTA_BYTES = 64 * 1024
 # ring cost model (the reference's formulas):
 #
 #     all-reduce           2 (N-1)/N x payload
+#     shift (ppermute)               payload
 #
 # The mesh-axis names are the ``parallel.rules.DEFAULT_RULES`` targets the
 # kernels' partitionings resolve to ("batch" -> data, "vocab" -> model).
 # The model assumes the declared partitioning engaged; a divisibility
 # fallback to replication moves fewer bytes.  Families absent here
-# communicate nothing (batch-parallel shards are independent); the Jacobi
-# and LBM halo exchanges come with their shard bodies (ROADMAP A11).
+# communicate nothing (batch-parallel shards are independent).
 
 
 def _ring_all_reduce_bytes(payload: int, n: int) -> int:
     return int(2 * (n - 1) / n * payload) if n > 1 else 0
+
+
+def _comm_jacobi(plan: "KernelPlan", sizes: Mapping[str, int]) -> int:
+    # One (1, cols) halo row shifted up and one down per sweep, at the
+    # logical column count (the stripe is pitched after the exchange).
+    if sizes.get("data", 1) <= 1:
+        return 0
+    return 2 * int(plan.logical_shape[-1]) * plan.elem_bytes
+
+
+# Of D3Q19's 19 directions, 5 have c_x = +1 and 5 have c_x = -1 (one face
+# and four edges each way); the other 9 never cross an X cut.  Kept here so
+# core never imports the kernels package (as ``_LBM_Q``).
+_LBM_X_DIRS = 5
+
+
+def _comm_lbm(plan: "KernelPlan", sizes: Mapping[str, int]) -> int:
+    # X-sharded lattice (Q, X, Y, Z): each step shifts one (5, 1, Y, Z)
+    # slab of +x-moving populations down the ring and one of -x-moving
+    # populations up it -- only the 10 directions with c_x != 0 cross the
+    # cut, at depth |c_x| = 1.
+    if sizes.get("data", 1) <= 1:
+        return 0
+    y, z = (int(s) for s in plan.logical_shape[2:4])
+    return 2 * _LBM_X_DIRS * y * z * plan.elem_bytes
 
 
 def _comm_xent(plan: "KernelPlan", sizes: Mapping[str, int]) -> int:
@@ -141,7 +168,24 @@ def _comm_xent(plan: "KernelPlan", sizes: Mapping[str, int]) -> int:
 
 
 COMM_MODEL: dict[str, Callable[["KernelPlan", Mapping[str, int]], int]] = {
+    "jacobi": _comm_jacobi,
     "xent": _comm_xent,
+    "lbm.soa": _comm_lbm,
+    "lbm.ivjk": _comm_lbm,
+}
+
+# Halo geometry of the families whose shard bodies overlap their exchange
+# with the interior: (sharded logical dim, halo depth).  While the interior
+# streams ``MAJOR_STREAMS x interior elements`` through device memory, the
+# link moves that window scaled by link rate / memory rate; the rest of the
+# halo stays exposed.  A family with a ``COMM_MODEL`` entry but no halo
+# (the cross-entropy's combine, whose compute needs its result) exposes all
+# of it.  The rates are measured on the card and passed in
+# (``KernelPlan.predicted_exposed_comm_bytes``): no rate is assumed here.
+HALO_MODEL: dict[str, tuple[int, int]] = {
+    "jacobi": (0, 1),     # one row up and one row down over the data axis
+    "lbm.soa": (1, 1),    # X planes; 2 x 5 direction slabs of depth 1
+    "lbm.ivjk": (1, 1),
 }
 
 
@@ -314,6 +358,30 @@ class KernelPlan:
         fn = COMM_MODEL.get(self.kernel)
         return 0 if fn is None else fn(self, dict(self.mesh))
 
+    def predicted_exposed_comm_bytes(
+            self, *, hbm_bytes_per_s: float | None = None,
+            link_bytes_per_s: float | None = None) -> int:
+        """The part of ``predicted_comm_bytes`` left on the critical path:
+        the total less what the interior's device-memory stream can hide
+        (``HALO_MODEL``), at the device-memory and link rates measured on
+        the card.  Raises without both rates: the planner holds none."""
+        if hbm_bytes_per_s is None or link_bytes_per_s is None:
+            raise ValueError(
+                "predicted_exposed_comm_bytes needs the measured "
+                "device-memory and link rates (hbm_bytes_per_s=, "
+                "link_bytes_per_s=)")
+        total = self.predicted_comm_bytes
+        spec = HALO_MODEL.get(self.kernel)
+        if total == 0 or spec is None:
+            return total
+        dim, depth = spec
+        interior = [int(s) for s in self.logical_shape]
+        interior[dim] = max(interior[dim] - 2 * depth, 0)
+        major = MAJOR_STREAMS.get(self.kernel, self.signature.n_streams)
+        window = major * int(np.prod(interior, dtype=np.int64)) * self.elem_bytes
+        hidden = min(total, int(window * link_bytes_per_s / hbm_bytes_per_s))
+        return total - hidden
+
     def explain(self) -> str:
         """Human-readable report: predicted balance, waste, block geometry."""
         sig = self.signature
@@ -425,6 +493,13 @@ def plan_cache_info() -> dict[str, int]:
     with _LOCK:
         return {"hits": _STATS["hits"], "misses": _STATS["misses"],
                 "size": len(_CACHE)}
+
+
+def plan_cache_keys() -> list[tuple]:
+    """Snapshot of the memo keys ``(kernel, shape, dtype, mesh, model,
+    smem_budget, sm_count, local)``: which cells reached the planner."""
+    with _LOCK:
+        return list(_CACHE)
 
 
 def clear_plan_cache() -> None:

@@ -17,7 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels.stream.kernel import DTYPES
-from repro_torch.kernels.util import block_rows, overlaps
+from repro_torch.kernels.util import block_rows, overlaps, trace
 
 # launches of the CUDA kernel, counted where the wrapper launches it
 LAUNCHES = {"jacobi": 0}
@@ -67,6 +67,7 @@ def sweep(src: torch.Tensor, dst: torch.Tensor, *, n_cols: int,
           brows: int | None = None) -> torch.Tensor:
     """One sweep of ``src`` into ``dst`` (returned); see the module doc."""
     _check(src, dst, n_cols)
+    trace("launch", name="jacobi")
     if src.device.type == "cpu":
         return plain(src, dst, n_cols)
     if src.device.type != "cuda":

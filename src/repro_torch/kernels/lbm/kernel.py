@@ -27,7 +27,7 @@ import torch
 from repro_torch.core.layout import CTA_THREADS
 from repro_torch.kernels.lbm.ref import C, Q, W
 from repro_torch.kernels.stream.kernel import DTYPES, round_scalar
-from repro_torch.kernels.util import overlaps
+from repro_torch.kernels.util import overlaps, trace
 
 # launches of the CUDA kernel per layout, counted where the wrapper launches it
 LAUNCHES = {"soa": 0, "ivjk": 0}
@@ -113,6 +113,7 @@ def _check(f: torch.Tensor, out: torch.Tensor | None, layout: str) -> None:
 def _collide(layout: str, f: torch.Tensor, omega: float, block_sites: int,
              out: torch.Tensor | None) -> torch.Tensor:
     _check(f, out, layout)
+    trace("launch", name=f"lbm.{layout}")
     if f.device.type == "cpu":
         res = plain(f, omega, layout)
         return res if out is None else out.copy_(res)

@@ -7,9 +7,37 @@ reshape is the paper's alignment rule and is centralized here.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from repro_torch.core.planner import KernelPlan
+
+_TRACE = threading.local()
+
+
+def trace(kind: str, **fields) -> None:
+    """Append one event to this thread's trace while one is taken
+    (``tracing``); nothing otherwise.  The wrappers of the kernels that run
+    on a mesh (Jacobi, LBM, the cross-entropy's vocab-shard partials) trace
+    each launch, on the card and on the CPU's plain path alike, and
+    ``launch.mesh.Mesh`` each transfer's issue and wait: the order
+    ``api.spmd.overlap_report`` reads."""
+    events = getattr(_TRACE, "events", None)
+    if events is not None:
+        events.append((kind, fields))
+
+
+@contextlib.contextmanager
+def tracing():
+    """Collect this thread's ``trace`` events into the yielded list."""
+    prev = getattr(_TRACE, "events", None)
+    _TRACE.events = events = []
+    try:
+        yield events
+    finally:
+        _TRACE.events = prev
 
 
 def resolve_device(device=None) -> torch.device:

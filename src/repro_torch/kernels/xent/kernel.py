@@ -36,7 +36,7 @@ import functools
 import torch
 
 from repro_torch.kernels.stream.kernel import DTYPES
-from repro_torch.kernels.util import refuse_autograd
+from repro_torch.kernels.util import refuse_autograd, trace
 
 # launches of the CUDA kernel, counted where the wrapper launches it
 LAUNCHES = {"xent": 0, "xent.partial": 0}
@@ -168,6 +168,7 @@ def xent_partials(logits: torch.Tensor, labels: torch.Tensor, *, vl: int,
     if off < 0 or logical_v <= 0:
         raise ValueError(f"need off >= 0 and logical_v > 0, got off {off} "
                          f"logical_v {logical_v}")
+    trace("launch", name="xent.partial")
     if logits.device.type == "cpu":
         return plain_partials(logits, labels, vl=vl, off=off,
                               logical_v=logical_v)

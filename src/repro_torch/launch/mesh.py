@@ -13,7 +13,10 @@ shards, and ``Mesh`` is this rank's view of the grid of ranks:
     collective over ("model",) on a (2, 2) mesh therefore runs on this
     rank's row, never on the world;
   * ``all_reduce``/``all_gather`` over a set of axes, the collectives the
-    shard bodies call (``api.spmd.ShardContext``).
+    shard bodies call (``api.spmd.ShardContext``), and ``ppermute``, the
+    asynchronous point-to-point shift of the halo bodies: it returns a
+    ``Transfer`` at once, and the rank sweeps its interior before it calls
+    ``wait()`` for what its neighbour sent.
 
 The backend is NCCL when each rank has a card of its own and gloo when the
 ranks outnumber the cards (two ranks on one card: NCCL refuses a second
@@ -21,8 +24,17 @@ rank on a device).  Gloo's collectives on CUDA tensors go through a pinned
 host buffer that this module stages explicitly (``transport`` "gloo via
 pinned host buffers"), so what crosses the wire, and how, is stated, not
 left to a silent fallback.  Kernels always run on the rank's device.
-``comm`` counts the collectives a rank ran, their bytes and their seconds
-on the host's clock, staging included.
+``comm`` counts the collectives and shifts a rank ran, their bytes and
+their seconds on the host's clock, staging included.
+
+A shift in flight holds pinned buffers of its own, one to send and one to
+receive: two halos go out before either is waited on, so the one staging
+buffer a dtype of the collectives would be overwritten.  Its device-to-host
+copy runs on a side stream behind an event recorded when it is issued, so
+it waits for the work that wrote the rows it sends and never for a kernel
+launched after it.  Each shift takes the next tag of a counter every rank
+advances in the same order, so the two shifts of a two-rank ring, which
+have the same peer both ways, never take each other's message.
 
 ``spawn`` starts one process a rank with ``torch.multiprocessing``'s
 ``spawn`` start method and returns each rank's result.  It lives in the
@@ -44,10 +56,99 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.kernels.util import trace
+
 # seconds a collective may wait for its peers before the rank fails
 TIMEOUT_S = 600
 
 _OPS = {"sum": "SUM", "max": "MAX"}
+
+# shift tags cycle below this bound (gloo takes any non-negative int)
+_TAGS = 1 << 24
+
+
+class Transfer:
+    """A ``Mesh.ppermute`` in flight.  ``wait()`` completes it and returns
+    what this rank received, on the rank's device (zeros of the sent
+    tensor's shape where no pair of the permutation sends to this rank)."""
+
+    def __init__(self, mesh, x, send_to, recv_from, tag, t0):
+        import torch.distributed as dist
+
+        self.mesh, self.tag = mesh, tag
+        self.shape, self.dtype = tuple(x.shape), x.dtype
+        self.recv_from, self.send_to = recv_from, send_to
+        self.seconds = 0.0
+        self.result = None
+        staged = mesh.staged
+        if staged:
+            # the copy waits for what was enqueued before this call only
+            issued = torch.cuda.Event()
+            issued.record()
+            stream = mesh._side_stream()
+            with torch.cuda.stream(stream):
+                stream.wait_event(issued)
+                self.send = (torch.empty(self.shape, dtype=x.dtype,
+                                         pin_memory=True)
+                             if send_to is not None else None)
+                if self.send is not None:
+                    self.send.copy_(x, non_blocking=True)
+                    x.record_stream(stream)
+                self.copied = torch.cuda.Event()
+                self.copied.record(stream)
+        else:
+            self.send = (x.detach().clone(memory_format=torch.contiguous_format)
+                         if send_to is not None else None)
+        self.recv = None
+        if recv_from is not None:
+            self.recv = (torch.empty(self.shape, dtype=x.dtype,
+                                     pin_memory=True) if staged
+                         else torch.empty(self.shape, dtype=x.dtype,
+                                          device=x.device))
+        self.works = None if staged else self._post(dist)
+        self.seconds += time.perf_counter() - t0
+
+    def _post(self, dist) -> list:
+        ops = []
+        if self.send_to is not None:
+            ops.append(dist.P2POp(dist.isend, self.send, self.send_to,
+                                  tag=self.tag))
+        if self.recv_from is not None:
+            ops.append(dist.P2POp(dist.irecv, self.recv, self.recv_from,
+                                  tag=self.tag))
+        return dist.batch_isend_irecv(ops) if ops else []
+
+    def wait(self) -> torch.Tensor:
+        if self.result is not None:
+            return self.result
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        if self.works is None:        # staged: post once the copy is done
+            self.copied.synchronize()
+            self.works = self._post(dist)
+        for w in self.works:
+            w.wait()
+        dev = self.mesh.device
+        if self.recv is None:
+            out = torch.zeros(self.shape, dtype=self.dtype, device=dev)
+        else:
+            out = self.recv.to(dev, non_blocking=True)
+        self.seconds += time.perf_counter() - t0
+        self.mesh.comm["seconds"] += self.seconds
+        trace("wait", tag=self.tag)
+        self.result = out
+        return out
+
+
+class Arrived:
+    """A result already on this rank, waited on like a ``Transfer``."""
+
+    def __init__(self, x: torch.Tensor):
+        self.result = x
+
+    def wait(self) -> torch.Tensor:
+        return self.result
 
 
 class Mesh:
@@ -83,6 +184,8 @@ class Mesh:
         self.transport = ("gloo via pinned host buffers" if self.staged
                           else self.backend)
         self._pinned: dict[torch.dtype, torch.Tensor] = {}
+        self._stream = None
+        self._shifts = 0
         self.comm = {"calls": 0, "bytes": 0, "seconds": 0.0}
         self._groups: dict[tuple[str, ...], object] = {}
         if self.size > 1:
@@ -153,10 +256,53 @@ class Mesh:
         out.copy_(x)
         return out
 
-    def _count(self, x: torch.Tensor, t0: float) -> None:
+    def _side_stream(self):
+        """The side stream a staged shift copies its rows to the host on."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _count(self, x: torch.Tensor, primitive: str, axes,
+               t0: float | None = None, tag: int | None = None) -> None:
+        """Count one call on ``x`` in ``comm`` and trace its issue: a
+        shift's by its ``tag`` (its ``Transfer`` adds the seconds and traces
+        the wait), a blocking collective's with its wait and its seconds
+        since ``t0``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        nbytes = x.numel() * x.element_size()
         self.comm["calls"] += 1
-        self.comm["bytes"] += x.numel() * x.element_size()
-        self.comm["seconds"] += time.perf_counter() - t0
+        self.comm["bytes"] += nbytes
+        trace("issue", tag=tag, primitive=primitive, axes=axes,
+              nbytes=nbytes)
+        if tag is None:
+            self.comm["seconds"] += time.perf_counter() - t0
+            trace("wait", tag=None)
+
+    def ppermute(self, x: torch.Tensor, axes, perm) -> Transfer:
+        """Start shifting ``x`` between the ranks along ``axes``: ``perm``
+        holds ``(source, destination)`` pairs of their index along ``axes``
+        (``index(axes)``), as ``jax.lax.ppermute`` takes them.  Returns at
+        once; the ``Transfer``'s ``wait()`` gives what this rank received.
+        Every rank calls it, in the same order, with the same ``perm``.
+        Counted in ``comm`` as one call of ``x``'s bytes, the payload the
+        planner prices (``core.planner.COMM_MODEL``)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        perm = [(int(s), int(d)) for s, d in perm]
+        n = self.axis_size(axes) if axes else 1
+        srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+        if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+                or not all(0 <= i < n for i in srcs + dsts)):
+            raise ValueError(f"ppermute {perm} is not a permutation of "
+                             f"{n} ranks along {axes}")
+        t0 = time.perf_counter()
+        tag = self._shifts % _TAGS
+        self._shifts += 1
+        me = self.index(axes)
+        line = self._line_ranks(axes)
+        send_to = next((line[d] for s, d in perm if s == me), None)
+        recv_from = next((line[s] for s, d in perm if d == me), None)
+        self._count(x, "ppermute", axes, tag=tag)
+        return Transfer(self, x, send_to, recv_from, tag, t0)
 
     def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
                    ) -> torch.Tensor:
@@ -176,7 +322,7 @@ class Mesh:
         if op == "mean":
             buf.div_(n)
         out = buf.to(x.device, copy=True) if self.staged else buf
-        self._count(x, t0)
+        self._count(x, "all_reduce", axes, t0)
         return out
 
     def all_gather(self, x: torch.Tensor, axes, dim: int) -> torch.Tensor:
@@ -198,7 +344,7 @@ class Mesh:
         order = [self._index_of(r, axes) for r in ranks]
         out = torch.cat([parts[order.index(i)] for i in range(n)], dim=dim)
         out = out.to(x.device) if self.staged else out
-        self._count(x, t0)
+        self._count(x, "all_gather", axes, t0)
         return out
 
     def _line_ranks(self, axes) -> list[int]:

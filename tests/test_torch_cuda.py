@@ -62,6 +62,12 @@ layer width in bf16 two runs give the same bits (no float atomics in the
 dispatch or the combine) and agree with the CPU at the bf16 tolerance.
 The reduced qwen3-moe serves paged = dense and trains as the dense models.
 
+The Jacobi and LBM halo bodies on a (2, 1) mesh of two ranks of the card
+equal one device on the card bit for bit (the blocking Jacobi body too,
+with a mask and over several steps), and B7 and B8 give every site of the
+same propagated lattice the same bits, which lets the LBM body collide an
+ivjk lattice's boundary planes with B7.
+
 The STREAM kernels write every element of pitched and contiguous tiles
 once, bit-exact (both dtypes: one rounding of the same fp32 operations),
 and leave the row padding alone.  A row normed by the RMSNorm kernel has
@@ -955,3 +961,74 @@ def test_reduced_mesh_train_step_on_two_ranks_of_the_card():
                                atol=0)
     assert a["loss0"] == b["loss0"] and a["losses"] == b["losses"]
     assert a["digests"] == b["digests"] and len(a["digests"]) > 40
+
+
+HALO_LBM = [(19, 32, 8, 8), (19, 8, 4, 4), (19, 4, 4, 4)]
+
+
+@pytest.mark.parametrize("shape", HALO_LBM)
+def test_soa_and_ivjk_kernels_give_a_site_the_same_bits(shape):
+    """B7 and B8 on the same propagated lattice: the same bits at every
+    site, so the halo bodies may collide an ivjk lattice's boundary planes
+    with B7 (``kernels.lbm.ops._shard_steps``)."""
+    gen = torch.Generator(device="cuda").manual_seed(shape[1])
+    w = torch.tensor(lkernel.W, dtype=torch.float32, device="cuda")
+    f = w[:, None, None, None] * (1 + 0.05 * (torch.rand(
+        shape, generator=gen, device="cuda") - 0.5))
+    posts = {}
+    for layout in ("soa", "ivjk"):
+        plan = api.plan_for(f"lbm.{layout}", shape, torch.float32)
+        col = lops._Collision(layout, plan, shape, f)
+        lops._logical(col.prop, shape).copy_(f)
+        before = lkernel.LAUNCHES[layout]
+        posts[layout] = lops._logical(col.run(1.7), shape).clone()
+        assert lkernel.LAUNCHES[layout] == before + 1
+    exact(posts["soa"], posts["ivjk"])
+
+
+def test_halo_bodies_on_two_ranks_of_the_card():
+    """The Jacobi and LBM halo bodies on a (2, 1) mesh of two ranks on the
+    one card: each equal to one device on the card bit for bit, the
+    overlapped Jacobi body equal to the blocking one, B6, B7 and B8
+    launched on the ranks."""
+    import numpy as np
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import mesh_checks
+
+    rng = np.random.default_rng(22)
+    grids = [rng.random(s).astype(np.float32) for s in [(64, 34), (8, 34)]]
+    lattices = [(lkernel.W.astype(np.float32)[:, None, None, None]
+                 * (1 + 0.05 * (rng.random(s) - 0.5))).astype(np.float32)
+                for s in HALO_LBM]
+    mask = rng.random(HALO_LBM[0][1:]) < 0.7
+    jobs = [("jacobi", dict(grid=g, sweeps=3)) for g in grids]
+    cases = [(f, layout, None) for f in lattices for layout in ("soa", "ivjk")]
+    cases += [(lattices[0], layout, mask) for layout in ("soa", "ivjk")]
+    jobs += [("lbm", dict(f=f, omega=1.7, layout=layout, mask=m, steps=3))
+             for f, layout, m in cases]
+    out = mesh_lib.spawn(mesh_checks.run, (2, 1), device="cuda",
+                         args=(jobs,))
+    for i, g in enumerate(grids):
+        src = torch.from_numpy(g).cuda()
+        want = api.launch("jacobi", src).cpu()
+        exact(torch.cat([r[i]["out"] for r in out]), want)
+        exact(torch.cat([r[i]["blocking"] for r in out]), want)
+        exact(torch.cat([r[i]["sweeps"] for r in out]),
+              jops.jacobi_sweeps(src, 3).cpu())
+        assert all(r[i]["report"].n_kernel_launches > 0 for r in out)
+    for k, (f, layout, m) in enumerate(cases):
+        res = [r[len(grids) + k] for r in out]
+        src = torch.from_numpy(f).cuda()
+        mk = None if m is None else torch.from_numpy(m).cuda()
+        want = api.launch(f"lbm.{layout}", src, omega=1.7, mask=mk).cpu()
+        exact(torch.cat([r["out"] for r in res], dim=1), want)
+        if m is None:
+            exact(torch.cat([r["run"] for r in res], dim=1),
+                  lops.lbm_run(src, 1.7, 3, layout=layout).cpu())
+    launched = [sum(r[i]["launches"] for i in range(len(jobs))) for r in out]
+    assert all(n > 0 for n in launched), launched
+    for r in out:
+        assert r[0]["launches"] > 0                  # B6
+        assert r[len(grids)]["launches"] > 0         # B7 (soa)
+        assert r[len(grids) + 1]["launches"] > 0     # B8 and B7 (ivjk)

@@ -195,12 +195,28 @@ class TestDeclarations:
         assert entry.partitioning.reduce == "mean"
         assert entry.spmd_body is not None
 
-    def test_stencils_refuse_a_mesh_until_their_halos_exist(self):
-        for name in ("jacobi", "lbm.soa", "lbm.ivjk"):
-            entry = api.resolve(name)
-            assert entry.spmd_body is spmd.halo_body_pending, name
-            with pytest.raises(NotImplementedError, match="halo"):
-                entry.spmd_body(None, torch.zeros(4, 4))
+    def test_stencils_carry_their_halo_bodies(self):
+        """The stencils' registrations carry the halo-exchange shard bodies
+        (tests/test_torch_halo.py runs them) and the reference's
+        partitioning: Jacobi's rows and LBM's X planes over "batch"."""
+        from repro_torch.kernels.jacobi import ops as jacobi_ops
+        from repro_torch.kernels.lbm import ops as lbm_ops
+
+        bodies = {"jacobi": jacobi_ops._spmd_jacobi,
+                  "lbm.soa": lbm_ops._spmd_lbm_soa,
+                  "lbm.ivjk": lbm_ops._spmd_lbm_ivjk}
+        for name, body in bodies.items():
+            got = api.resolve(name)
+            want = japi.get_kernel(name)
+            assert got.spmd_body is body, name
+            assert want.spmd_body is not None, name
+            assert got.partitioning == spmd.Partitioning(
+                in_axes=want.partitioning.in_axes,
+                out_axes=want.partitioning.out_axes), name
+        assert api.resolve("jacobi").partitioning.in_axes == (
+            ("batch", None),)
+        assert api.resolve("lbm.soa").partitioning.in_axes == (
+            (None, "batch", None, None),)
 
     def test_template_expansion(self):
         for template, ndim in [(("batch", ..., None), 2),
