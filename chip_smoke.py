@@ -202,8 +202,9 @@ Phases, each fatal on failure:
      rates beside the overlapped time less the interior's.  Two ranks on
      one card share its memory: not a scaling result;
   4. each kernel against its plain PyTorch version on the same inputs at
-     the main path's shapes (and phase 3i's boundary launches: B6 on a
-     3-row slab of the grid, B7 on two planes at N = 256; and at
+     the main path's shapes (and B6 on a 3-row slab of the grid, and phase
+     3i's boundary launches: B6's row entry on a boundary row, B7 on two
+     planes at N = 256; and at
      zamba2-1.2b's: B9 at (8, 2048) and
      (2048, 2048), B10 at (8, 4096), bf16; at xlstm-1.3b's sLSTM norm: B9
      on fp32 rows at (8, 2048) and (2048, 2048); and at qwen3-moe-30b-a3b's
@@ -214,7 +215,8 @@ Phases, each fatal on failure:
      at storage offset 1), with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
-     function, beside the least time the card could take (``bound_ms``),
+     function (``F.conv2d`` for B6 with cuDNN's TF32 off, as the line
+     says), beside the least time the card could take (``bound_ms``),
      with the kernel/library ratio and the share of the bound; the kernel
      and the library call are each timed twice, in turns (kernel, library,
      library, kernel), and the mean kept;
@@ -3109,22 +3111,38 @@ def main() -> int:
     jdst = torch.empty_like(jsrc)
     weight = torch.tensor([[0.0, 0.25, 0.0], [0.25, 0.0, 0.25],
                            [0.0, 0.25, 0.0]], device=grid.device)[None, None]
+    # the F.conv2d yardsticks run in fp32 (``conv=True``: the time line
+    # prints cuDNN's TF32 setting), the arithmetic B6 does
     cases["jacobi"] = dict(
         kernel=lambda: jacobi_kernel.sweep(jsrc, jdst, n_cols=GRID,
-                                           brows=jplan.block_rows),
+                                           block=jplan.block_shape),
         plain=lambda: jacobi_kernel.plain(jsrc, torch.empty_like(jsrc), GRID),
         exact=True, dtype=torch.float32, bytes=2 * GRID * GRID * 4,
         ops=4 * (GRID - 2) * (GRID - 2),
-        library=lambda: F.conv2d(grid[None, None], weight))
-    # the boundary launches of phase 3i's shard bodies: B6 on a rank's
-    # 3-row slab, B7 on its two boundary planes at N = 256
+        library=lambda: F.conv2d(grid[None, None], weight), conv=True)
+    # B6 on a 3-row slab of the grid, in its own plan's tiles, and the
+    # boundary launches of phase 3i's shard bodies: B6's row entry on three
+    # rows where they lie (the mesh's boundary row), B7 on a rank's two
+    # boundary planes at N = 256
     slab = jacobi_ops.pitched(grid[GRID // 2 - 1:GRID // 2 + 2], jplan)
+    sblock = api.plan_for("jacobi", (1, GRID), torch.float32).block_shape
     cases["jacobi.slab"] = dict(
         kernel=lambda: jacobi_kernel.sweep(slab, torch.empty_like(slab),
-                                           n_cols=GRID),
+                                           n_cols=GRID, block=sblock),
         plain=lambda: jacobi_kernel.plain(slab, torch.empty_like(slab), GRID),
         exact=True, dtype=torch.float32, bytes=2 * 3 * GRID * 4,
-        ops=4 * (GRID - 2), library=lambda: F.conv2d(slab[None, None], weight))
+        ops=4 * (GRID - 2), library=lambda: F.conv2d(slab[None, None], weight),
+        conv=True)
+    halo = grid[GRID // 2 - 1].clone()
+    row_out = torch.empty_like(slab[1])
+    cases["jacobi.row"] = dict(
+        kernel=lambda: jacobi_kernel.sweep_row(halo, slab[1], slab[2], row_out,
+                                               n_cols=GRID),
+        plain=lambda: jacobi_kernel.plain_row(halo, slab[1], slab[2],
+                                              torch.empty_like(row_out), GRID),
+        exact=True, dtype=torch.float32, bytes=4 * GRID * 4,
+        ops=4 * (GRID - 2), library=lambda: F.conv2d(slab[None, None], weight),
+        conv=True)
     planes = lattice(LBM_SIZES[0], torch.float32, 7)[:, :2].reshape(
         19, -1).contiguous()
     cases["lbm.soa.slab"] = dict(
@@ -3157,6 +3175,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 5. times -------------------------------------------------------
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     time_ms(cases["triad"]["kernel"], samples=20)   # warm-up, discarded
     times = {}
     for name, case in cases.items():
@@ -3190,6 +3210,9 @@ def main() -> int:
         else:
             lib = (f"{t['library_ms']:.4f} ms" if library is not None else
                    f"none ({NO_LIBRARY[base]})")
+            if case.get("conv"):
+                lib += (f" (cudnn.allow_tf32="
+                        f"{torch.backends.cudnn.allow_tf32})")
         ratio = (f"kernel/library {t['ms'] / t['library_ms']:.3f}"
                  if library is not None else "kernel/library -")
         print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
@@ -3197,6 +3220,8 @@ def main() -> int:
               f"bound {t['bound_ms']:.4g} ms ({t['bound_by']}), "
               f"{ratio}, {t['bound_ms'] / t['ms']:.1%} of bound, "
               f"{case['bytes'] / t['ms'] / 1e6:.1f} GB/s effective")
+
+    torch.backends.cudnn.allow_tf32 = tf32
 
     # the host's cost of one call: what a decode step pays 73 times
     for name in ("rmsnorm", "rmsnorm.prefill", "rmsnorm.gated"):

@@ -11,7 +11,9 @@ element size) and the planner derives, in closed form and without search,
     collision holds no shared-memory tile, and its block is one site per
     thread of a CTA (``_plan_lbm``); a column-tiled family (``COL_TILED``,
     the cross-entropy) walks whole rows in passes of its CTA's threads
-    (``_plan_col_tiled``);
+    (``_plan_col_tiled``); a stencil family (``STENCIL``, Jacobi) owns a
+    2-D tile, a column tile of one vector a thread by a strip of rows
+    (``stencil_block``);
   * the per-stream skews and segment shift (``plan_streams``), scored under
     the interleaved-memory conflict model.
 
@@ -44,6 +46,7 @@ from repro_torch.core.layout import (
     CTA_THREADS,
     CTAS_PER_SM,
     VEC_BYTES,
+    WARP,
     cdiv,
     choose_block_shape,
     hopper_limits,
@@ -74,8 +77,10 @@ FAMILIES: dict[str, StreamSignature] = {
 # core never imports the kernels package.
 _LBM_Q = 19
 
-# In-flight row buffers per CTA when it differs from the stream count + 1:
-# a Jacobi output row needs the rows above, at and below it resident.
+# In-flight row buffers per CTA when it differs from the stream count + 1.
+# A Jacobi thread holds a ring of row vectors in registers (``kRing`` of
+# ``csrc/jacobi.cu``): the rows above, at and below its output row and the
+# rows whose loads are in flight below them.
 CTA_BUFFERS: dict[str, int] = {"jacobi": 4}
 
 # How many of a family's streams move a full planned array each launch;
@@ -103,6 +108,19 @@ MINOR_STREAM_BYTES: dict[str, Callable[[int, int, int], int]] = {
 # padded width; a column-tiled kernel (online softmax) folds a row in passes
 # and holds one pass of it at a time (``_plan_col_tiled``).
 COL_TILED = {"xent"}
+
+# Stencil families whose kernels tile both dims (``_plan_stencil``): a CTA
+# owns a column tile of one 16-B vector a thread and walks a strip of rows,
+# so the rows it holds are a ring of vectors, not full-width rows.
+STENCIL = {"jacobi"}
+
+# The rows a stencil CTA walks when the grid is tall enough: as many as a
+# thread's ring of row vectors holds (``CTA_BUFFERS``), so that a CTA issues
+# the loads of its whole strip but the two rows below it at once, one trip
+# to memory as the STREAM kernels make; the strip's two halo rows, read
+# again by the strips above and below while they are in flight, come from
+# L2.
+STRIP_ROWS = CTA_BUFFERS["jacobi"]
 
 # A column-tiled CTA walks rows until it has streamed at least this many
 # bytes, so a narrow row does not pay a CTA's reduction and launch alone;
@@ -393,6 +411,8 @@ class KernelPlan:
             f" minor unit {self.minor_unit}"
             + (" (column-tiled: the kernel reads rows of any width in"
                " place)" if self.kernel in COL_TILED else "")
+            + (" (2-D tiles: a strip of rows x a column tile a CTA)"
+               if self.kernel in STENCIL else "")
             + "\n"
             f"  streams: {sig.n_read}R+{sig.n_write}W x {sig.elem_bytes}B"
             f"  align={self.layout.align_bytes}B"
@@ -552,6 +572,8 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
     elif kernel in COL_TILED:
         padded, block = _plan_col_tiled(kernel, shape, size, sms, tp)
         unit = 1
+    elif kernel in STENCIL:
+        padded, block = _plan_stencil(kernel, shape, size, unit, sms, tp)
     elif len(shape) == 1:
         padded, block = _plan_1d(shape[0], size, unit, n_buffers, budget, sms)
     elif len(shape) == 2:
@@ -585,9 +607,13 @@ def _plan_uncached(kernel: str, shape: tuple[int, ...], name: str,
                           model=model, smem_budget=budget, sm_count=sms,
                           local=local)
         if plan.waste_bytes * 4 > f32.waste_bytes * size:
+            block = f32.block_shape
+            if kernel in STENCIL:       # the tile is vectors of this dtype
+                rows, width = f32.padded_shape
+                block = stencil_block(rows, width, size, sms)
             plan = dataclasses.replace(
                 plan, padded_shape=f32.padded_shape,
-                block_shape=f32.block_shape, minor_unit=f32.minor_unit,
+                block_shape=block, minor_unit=f32.minor_unit,
             )
     return plan
 
@@ -658,6 +684,45 @@ def _plan_2d(shape: tuple[int, ...], size: int, unit: int, n_buffers: int,
     rows, brows, bcols = _fit_block(max(int(r), 1), width, size, unit,
                                     n_buffers, budget, sms)
     return (rows, width), (brows, bcols)
+
+
+def stencil_block(rows: int, width: int, size: int,
+                  sms: int) -> tuple[int, int]:
+    """The 2-D tile one CTA of a stencil kernel (``STENCIL``) owns on a
+    (rows, width) grid.  Closed form, no search:
+
+      * columns: one 16-B vector a thread, ``CTA_THREADS`` threads, fewer
+        on a narrow grid (whole warps covering the width): the tile is
+        ``threads * VEC_BYTES / size`` columns.  A thread holds
+        ``CTA_BUFFERS`` row vectors in registers, not rows in shared
+        memory, so the width puts no bound on the strip;
+      * rows: a strip of ``STRIP_ROWS``, fewer where the grid would
+        otherwise hold under ``CTAS_PER_SM`` CTAs on every SM (column tiles
+        x strips), and at least one row: a 3-row boundary slab still
+        spreads over width / tile CTAs.  The kernel cuts the last strip
+        short itself, so the rows are not padded.
+
+    Returns (strip rows, tile columns)."""
+    vec = VEC_BYTES // size
+    threads = min(CTA_THREADS, round_up(cdiv(max(width, 1), vec), WARP))
+    tile = threads * vec
+    tiles = cdiv(max(width, 1), tile)
+    fill = rows * tiles // (CTAS_PER_SM * sms)
+    strip = max(1, min(STRIP_ROWS, fill, rows))
+    return strip, tile
+
+
+def _plan_stencil(kernel: str, shape: tuple[int, ...], size: int, unit: int,
+                  sms: int, tp: int = 1
+                  ) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(rows, cols) stencil layout: rows as they are, cols padded to the
+    vector unit as in ``_plan_2d`` (every row 16-B aligned), the block a
+    2-D tile (``stencil_block``)."""
+    if len(shape) != 2:
+        raise ValueError(f"{kernel}: needs a (rows, cols) shape, got {shape}")
+    width = round_up(max(int(shape[1]), 1), unit * tp)
+    rows = max(int(shape[0]), 1)
+    return (rows, width), stencil_block(rows, width, size, sms)
 
 
 def _plan_lbm(kernel: str, shape: tuple[int, ...],

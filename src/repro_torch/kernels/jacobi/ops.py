@@ -2,10 +2,10 @@
 
 Counterpart of ``repro.kernels.jacobi.ops`` (single device).  The planner
 lays the grid out: columns padded to the vector unit, so the row pitch
-keeps every row 16-B aligned, and the interior rows cut into blocks of rows
-per CTA.  The TPU reference pads the whole grid and builds three shifted
-row views on every sweep; the port keeps the grid in a pitched buffer and
-the kernel reads its neighbours in place.
+keeps every row 16-B aligned, and the grid cut into 2-D tiles, a strip of
+rows by a column tile a CTA.  The TPU reference pads the whole grid and
+builds three shifted row views on every sweep; the port keeps the grid in
+a pitched buffer and the kernel reads its neighbours in place.
 
 ``jacobi_sweeps`` allocates two pitched buffers once and ping-pongs them:
 each sweep overwrites the buffer the previous sweep read.  The caller's
@@ -18,9 +18,10 @@ controller and only the boundary rows travel.  The shard body is
 overlapped (the reference's docs/OVERLAP.md): the two halo shifts are
 issued first, the kernel sweeps the rank's pitched stripe, whose interior
 rows read only rows the rank holds, while they travel, and the two
-boundary rows are swept last, each as the middle row of a 3-row slab
-(the row from the neighbour, the rank's edge row and the one beside it)
-through the same kernel, so they round exactly as the interior does.  The
+boundary rows are swept last, each by one launch of the kernel's row entry
+that reads the row from the neighbour, the rank's edge row and the one
+beside it where they lie and writes the stripe's row in place, with the
+interior's arithmetic, so it rounds exactly as the interior does.  The
 global edge rows of the first and last rank are copied through: Jacobi's
 edges are not periodic.  ``_spmd_jacobi_blocking``, the exchange-then-
 compute body, is kept as the parity oracle and as the counter-example
@@ -91,11 +92,6 @@ def _slab(parts, width: int, m: int) -> torch.Tensor:
     return slab
 
 
-def _sweep_rows(slab: torch.Tensor, m: int) -> torch.Tensor:
-    """One sweep of a pitched slab; its rows 1..len-2 are the new rows."""
-    return kernel.sweep(slab, torch.empty_like(slab), n_cols=m)
-
-
 def _sweep_stripe(ctx, a: torch.Tensor, b: torch.Tensor, m: int,
                   plan: KernelPlan, *, overlapped: bool = True) -> None:
     """One sweep of this rank's pitched (nl, width) stripe ``a`` into
@@ -108,21 +104,21 @@ def _sweep_stripe(ctx, a: torch.Tensor, b: torch.Tensor, m: int,
     if overlapped and nl > 2:
         # 2) ... sweep the stripe while it travels: its interior rows
         # 1..nl-2 read rows 0..nl-1 only; rows 0 and nl-1 are copied ...
-        kernel.sweep(a, b, n_cols=m, brows=plan.block_rows)
-        # 3) ... and the boundary rows last, the only reads of the halos;
-        # the global edge rows stay copied
+        kernel.sweep(a, b, n_cols=m, block=plan.block_shape)
+        # 3) ... and the boundary rows last, the only reads of the halos,
+        # each swept in place into the stripe; the global edge rows stay
+        # copied
         above, below = above.wait(), below.wait()
         if idx > 0:
-            b[0] = _sweep_rows(_slab([above, a[0:1], a[1:2]], width, m), m)[1]
+            kernel.sweep_row(above[0], a[0], a[1], b[0], n_cols=m)
         if idx < n_shards - 1:
-            b[-1] = _sweep_rows(_slab([a[-2:-1], a[-1:], below], width, m),
-                                m)[1]
+            kernel.sweep_row(a[-2], a[-1], below[0], b[-1], n_cols=m)
         return
     # the stripe waits for both halos: the blocking body, and a stripe of
     # one or two rows, every one of them a boundary row
     ext = _slab([above.wait(), a, below.wait()], width, m)
     b.copy_(kernel.sweep(ext, torch.empty_like(ext), n_cols=m,
-                         brows=plan.block_rows)[1:-1])
+                         block=plan.block_shape)[1:-1])
     # the global edge rows pass through
     if idx == 0:
         b[0] = a[0]
@@ -164,7 +160,6 @@ def _spmd_jacobi_blocking(ctx, src):
 
 @register_kernel("jacobi", signature=StreamSignature(n_read=1, n_write=1),
                  ref=ref.jacobi_step, plan_args=_plan_args,
-                 cta_buffers=4,
                  # the stencil couples neighbouring rows: the row split
                  # carries a one-row halo exchange each way in its body
                  partitioning=Partitioning(in_axes=(("batch", None),),
@@ -172,15 +167,15 @@ def _spmd_jacobi_blocking(ctx, src):
                  spmd_body=_spmd_jacobi)
 def _launch_jacobi(plan, src):
     """One 5-point sweep on an (N, M) grid (boundaries copied).  A grid
-    already at the plan's pitch is read in place; any other is copied into
-    a pitched buffer first."""
+    already at the plan's pitch, 16-B aligned, is read in place; any other
+    is copied into a pitched buffer first."""
     n, m = src.shape
-    if m == plan.width and src.is_contiguous():
+    if m == plan.width and src.is_contiguous() and kernel.aligned(src):
         grid = src
     else:
         grid = pitched(src, plan)
     out = kernel.sweep(grid, torch.empty_like(grid), n_cols=m,
-                       brows=plan.block_rows)
+                       block=plan.block_shape)
     return out[:, :m]
 
 
@@ -189,7 +184,7 @@ def _sweeps(src: torch.Tensor, iters: int, plan: KernelPlan) -> torch.Tensor:
     a = pitched(src, plan)
     b = torch.empty_like(a)
     for _ in range(iters):
-        kernel.sweep(a, b, n_cols=m, brows=plan.block_rows)
+        kernel.sweep(a, b, n_cols=m, block=plan.block_shape)
         a, b = b, a
     return a[:, :m]
 

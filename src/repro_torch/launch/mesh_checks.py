@@ -460,7 +460,7 @@ def halo_card(mesh, grid: int, sweeps: int, lbm_sizes, steps: int,
         a = jacobi_ops.pitched(stripe, plan)
         b = torch.empty_like(a)
         res["interior_ms"] = _mesh_ms(lambda: jkernel.sweep(
-            a, b, n_cols=grid, brows=plan.block_rows), 10)
+            a, b, n_cols=grid, block=plan.block_shape), 10)
         del a, b, g
         res["link"] = _bare_shifts(mesh, stripe[:1], ring=False)
         del stripe

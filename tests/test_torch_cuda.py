@@ -62,8 +62,12 @@ layer width in bf16 two runs give the same bits (no float atomics in the
 dispatch or the combine) and agree with the CPU at the bf16 tolerance.
 The reduced qwen3-moe serves paged = dense and trains as the dense models.
 
-The Jacobi and LBM halo bodies on a (2, 1) mesh of two ranks of the card
-equal one device on the card bit for bit (the blocking Jacobi body too,
+The Jacobi sweep's 2-D tiles equal its plain version bit for bit at strip
+and tile edges (a width one under and over a tile, strip + 1..3 rows,
+inside a wider pitch), its boundary-row entry equals the 3-row slab path
+bit for bit, and rows off 16 B are refused before any launch.  The Jacobi
+and LBM halo bodies on a (2, 1) mesh of two ranks of the card equal one
+device on the card bit for bit (the blocking Jacobi body too,
 with a mask and over several steps), and B7 and B8 give every site of the
 same propagated lattice the same bits, which lets the LBM body collide an
 ivjk lattice's boundary planes with B7.
@@ -203,8 +207,13 @@ def test_phased_triad_reads_unaligned_bases(phases, dtype):
     torch.testing.assert_close(out, tkernel.plain(b, c, d), **tol(dtype))
 
 
+# the fp32 tile is 1024 columns, the bf16 one 2048: widths one under and
+# one over each; a (3, 16384) boundary slab; a grid whose plan has 275
+# strips of 4 rows by 16 tiles (8 in bf16)
 @pytest.mark.parametrize("shape", [(34, 130), (66, 257), (3, 3), (2, 5),
-                                   (1030, 1000)])
+                                   (1030, 1000), (40, 1023), (40, 1025),
+                                   (40, 2047), (40, 2049), (3, 16384),
+                                   (1100, 16384)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_jacobi_kernel_matches_plain(shape, dtype):
     grid = jops.init_grid(*shape, dtype, seed=3)
@@ -212,11 +221,84 @@ def test_jacobi_kernel_matches_plain(shape, dtype):
     src = jops.pitched(grid, plan)
     before = jkernel.LAUNCHES["jacobi"]
     got = jkernel.sweep(src, torch.empty_like(src), n_cols=shape[1],
-                        brows=plan.block_rows)
+                        block=plan.block_shape)
     assert jkernel.LAUNCHES["jacobi"] == before + 1
     exact(got, jkernel.plain(src, torch.empty_like(src), shape[1]))
     exact(jops.jacobi_sweeps(grid, 10),
           jops.jacobi_sweeps(grid.cpu(), 10).to(grid.device))
+
+
+@pytest.mark.parametrize("threads", [32, 256])
+@pytest.mark.parametrize("strip", [32, 5, 4, 3])
+@pytest.mark.parametrize("extra_rows", [1, 2, 3])
+@pytest.mark.parametrize("extra_cols", [-1, 0, 1])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jacobi_tiles_at_strip_and_tile_edges(dtype, extra_cols, extra_rows,
+                                              strip, threads):
+    """Tiles of ``threads`` 16-B vectors by strips of ``strip`` rows on a
+    grid of strip + 1..3 rows and a tile's width -1, 0, +1 columns, inside
+    a wider row pitch, the last columns padding: bit for bit with the plain
+    version, the pitch's columns past the width never written."""
+    vec = 16 // torch.tensor([], dtype=dtype).element_size()
+    tile = threads * vec
+    n, m = strip + extra_rows, tile + extra_cols
+    pitch = round_up(m + 1, vec)
+    src_buf = torch.full((n, pitch), 5.0, dtype=dtype, device="cuda")
+    dst_buf = torch.full((n, pitch), 7.0, dtype=dtype, device="cuda")
+    src, dst = src_buf[:, :m], dst_buf[:, :m]
+    src.copy_(jops.init_grid(n, m, dtype, seed=n + m))
+    n_cols = m - 3
+    got = jkernel.sweep(src, dst, n_cols=n_cols, block=(strip, tile))
+    exact(got, jkernel.plain(src, torch.empty_like(src), n_cols))
+    assert torch.all(dst_buf[:, m:] == 7.0)
+
+
+def test_jacobi_refuses_unaligned_rows():
+    """The tiles read 16-B vectors: a base or a row pitch off 16 B raises
+    before any launch, and ``api.launch`` lays such a grid out first."""
+    buf = torch.zeros(6 * 130 + 1, device="cuda")
+    off = buf[1:].view(6, 130)
+    off.copy_(jops.init_grid(6, 130, seed=1))
+    before = jkernel.LAUNCHES["jacobi"]
+    block = api.plan_for("jacobi", (4, 130), torch.float32).block_shape
+    with pytest.raises(ValueError, match="16-B aligned"):
+        jkernel.sweep(off, torch.empty(6, 130, device="cuda"), n_cols=130,
+                      block=block)
+    pitch = torch.zeros(6, 131, device="cuda")[:, :130]
+    with pytest.raises(ValueError, match="16-B aligned"):
+        jkernel.sweep(pitch, torch.zeros(6, 131, device="cuda")[:, :130],
+                      n_cols=130, block=block)
+    assert jkernel.LAUNCHES["jacobi"] == before
+    exact(api.launch("jacobi", off), api.launch("jacobi", off.clone()))
+
+
+@pytest.mark.parametrize("m", [16384, 1000, 130, 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jacobi_row_entry_equals_the_slab_path(m, dtype):
+    """A mesh rank's boundary row by the row entry (one launch, the halo
+    row where it was received, the stripe's rows in place) against the
+    3-row slab swept by the tiles, bit for bit, padding columns included;
+    the halo row at a storage offset too."""
+    plan = api.plan_for("jacobi", (4, m), dtype, local=True)
+    stripe = jops.pitched(jops.init_grid(6, m, dtype, seed=m), plan)
+    stripe[:, m:] = 3.0
+    for offset in (0, 1):
+        halo = at_storage_offset(jops.init_grid(1, m, dtype, seed=m + 1)[0],
+                                 offset)
+        slab = jops._slab([halo[None], stripe[0:1], stripe[1:2]],
+                          plan.width, m)
+        slab[1, m:] = 3.0
+        want = jkernel.sweep(slab, torch.empty_like(slab), n_cols=m,
+                             block=plan.block_shape)[1]
+        out = torch.empty_like(stripe)
+        before = jkernel.LAUNCHES["jacobi"]
+        jkernel.sweep_row(halo, stripe[0], stripe[1], out[0], n_cols=m)
+        assert jkernel.LAUNCHES["jacobi"] == before + 1
+        exact(out[0], want)
+        exact(out[0], jkernel.plain_row(halo.cpu(), stripe[0].cpu(),
+                                        stripe[1].cpu(),
+                                        torch.empty_like(out[0].cpu()),
+                                        m).to(out.device))
 
 
 def reference_geometry(plan):
@@ -284,7 +366,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         skernel.add2d(y, torch.zeros(4, 256, device="cuda")[:, :128])
     with pytest.raises(ValueError):
-        jkernel.sweep(y, y, n_cols=128)
+        jkernel.sweep(y, y, n_cols=128, block=(1, 128))
     with pytest.raises(ValueError, match="overlaps"):
         tkernel.triad2d(y, y.clone(), y.clone(), out=y)
     lat = torch.zeros(19, 256, device="cuda")

@@ -70,10 +70,11 @@ def test_pitched_sweep_passes_padding_through():
     assert plan.width == 256
     src = jops.pitched(tx, plan)
     src[:, 130:] = 7.0
-    out = jkernel.sweep(src, torch.empty_like(src), n_cols=130)
+    out = jkernel.sweep(src, torch.empty_like(src), n_cols=130,
+                        block=plan.block_shape)
     assert torch.equal(out[:, 130:], src[:, 130:])
     with pytest.raises(ValueError, match="overlap"):
-        jkernel.sweep(src, src, n_cols=130)
+        jkernel.sweep(src, src, n_cols=130, block=plan.block_shape)
     with pytest.raises(ValueError):
         api.launch("jacobi", torch.zeros(1, 5))
 

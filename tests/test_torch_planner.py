@@ -49,9 +49,14 @@ def test_plan_invariants(kernel, dtype, n):
     assert p.minor_unit in (layout.vector_unit(size), layout.vector_unit(4))
     assert p.width % p.minor_unit == 0
     assert p.width * size % layout.VEC_BYTES == 0
-    # block rows divide the padded rows; the block is full-width
-    assert p.rows % p.block_rows == 0
-    assert p.block_cols == p.width
+    # block rows divide the padded rows; the block is full-width.  A
+    # stencil's block is a 2-D tile whose kernel cuts the last strip short:
+    # its rows are not padded
+    if kernel in planner.STENCIL:
+        assert p.rows == shape[0] and p.block_rows <= p.rows
+    else:
+        assert p.rows % p.block_rows == 0
+        assert p.block_cols == p.width
     # one CTA's in-flight rows fit the budget, unless one row alone exceeds it
     n_buffers = planner.CTA_BUFFERS.get(kernel, p.signature.n_streams + 1)
     per_row = p.width * size * n_buffers
@@ -84,7 +89,11 @@ def test_narrow_dtype_falls_back_to_fp32_geometry():
 
 def test_budget_and_sm_count_shape_the_block():
     p = plan("jacobi", (16382, 16384), "float32")
-    assert p.block_rows == 1          # one 64 KiB row x 4 buffers > budget
+    # a 2-D tile: a strip of STRIP_ROWS rows by one 16-B vector a thread of
+    # a CTA's threads; a thread holds row vectors in registers, so the
+    # 64 KiB row puts no budget on the strip
+    assert p.block_shape == (planner.STRIP_ROWS,
+                             layout.CTA_THREADS * layout.VEC_BYTES // 4)
     wide = planner.plan_kernel("stream.copy", (1 << 22,), "float32",
                                smem_budget=1 << 30, sm_count=1)
     assert wide.block_rows > 1
