@@ -19,15 +19,15 @@ Phases, each fatal on failure:
      read just after, and every output is checked against the registered
      plain oracle (or the flat triad) on the card, and STREAM, the triad
      and the phase sweep bit for bit against the kernels' plain versions;
-  3b. serving at full Qwen3-4B width, its depth cut to 18 of 36 layers
-     to make room for 3e (bf16, seeded weights, one card):
+  3b. serving at full Qwen3-4B width, its depth cut to 2 of 36 layers
+     to make room for the later phases (bf16, seeded weights, one card):
      ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
      serves 16 seeded requests (prompts 32-256 tokens, 16-64 new tokens)
      with the paged KV cache and again with the dense one; fatal unless
      every request completes, paged tokens equal dense tokens, two requests
      re-run alone in the same slot geometry give the same tokens, and the
      rmsnorm launch counter, zeroed just before and read just after, is at
-     least 37 (2 x 18 layers + the final norm) a decode step.  One
+     least 5 (2 x 2 layers + the final norm) a decode step.  One
      ``make_prefill_step`` forward at B = 4, S = 512 (rmsnorm on 2048 x
      2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``
      runs at (2048, 4096);
@@ -55,9 +55,13 @@ Phases, each fatal on failure:
      row (rtol 1e-5); then the vocab-parallel backward on a (2, 2) mesh
      of four ranks on the card: ``xent`` and ``xent_grad`` at (256, 32000),
      logical vocab 31990, and the reduced fp32 model with a vocab of 500
-     padded to 512 (``padded_for_mesh``), its loss, gradient norm, every
-     gradient leaf and two AdamW steps, each rank's block against the
-     one-device port on the card (``mesh_backward_checks``); then the
+     padded to 512 (``padded_for_mesh``) and the reduced fp32 moe (top-2
+     of 8 at capacity factor 1, ``moe_groups`` 1, remat on), vlm, encdec,
+     hybrid and ssm models (``MESH_FAMILIES``): each model's loss,
+     gradient norm, every gradient leaf and two AdamW steps, each rank's
+     block against the one-device port on the card, its unsharded leaves
+     bit-equal on every rank, B12 and no B11 in each job, B9 and B10 where
+     the model has them (``mesh_backward_checks``); then the
      full-width Qwen2-0.5B backward in fp32 from ``model.init`` on one
      device against a (1, 2) mesh of two ranks on the card, the loss, the
      norm and every gradient leaf (``full_width_backward_check``, whose
@@ -65,7 +69,7 @@ Phases, each fatal on failure:
      ``python -m repro_torch.launch.train --mesh 1x2``
      (``launch.train.main``) spawns two ranks on the one card (gloo, its
      collectives staged through pinned host buffers) that train Qwen2-0.5B
-     at full width from seed 0 for 4 steps of the training phase's batches
+     at full width from seed 0 for 3 steps of the training phase's batches
      (``--baseline``: the unpadded vocab, so the weights are the training
      phase's), a checkpoint every 2 steps gathered into the one-device
      layout, and one more step profiled on rank 0.  Fatal unless the first
@@ -73,30 +77,45 @@ Phases, each fatal on failure:
      0 under warmup: both are forwards of the initial weights), every loss
      is finite, the unsharded leaves of the state hold the same bits on both
      ranks, B12 ran once a rank a step and B11 never; a second launch
-     restores step 2 and replays steps 2-3, step 2's loss bit-equal.  The
+     restores step 2 and replays step 2, its loss bit-equal.  The
      bf16 gradient norms are printed beside the one-device run's, not
      gated (the training phase prints the one-device step-0 norm beside
      the same batch's as two microbatches, the spread rounding gives).
      ``spmd:`` lines give ms a step, tokens/s, each rank's peak memory, the
      collective transport, the collectives' calls, bytes and host time, and
-     the profiled step's busy share.  Two ranks on
-     one card stand in for ranks on separate cards: their times are not
-     scaling numbers;
-  3e. the hybrid at full zamba2-1.2b width, its depth cut to 18 of its 38
-     Mamba2 layers to make room for 3f (d_model 2048, d_inner 4096, 64 SSM
-     heads of 64, state 64; one shared attention block applied after every
-     6, so 3 times; vocab 32000), bf16, seeded weights,
+     the profiled step's busy share.  Phase 3d's second part runs after
+     3h, whose one-device whisper-tiny run it is held against
+     (``whisper_mesh_phase``): ``launch.train --arch whisper-tiny`` at
+     full width, 4 steps of batch 8 x 448 and one profiled, on a (2, 1)
+     mesh (``--baseline``: B11 on each rank's 4 rows) and on a (1, 2) one
+     (the vocab padded to the model axis: B12 on each half); fatal unless
+     every loss is finite and equal on both ranks, B11 ran once a step and
+     B12 never on (2, 1) and the reverse on (1, 2), the unsharded leaves
+     hold the same bits on both ranks, and the losses of steps 0 and 1
+     (forwards of the initial weights: step 0's rate is 0 under warmup)
+     are within ``WHISPER_MESH_RTOL`` (1e-4, argued where it is defined)
+     of phase 3h's one-device steps 0 and 1 on (2, 1) and within 1e-6 of
+     one-device forwards of the padded config's seeded weights on the
+     same batches on (1, 2), with
+     ``spmd:`` and ``profile:`` lines.  Two ranks on one card stand in
+     for ranks on separate cards: their times are not scaling numbers;
+  3e. the hybrid at full zamba2-1.2b width, its depth cut to 12 of its 38
+     Mamba2 layers to make room for the later phases (d_model 2048,
+     d_inner 4096, 64 SSM heads of 64, state 64; one shared attention
+     block applied after every 6, so at two stages, each with its own KV
+     cache; vocab 32000), bf16, seeded
+     weights,
      one card: ``ContinuousBatcher`` with 3b's slots, max_len, prefill
      chunk and 16 requests, paged and dense; fatal unless every request
      completes, paged tokens equal dense tokens, requests 0 and 1 re-run
      alone in the same slot geometry give the batched tokens (a reused
      slot's SSM state is reset), and the counters, zeroed just before and
-     read just after, show at least 25 B9 launches (18 mamba ln1, 3 x 2 of
-     the shared block, the final norm) and 18 B10 launches (each Mamba2
+     read just after, show at least 17 B9 launches (12 mamba ln1, 2 x 2
+     of the shared block, the final norm) and 12 B10 launches (each Mamba2
      gate and norm) a decode step; a ``profile:`` line of one decode tick;
      one ``make_prefill_step`` forward at B = 4, S = 512 (two chunks of
      the SSD, where the reference's forward is NaN; B10 on 2048 x 4096
-     rows inside the model) with finite logits and exactly 25 and 18
+     rows inside the model) with finite logits and exactly 17 and 12
      launches; the reduced fp32 hybrid's loss and every gradient leaf at
      S = 300 (across a chunk) on the card (B9, B10, B11 under their
      autograd Functions, remat on) against the CPU, loss rtol 1e-5, each
@@ -104,17 +123,17 @@ Phases, each fatal on failure:
      bf16 forward each of minicpm-2b and qwen3-14b at full width, B = 1,
      S = 512, fatal unless the logits are finite and B9 ran 81 times
      (2 x 40 layers + the final norm), each model freed before the next;
-  3f. the ssm family at full xlstm-1.3b width, its depth cut to 24 of its
-     48 layers (3 of its 6 x [7 mLSTM, 1 sLSTM] blocks) to make room for
-     3g (d_model 2048, mLSTM d_inner 4096 in 4 heads of 1024;
+  3f. the ssm family at full xlstm-1.3b width, its depth cut to 8 of its
+     48 layers (1 of its 6 x [7 mLSTM, 1 sLSTM] blocks) to make room for
+     the later phases (d_model 2048, mLSTM d_inner 4096 in 4 heads of 1024;
      vocab 50304; no attention), bf16, seeded weights, one card:
      ``ContinuousBatcher`` with 3b's slots, max_len, prefill chunk and 16
      requests, paged and dense; fatal unless every request completes, paged
      tokens equal dense tokens, requests 0 and 1 re-run alone in the same
      slot geometry give the batched tokens (a reused slot's mLSTM and sLSTM
      state is reset), and the counters, zeroed just before and read just
-     after, show at least 28 B9 launches (24 ln1, 3 sLSTM output norms on
-     fp32 rows, the final norm) and 21 B10 launches (each mLSTM gate and
+     after, show at least 10 B9 launches (8 ln1, 1 sLSTM output norm on
+     fp32 rows, the final norm) and 7 B10 launches (each mLSTM gate and
      norm) a decode step, over the runs and in one decode step alone; a
      ``profile:`` line of one decode tick and one of the mLSTM state
      update's ops on the 2.8 GB of matrix memory (CUDA events, its share
@@ -210,7 +229,9 @@ Phases, each fatal on failure:
      on fp32 rows at (8, 2048) and (2048, 2048); and at qwen3-moe-30b-a3b's
      ln1 and ln2: B9 at (8, 2048) and (2048, 2048) bf16; at pixtral-12b's
      norms: B9 at (8, 5120) and (6144, 5120) bf16; at whisper-tiny's loss:
-     B11 at (3584, 51865) fp32 and bf16 on the unpadded logits; at
+     B11 at (3584, 51865) fp32 and bf16 on the unpadded logits, and at
+     its meshes' shapes, B11 on a (2, 1) rank's (1792, 51865) and B12 on
+     a (1, 2) rank's (3584, 25984) half of the padded vocab; at
      minicpm-2b's vocab: B11 at (2048, 122753) fp32; B11 and B12 on views
      at storage offset 1), with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
@@ -265,9 +286,10 @@ OMEGA = 1.2
 SEGMENTS = 8               # segmented triad: 8 segments, align 128, shift 16
 # serving at full Qwen3-4B width
 SERVE_ARCH = "qwen3-4b"
-# the depth of phase 3b, cut from 36 layers so that the script with
-# phase 3e stays near 11 minutes; every width is the config's
-SERVE_LAYERS = 18
+# the depth of phase 3b, cut from 36 layers to 2 so that the script with
+# whisper-tiny on two meshes stays near 14 minutes, far enough from its
+# 20-minute limit on a slow host; every width is the config's
+SERVE_LAYERS = 2
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 16
 SERVE_PROMPT, SERVE_GEN = (32, 256), (16, 64)
 PREFILL_B, PREFILL_S = 4, 512
@@ -283,9 +305,11 @@ TRAIN_PEAK, TRAIN_WARMUP = 3e-4, 2
 # the two other dense configs
 HYBRID_ARCH = "zamba2-1.2b"
 # the depth of phase 3e, cut from 38 Mamba2 layers (6 shared-block
-# applications) so that the script with phase 3f stays near 12 minutes;
-# every width is the config's
-HYBRID_LAYERS = 18
+# applications) to 12 (2, so that the shared parameters serve two stages,
+# each with its own cache, and the second Mamba run reads the shared
+# block's output) so that the script stays near 14 minutes; every width is
+# the config's
+HYBRID_LAYERS = 12
 HYBRID_TRAIN_SEQ = 300
 DENSE_ARCHS = ("minicpm-2b", "qwen3-14b")
 DENSE_PREFILL_S = 512
@@ -294,10 +318,10 @@ DENSE_PREFILL_S = 512
 # reduced xlstm's train step at a length past the one where the reference's
 # mLSTM gradient is NaN
 XLSTM_ARCH = "xlstm-1.3b"
-# the depth of phase 3f, cut from 48 layers (3 of its 6 blocks of 7 mLSTM
-# and 1 sLSTM) so that the script with phase 3g stays near 13 minutes;
-# every width is the config's
-XLSTM_LAYERS = 24
+# the depth of phase 3f, cut from 48 layers to 1 of its 6 blocks of 7
+# mLSTM and 1 sLSTM so that the script stays near 14 minutes; every width
+# is the config's
+XLSTM_LAYERS = 8
 XLSTM_TRAIN_SEQ = 300
 # phase 3g: the moe family at full qwen3-moe-30b-a3b width (the dense
 # phase's slots, max_len, chunk and requests): the whole 48-layer model on
@@ -343,7 +367,7 @@ XENT_MINICPM = (2048, 122_753, 122_753)
 # phase 3i: the Jacobi and LBM halo bodies on a (2, 1) mesh of two ranks
 # of the one card, each rank a half of the main path's grid and lattices
 HALO_MESH = (2, 1)
-SPMD_MESH, SPMD_STEPS, SPMD_CKPT_EVERY = "1x2", 4, 2
+SPMD_MESH, SPMD_STEPS, SPMD_CKPT_EVERY = "1x2", 3, 2
 SPMD_DIR = ROOT / "build" / "chip_smoke_spmd"
 # the mesh's first two losses against the one-device run's: the schedule's
 # warmup gives step 0 a rate of 0, so both are forwards of the same weights
@@ -354,6 +378,39 @@ LOSS_RTOL = 1e-6
 # card, and the loss alone at (tokens, vocab, logical vocab), both against
 # the one-device port on the card from the same inputs
 MESH_CHECK, MESH_CHECK_VOCAB, MESH_CHECK_LR = (2, 2), 500, 1e-3
+# the other families on the same (2, 2) mesh (ROADMAP A11.4), reduced fp32
+# (name -> arch, config changes): the MoE with real routing, top-2 of 8 at
+# the capacity factor where assignments drop, moe_groups 1 (every
+# config's: each rank gathers the slot ids) and remat on (its recomputation
+# gathers again, on autograd's device thread)
+MESH_FAMILIES = {
+    "moe": (MOE_ARCH, dict(top_k=2, capacity_factor=MOE_TRAIN_CF,
+                           moe_groups=1, remat=True)),
+    "vlm": (VLM_ARCH, {}),
+    "encdec": (ENCDEC_ARCH, {}),
+    "hybrid": (HYBRID_ARCH, {}),
+    "ssm": (XLSTM_ARCH, {}),
+}
+MESH_FAMILY_SEQ = 64
+# phase 3d's second part, after phase 3h: whisper-tiny at full width trained
+# through the launcher on a (2, 1) mesh of the card (--baseline: B11 on
+# each rank's 4 of the 8 rows x 448) and on a (1, 2) one (the vocab padded
+# for the model axis, B12 on each half), a few steps each
+WHISPER_MESH_STEPS = 4
+WHISPER_MESH_DIR = ROOT / "build" / "chip_smoke_whisper_mesh"
+# (2, 1)'s step-0 loss against phase 3h's one-device run of the same
+# weights and batch.  A rank computes the same rows with every GEMM's M
+# halved (1,792 tokens, 6,000 frames); where cuBLAS picks another kernel
+# for the smaller M, a bf16 output may round to its neighbour, one bf16
+# ulp (2^-8 of it).  The loss is the mean of 3,584 rows' NLL, each moved
+# by its label logit and its log-sum-exp, so at most 2 ulps of the
+# largest logit a row, and those roundings have random signs over the
+# rows: about 2 * 2^-8 / sqrt(3584) = 1.3e-4 of the logits' scale (below
+# 1, the init's tied head), 1.2e-5 of the initial loss ln(51865) = 10.9.
+# The gate is 1e-4 relative, eight times that and inside 1e-3.  Step 1 is
+# held the same way: step 0's rate is 0 under warmup in both runs, so
+# step 1 is a forward of the initial weights on batch 1 in both.
+WHISPER_MESH_RTOL = 1e-4
 # the full-width fp32 backward, one device against a (1, 2) mesh: the loss,
 # the global gradient norm, each leaf as a share of its largest magnitude
 # (the argument is in full_width_backward_check)
@@ -1494,7 +1551,7 @@ def moe_phase() -> dict[str, int]:
     return counts
 
 
-def multimodal_phase() -> dict[str, int]:
+def multimodal_phase() -> tuple[dict[str, int], list[dict]]:
     """Phase 3h: the vlm family at full pixtral-12b width and the encdec
     family at full whisper-tiny width.  pixtral-12b: the whole model
     initialised on the card, a prefill forward at full depth behind its
@@ -1506,7 +1563,8 @@ def multimodal_phase() -> dict[str, int]:
     twice, training through ``Trainer`` (B11 a step, reading the loss's
     logits in place).  Then the reduced vlm and encdec train steps on the
     card against the CPU.  Each counter is zeroed just before a run and read
-    just after; returns the launches of each kernel over the phase."""
+    just after; returns the launches of each kernel over the phase and
+    whisper-tiny's training metrics."""
     import dataclasses
     import gc
     import shutil
@@ -1816,7 +1874,7 @@ def multimodal_phase() -> dict[str, int]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero()
-    metrics = run.train(SEED)
+    metrics = whisper_metrics = run.train(SEED)
     rms, xent = read()
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in metrics]
@@ -1918,7 +1976,7 @@ def multimodal_phase() -> dict[str, int]:
               f"1e-4 of its scale (worst {worst:.3g} of scale): ok")
         del grads, want_g
     print(f"multimodal: the phase took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, whisper_metrics
 
 
 def training_phase() -> tuple[dict[str, int], list[float]]:
@@ -2215,17 +2273,20 @@ def partial_kernel_checks() -> None:
 def mesh_backward_checks() -> None:
     """The vocab-parallel loss and backward on the card, over gloo with
     the collectives staged through pinned host buffers: ``api.launch
-    ("xent")`` and ``xent_grad`` on a (2, 2) mesh at ``MESH_XENT``, and the
-    reduced fp32 model padded for the model axis (``MESH_CHECK_VOCAB``),
-    its step-0 loss, global gradient norm and every gradient leaf, then two
-    AdamW steps, against the one-device port on the card from the same
-    numpy inputs.  Tolerances as ``tests/test_torch_spmd.py`` holds the
-    mesh to the reference: the loss rtol 1e-5, the cross-entropy gradient
-    rtol 1e-5 / atol 1e-9, the norm rtol 5e-3, each model gradient leaf
-    rtol 1e-4 with an atol of 1e-2 of its scale, the loss after the first
-    update rtol 2e-3.  Each rank's block is held against the same block
-    cut from the one-device result.  These launches compare; they are not
-    the main path's."""
+    ("xent")`` and ``xent_grad`` on a (2, 2) mesh at ``MESH_XENT``; the
+    reduced fp32 model padded for the model axis (``MESH_CHECK_VOCAB``);
+    and the other families' reduced fp32 models (``MESH_FAMILIES``): each
+    model's step-0 loss, global gradient norm and every gradient leaf,
+    then two AdamW steps, against the one-device port on the card from the
+    same numpy inputs.  Tolerances as ``tests/test_torch_spmd.py`` holds
+    the mesh to the reference: the loss rtol 1e-5, the cross-entropy
+    gradient rtol 1e-5 / atol 1e-9, the norm rtol 5e-3, each model
+    gradient leaf rtol 1e-4 with an atol of 1e-2 of its scale, the loss
+    after the first update rtol 2e-3; the unsharded leaves bit-equal on
+    every rank; each family's job launches B12 and not B11, and B9 and
+    B10 where its model has them.  Each rank's block is held against the
+    same block cut from the one-device result.  These launches compare;
+    they are not the main path's."""
     import dataclasses
 
     import numpy as np
@@ -2246,17 +2307,34 @@ def mesh_backward_checks() -> None:
 
     d, m = MESH_CHECK
     sizes = {"data": d, "model": m}
+    schedule = ("cosine", MESH_CHECK_LR, 0, 10)
+
+    def train_job(cfg, tree, data):
+        host = interop.params_from_jax(tree, cfg, device="cpu")
+        state = map_leaves(interop.to_numpy, {
+            "params": host,
+            "opt": adamw.init_state(host, adamw.AdamWConfig())})
+        return ("train", dict(cfg=cfg, state=state, data_cfg=data,
+                              steps_run=2, schedule=schedule))
+
     cfg, _ = dataclasses.replace(
         reduce_for_smoke(get_config(TRAIN_ARCH)),
         vocab_size=MESH_CHECK_VOCAB).padded_for_mesh(m)
-    model = build_model(cfg)
-    tree = numpy_params(model.param_defs(), SEED)
-    host = interop.params_from_jax(tree, cfg, device="cpu")
-    state = map_leaves(interop.to_numpy, {
-        "params": host, "opt": adamw.init_state(host, adamw.AdamWConfig())})
-    data = DataConfig(vocab_size=cfg.vocab_logical, seq_len=64,
-                      global_batch=4)
-    schedule = ("cosine", MESH_CHECK_LR, 0, 10)
+    models = {TRAIN_ARCH: (cfg, numpy_params(build_model(cfg).param_defs(),
+                                             SEED),
+                           DataConfig(vocab_size=cfg.vocab_logical,
+                                      seq_len=64, global_batch=4))}
+    for fam, (arch, changes) in MESH_FAMILIES.items():
+        c = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                                **changes)
+        models[fam] = (c, numpy_params(build_model(c).param_defs(), SEED,
+                                       true_fan_in=True, cfg=c),
+                       DataConfig(vocab_size=c.vocab_size,
+                                  seq_len=MESH_FAMILY_SEQ, global_batch=4,
+                                  n_img_tokens=c.n_img_tokens,
+                                  n_frames=(c.n_frames if c.family ==
+                                            "encdec" else 0),
+                                  d_model=c.d_model))
     rng = np.random.default_rng(SEED)
     t, v, lv = MESH_XENT
     x = (3 * rng.standard_normal((t, v))).astype(np.float32)
@@ -2264,30 +2342,15 @@ def mesh_backward_checks() -> None:
     t0 = time.perf_counter()
     ranks = mesh_lib.spawn(
         mesh_checks.run, MESH_CHECK, device="cuda",
-        args=([("xent", dict(logits=x, labels=labels, logical_v=lv)),
-               ("train", dict(cfg=cfg, state=state, data_cfg=data,
-                              steps_run=2, schedule=schedule))],))
+        args=([("xent", dict(logits=x, labels=labels, logical_v=lv))]
+              + [train_job(*models[name]) for name in models],))
     secs = time.perf_counter() - t0
 
     xc, lc = torch.from_numpy(x).cuda(), torch.from_numpy(labels).cuda()
     want_loss = api.launch("xent", xc, lc, logical_v=lv)
     want_grad = xent_ops.xent_grad(xc, lc, 1.0, logical_v=lv)
-    params = interop.params_from_jax(tree, cfg)
-    loss, grads = steps.value_and_grad(model, params, make_batch(data, 0))
-    gnorm = adamw.global_norm(grads)
-    step_fn = steps.make_train_step(
-        model, adamw.AdamWConfig(),
-        make_schedule(schedule[0], peak=schedule[1], warmup=schedule[2],
-                      total=schedule[3]))
-    st = {"params": params, "opt": adamw.init_state(params,
-                                                    adamw.AdamWConfig())}
-    losses = []
-    for i in range(2):
-        st, metrics = step_fn(st, make_batch(data, i))
-        losses.append(metrics["loss"])
-
-    worst = 0.0
-    for r, (xo, tr) in enumerate(ranks):
+    for r, ranked in enumerate(ranks):
+        xo = ranked[0]
         where = f"spmd: mesh {MESH_CHECK} rank {r}"
         if xo["launches"]["xent.partial"] < 1 or xo["launches"]["xent"]:
             fail(f"{where}: xent launches {xo['launches']} (want B12, not "
@@ -2297,37 +2360,81 @@ def mesh_backward_checks() -> None:
         check_close(f"{where} xent_grad block", xo["grad"],
                     specs.shard_leaf(want_grad, xo["spec"], sizes,
                                      rank=r).cpu(), 1e-5, 1e-9)
-        check_close(f"{where} model loss", torch.tensor(tr["loss0"]),
-                    loss.cpu(), 1e-5, 0.0)
-        check_close(f"{where} gradient norm", torch.tensor(tr["gnorm0"]),
-                    gnorm.cpu(), 5e-3, 0.0)
-        for path, g in leaves(grads):
-            name = "/".join(path)
-            block = specs.shard_leaf(g, pick(tr["specs"]["params"], path),
-                                     sizes, rank=r).cpu()
-            scale = float(g.abs().max())
-            err = check_close(f"{where} gradient {name}",
-                              pick(tr["grads0"], path), block, 1e-4,
-                              1e-2 * scale)
-            worst = max(worst, err / scale)
-        for i, (got, want) in enumerate(zip(tr["losses"], losses)):
-            check_close(f"{where} loss of step {i}", torch.tensor(got),
-                        want.cpu(), 1e-5 if i == 0 else 2e-3, 0.0)
-        if tr["digests"] != ranks[0][1]["digests"]:
-            fail(f"{where}: unsharded leaves differ from rank 0's")
+    del want_grad, xc
+
+    def hold(name, got, cfg, tree, data) -> str:
+        """Every rank's ``train`` result against the one-device port on
+        the card; the check line's text."""
+        model = build_model(cfg)
+        params = interop.params_from_jax(tree, cfg)
+        loss, grads = steps.value_and_grad(model, params,
+                                           make_batch(data, 0))
+        gnorm = adamw.global_norm(grads)
+        step_fn = steps.make_train_step(
+            model, adamw.AdamWConfig(),
+            make_schedule(schedule[0], peak=schedule[1], warmup=schedule[2],
+                          total=schedule[3]))
+        st = {"params": params,
+              "opt": adamw.init_state(params, adamw.AdamWConfig())}
+        losses = []
+        for i in range(2):
+            st, metrics = step_fn(st, make_batch(data, i))
+            losses.append(metrics["loss"])
+        worst, n_leaves = 0.0, 0
+        for r, tr in enumerate(got):
+            where = f"spmd: mesh {MESH_CHECK} rank {r} {name}"
+            check_close(f"{where} model loss", torch.tensor(tr["loss0"]),
+                        loss.cpu(), 1e-5, 0.0)
+            check_close(f"{where} gradient norm", torch.tensor(tr["gnorm0"]),
+                        gnorm.cpu(), 5e-3, 0.0)
+            n_leaves = 0
+            for path, g in leaves(grads):
+                if g is None:
+                    continue
+                n_leaves += 1
+                block = specs.shard_leaf(g, pick(tr["specs"]["params"],
+                                                 path), sizes, rank=r).cpu()
+                scale = float(g.abs().max())
+                err = check_close(f"{where} gradient {'/'.join(path)}",
+                                  pick(tr["grads0"], path), block, 1e-4,
+                                  1e-2 * scale)
+                worst = max(worst, err / max(scale, 1e-30))
+            for i, (a, b) in enumerate(zip(tr["losses"], losses)):
+                check_close(f"{where} loss of step {i}", torch.tensor(a),
+                            b.cpu(), 1e-5 if i == 0 else 2e-3, 0.0)
+            if tr["digests"] != got[0]["digests"]:
+                fail(f"{where}: unsharded leaves differ from rank 0's")
+            launched = tr["launches"]
+            need_rms = cfg.norm == "rmsnorm"
+            need_gated = cfg.family in ("hybrid", "ssm")
+            if (launched["xent.partial"] < 1 or launched["xent"]
+                    or (need_rms and launched["rmsnorm.plain"] < 1)
+                    or (need_gated and launched["rmsnorm.gated"] < 1)):
+                fail(f"{where}: launches {launched} (want B12 and no B11"
+                     + (", B9" if need_rms else "")
+                     + (", B10" if need_gated else "") + ")")
+        return (f"{name} ({cfg.family}) loss {got[0]['loss0']!r} vs "
+                f"{float(loss)!r}, norm {got[0]['gnorm0']!r} vs "
+                f"{float(gnorm)!r}, {n_leaves} leaves (worst "
+                f"{worst:.3g} of scale), losses {got[0]['losses']} vs "
+                f"{[float(v) for v in losses]}, launches a rank "
+                f"{got[0]['launches']}")
+
+    lines = [hold(name, [ranked[1 + i] for ranked in ranks], *models[name])
+             for i, name in enumerate(models)]
     print(f"check: vocab-parallel backward on a {MESH_CHECK} mesh of "
           f"{d * m} ranks on the card (gloo, pinned host buffers): xent "
           f"{MESH_XENT} loss and xent_grad blocks within rtol 1e-5 of the "
           f"one-device run, B12 on every rank; reduced {TRAIN_ARCH} fp32 "
-          f"with vocab {cfg.vocab_logical} padded to {cfg.vocab_size}: loss "
-          f"{ranks[0][1]['loss0']!r} vs {float(loss)!r}, gradient norm "
-          f"{ranks[0][1]['gnorm0']!r} vs {float(gnorm)!r}, every one of "
-          f"{len(list(leaves(grads)))} gradient leaves within rtol 1e-4 / "
-          f"atol 1e-2 of its scale (worst {worst:.3g} of scale), losses "
-          f"{ranks[0][1]['losses']} vs {[float(v) for v in losses]}, "
-          f"unsharded leaves bit-equal on every rank; {secs:.1f} s for the "
-          f"spawn: ok")
-    del params, grads, st, want_grad, xc
+          f"with vocab {cfg.vocab_logical} padded to {cfg.vocab_size} and "
+          f"the reduced fp32 {', '.join(MESH_FAMILIES)} families, each "
+          f"model's loss within rtol 1e-5, gradient norm within rtol 5e-3, "
+          f"every gradient leaf within rtol 1e-4 / atol 1e-2 of its scale, "
+          f"the loss after an update within rtol 2e-3 of the one-device "
+          f"port, unsharded leaves bit-equal on every rank; {secs:.1f} s "
+          f"for the spawn: ok")
+    for line in lines:
+        print(f"check: mesh {MESH_CHECK}: {line}")
     torch.cuda.empty_cache()
 
 
@@ -2558,6 +2665,46 @@ def halo_exposure(r0: dict, copy_bytes_per_s: float) -> None:
               f"less interior {c['ms'] - c['interior_ms']:.4f} ms")
 
 
+def check_launch_ranks(ranks: list[dict], where: str, steps: int,
+                       kernel: str, other: str) -> list[float]:
+    """The gates on the ranks of one ``launch.train`` run: each ran steps 0
+    to ``steps`` - 1 with finite losses equal to rank 0's, launched
+    ``kernel`` once a step and ``other`` never, and holds rank 0's
+    unsharded leaves bit for bit.  Returns rank 0's losses."""
+    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    for r in ranks:
+        mine = [m["loss"] for m in r["metrics"]]
+        if [m["step"] for m in r["metrics"]] != list(range(steps)):
+            fail(f"{where}: rank {r['rank']} ran steps "
+                 f"{[m['step'] for m in r['metrics']]}")
+        if not all(math.isfinite(v) for v in mine):
+            fail(f"{where}: rank {r['rank']}: non-finite loss in {mine}")
+        if mine != losses:
+            fail(f"{where}: rank {r['rank']} losses {mine} differ from rank "
+                 f"0's {losses}")
+        if r["launches"][kernel] != steps or r["launches"][other] != 0:
+            fail(f"{where}: rank {r['rank']} launches {r['launches']} (want "
+                 f"{kernel} {steps}, one a step, and {other} 0)")
+        digests, first = r["digests"], ranks[0]["digests"]
+        diff = sorted(k for k in digests.keys() | first.keys()
+                      if digests.get(k) != first.get(k))
+        if diff:
+            fail(f"{where}: rank {r['rank']}'s unsharded leaves {diff} "
+                 f"differ from rank 0's")
+    return losses
+
+
+def print_profile(label: str, prof: dict) -> None:
+    """The ``profile:`` line of a launcher's profiled train step."""
+    print(f"profile: {label}: {prof['wall_ms']:.3f} ms, device kernels "
+          f"{prof['busy_ms']:.3f} ms (busy "
+          f"{prof['busy_ms'] / prof['wall_ms']:.1%}) in {prof['launches']} "
+          f"launches, collectives {prof['comm']['calls']} calls, "
+          f"{prof['comm']['bytes']} bytes, "
+          f"{prof['comm']['seconds'] * 1e3:.1f} ms on the host's clock; "
+          + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+
+
 def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
     """Phase 3d: the vocab-parallel loss and backward checked on the card,
     then vocab-parallel training of Qwen2-0.5B at full width on a (1, 2)
@@ -2588,30 +2735,13 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
                                         "--profile"])
     secs = time.perf_counter() - t0
     tokens = TRAIN_SEQ * TRAIN_BATCH
-    for r in ranks:
-        losses = [m["loss"] for m in r["metrics"]]
-        if [m["step"] for m in r["metrics"]] != list(range(SPMD_STEPS)):
-            fail(f"spmd: rank {r['rank']} ran steps "
-                 f"{[m['step'] for m in r['metrics']]}")
-        if not all(math.isfinite(v) for v in losses):
-            fail(f"spmd: rank {r['rank']}: non-finite loss in {losses}")
-        if r["launches"]["xent.partial"] != SPMD_STEPS or \
-                r["launches"]["xent"] != 0:
-            fail(f"spmd: rank {r['rank']} launches {r['launches']} (want "
-                 f"xent.partial {SPMD_STEPS}, one a step, and xent 0)")
-        if losses != [m["loss"] for m in ranks[0]["metrics"]]:
-            fail(f"spmd: rank {r['rank']} losses {losses} differ from rank "
-                 f"0's")
-    losses = [m["loss"] for m in ranks[0]["metrics"]]
+    losses = check_launch_ranks(ranks, "spmd", SPMD_STEPS, "xent.partial",
+                                "xent")
     one = [m["loss"] for m in train_metrics]
     rel = [abs(losses[i] - one[i]) / abs(one[i]) for i in range(2)]
     if max(rel) > LOSS_RTOL:
         fail(f"spmd: losses {losses[:2]} vs the one-device run's {one[:2]}:"
              f" relative {rel} > {LOSS_RTOL}")
-    diff = [k for k in ranks[0]["digests"]
-            if ranks[1]["digests"].get(k) != ranks[0]["digests"][k]]
-    if diff or ranks[0]["digests"].keys() != ranks[1]["digests"].keys():
-        fail(f"spmd: unsharded leaves differ between the ranks: {diff}")
     step_ms = statistics.median(m["step_s"] for m in
                                 ranks[0]["metrics"][1:]) * 1e3
     prof = ranks[0]["profile"]
@@ -2641,15 +2771,9 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
           f"{len(ranks[0]['digests'])} unsharded leaves bit-equal on both "
           f"ranks; {secs:.1f} s for the launch (spawn, init, "
           f"{SPMD_STEPS} steps, checkpoints, the profiled step)")
-    print(f"profile: spmd train step rank 0 of {SPMD_MESH}: "
-          f"{prof['wall_ms']:.3f} ms, device kernels {prof['busy_ms']:.3f} ms "
-          f"(busy {prof['busy_ms'] / prof['wall_ms']:.1%}) in "
-          f"{prof['launches']} launches, collectives {prof['comm']['calls']} "
-          f"calls, {prof['comm']['bytes']} bytes, "
-          f"{prof['comm']['seconds'] * 1e3:.1f} ms on the host's clock; "
-          + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
+    print_profile(f"spmd train step rank 0 of {SPMD_MESH}", prof)
 
-    # the round trip: a second launch restores step 2 and replays 2..3
+    # the round trip: a second launch restores step 2 and replays it
     name = f"step_{SPMD_CKPT_EVERY:08d}"
     (SPMD_DIR / "replay" / name).mkdir(parents=True)
     for f in os.listdir(SPMD_DIR / "run" / name):
@@ -2674,6 +2798,97 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
     print(f"spmd: the phase took {time.perf_counter() - t_phase:.1f} s (B12 "
           f"checks, two launches of the mesh, their checkpoints)")
     return {"xent.partial": sum(r["launches"]["xent.partial"] for r in ranks)}
+
+
+def whisper_mesh_phase(one_device: list[dict]) -> dict[str, int]:
+    """Phase 3d's second part, run after phase 3h because it is held
+    against 3h's one-device run: whisper-tiny at full width trained by
+    ``launch.train`` on a (2, 1) mesh of two ranks on the card
+    (``--baseline``: a rank's 4 of the 8 rows, their frames, B11 on its
+    (1792, 51865) logits) and on a (1, 2) mesh (the vocab padded by
+    ``padded_for_mesh(2)``, B12 on each shard), ``WHISPER_MESH_STEPS``
+    steps each and one more profiled on rank 0.  Gates: every rank ran
+    every step with finite losses equal to the other rank's; each rank's
+    counters, zeroed just before its run and read just after, show B11
+    once a step and no B12 on (2, 1), the reverse on (1, 2); the losses of
+    steps 0 and 1 (forwards of the initial weights) within
+    ``WHISPER_MESH_RTOL`` of phase 3h's one-device steps 0 and 1 on (2, 1)
+    and within ``LOSS_RTOL`` of one-device forwards of the padded config's
+    seeded weights on the same batches on (1, 2), whose body has one
+    device's shapes; the unsharded leaves bit-equal on both ranks.
+    Returns the launches summed over the ranks of both runs."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(ENCDEC_ARCH)
+    padded, changes = full.padded_for_mesh(2)
+    data = DataConfig(vocab_size=full.vocab_size, seq_len=ENCDEC_TRAIN_SEQ,
+                      global_batch=ENCDEC_TRAIN_BATCH,
+                      n_frames=full.n_frames, d_model=full.d_model)
+    model = build_model(padded)
+    params = model.init(SEED)
+    with torch.no_grad():
+        padded_losses = [float(model.loss(params, make_batch(data, step)))
+                         for step in range(2)]
+    del model, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(WHISPER_MESH_DIR, ignore_errors=True)
+    argv = ["--arch", ENCDEC_ARCH, "--steps", str(WHISPER_MESH_STEPS),
+            "--seq-len", str(ENCDEC_TRAIN_SEQ), "--global-batch",
+            str(ENCDEC_TRAIN_BATCH), "--ckpt-every",
+            str(WHISPER_MESH_STEPS + 1), "--seed", str(SEED), "--profile"]
+    tokens = ENCDEC_TRAIN_SEQ * ENCDEC_TRAIN_BATCH
+    counts = {"xent": 0, "xent.partial": 0}
+    runs = (("2x1", ["--baseline"], "xent", "xent.partial",
+             [m["loss"] for m in one_device[:2]], WHISPER_MESH_RTOL,
+             f"phase 3h's one-device steps 0-1 (vocab {full.vocab_size})"),
+            ("1x2", [], "xent.partial", "xent", padded_losses, LOSS_RTOL,
+             f"one-device forwards of the padded config's seeded weights "
+             f"(vocab {full.vocab_size} padded to {padded.vocab_size})"))
+    for mesh, extra, kernel, other, ref, rtol, ref_text in runs:
+        where = f"spmd: {ENCDEC_ARCH} mesh {mesh}"
+        t0 = time.perf_counter()
+        ranks = train_launcher.main(argv + extra + [
+            "--mesh", mesh, "--ckpt-dir", str(WHISPER_MESH_DIR / mesh)])
+        secs = time.perf_counter() - t0
+        losses = check_launch_ranks(ranks, where, WHISPER_MESH_STEPS,
+                                    kernel, other)
+        counts[kernel] += sum(r["launches"][kernel] for r in ranks)
+        rel = [abs(losses[i] - ref[i]) / abs(ref[i]) for i in range(2)]
+        if not max(rel) <= rtol:
+            fail(f"{where}: steps 0-1 losses {losses[:2]} vs {ref}, "
+                 f"{ref_text}: relative {rel} > {rtol:.3g}")
+        step_ms = statistics.median(m["step_s"] for m in
+                                    ranks[0]["metrics"][1:]) * 1e3
+        prof, comm = ranks[0]["profile"], ranks[0]["comm"]
+        print(f"{where} (data {mesh[0]}, model {mesh[2]}) on one card, bf16 "
+              f"+ fp32 master, remat, batch {ENCDEC_TRAIN_BATCH} x seq "
+              f"{ENCDEC_TRAIN_SEQ} against {full.n_frames} frames a row"
+              + (f", layout policy {changes}" if not extra else
+                 ", --baseline") + f": losses {losses}, equal on both "
+              f"ranks; steps 0-1 {losses[:2]} vs {ref}, {ref_text}: "
+              f"relative {rel} (gate {rtol:.3g}); launches a rank "
+              f"{ranks[0]['launches']}; {step_ms:.1f} ms a step (median of "
+              f"steps 1-{WHISPER_MESH_STEPS - 1}, rank 0), "
+              f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+              + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f} "
+                          f"GiB" for r in ranks)
+              + f"; collectives on rank 0 {comm['calls']} calls, "
+              f"{comm['bytes']} bytes, {comm['seconds'] * 1e3:.1f} ms on "
+              f"the host's clock; {len(ranks[0]['digests'])} unsharded "
+              f"leaves bit-equal on both ranks; {secs:.1f} s for the launch")
+        print_profile(f"{ENCDEC_ARCH} train step rank 0 of {mesh}", prof)
+    shutil.rmtree(WHISPER_MESH_DIR, ignore_errors=True)
+    print(f"spmd: {ENCDEC_ARCH} on the two meshes took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
 
 
 def main() -> int:
@@ -2848,15 +3063,26 @@ def main() -> int:
     print(f"main: vector_triad_segmented n={N} fp32, {SEGMENTS} segments, "
           f"phases {segs[0].phases}: equal to the flat triad: ok")
 
-    serve_launches = serving_phase()
-    train_launches, train_metrics = training_phase()
-    spmd_launches = spmd_phase(train_metrics)
-    hybrid_launches = hybrid_phase()
-    xlstm_launches = xlstm_phase()
-    moe_launches = moe_phase()
-    multimodal_launches = multimodal_phase()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    serve_launches = timed("3b", serving_phase)
+    train_launches, train_metrics = timed("3c", training_phase)
+    spmd_launches = timed("3d", spmd_phase, train_metrics)
+    hybrid_launches = timed("3e", hybrid_phase)
+    xlstm_launches = timed("3f", xlstm_phase)
+    moe_launches = timed("3g", moe_phase)
+    multimodal_launches, whisper_metrics = timed("3h", multimodal_phase)
+    whisper_mesh_launches = timed("3d whisper", whisper_mesh_phase,
+                                  whisper_metrics)
     del grid            # the ranks hold the grids of phase 3i
-    halo_launches, halo_results = halo_phase()
+    halo_launches, halo_results = timed("3i", halo_phase)
+    print(f"main: seconds a phase {phase_s}")
     grid = jacobi_ops.init_grid(GRID, GRID, torch.float32, seed=4)
     launches = {name: table[key] for name, (table, key) in counters.items()}
     launches.update(serve_launches)
@@ -2864,7 +3090,7 @@ def main() -> int:
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
     for phase in (hybrid_launches, xlstm_launches, moe_launches,
-                  multimodal_launches, halo_launches):
+                  multimodal_launches, whisper_mesh_launches, halo_launches):
         for name, count in phase.items():
             launches[name] += count
     print(f"main: launches {launches}")
@@ -3106,6 +3332,16 @@ def main() -> int:
     cases["xent.partial.offset"] = xent_partial_case(
         TRAIN_SEQ * TRAIN_BATCH, vshard, vshard, vshard, 151936,
         torch.float32, 30, offset=1)
+    # whisper-tiny's mesh shapes (phase 3d): B11 on a (2, 1) rank's 4 of
+    # the 8 rows, and B12 on a (1, 2) rank's second half of the padded
+    # vocab, the logical vocab ending inside it
+    from repro_torch.configs import get_config
+
+    cases["xent.whisper.rows"] = xent_case(n_whisper // 2, 51865, 51865,
+                                           torch.float32, 31)
+    wshard = get_config(ENCDEC_ARCH).padded_for_mesh(2)[0].vocab_size // 2
+    cases["xent.partial.whisper"] = xent_partial_case(
+        n_whisper, wshard, wshard, wshard, 51865, torch.float32, 32)
     jplan = api.plan_for("jacobi", (GRID - 2, GRID), torch.float32)
     jsrc = jacobi_ops.pitched(grid, jplan)
     jdst = torch.empty_like(jsrc)

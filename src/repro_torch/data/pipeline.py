@@ -9,8 +9,9 @@ copied), so a batch is bit-identical to the reference's for the same
 
 With a ``sharding`` (a ``parallel.specs.NamedSharding`` of the batch) a
 rank gets its own rows of the global batch: the rows the spec gives it
-along the data axis, cut from the global batch, so a data-parallel run
-trains on exactly the single-device run's tokens.  The reference makes
+along the data axis, cut from the global batch -- the tokens and, by the
+same rows, the image embeddings and audio frames -- so a data-parallel run
+trains on exactly the single-device run's inputs.  The reference makes
 each shard's rows by calling the generator on the shard's row indices
 alone, which draws other numbers than the global batch does (ROADMAP §C);
 the port does not copy that.
@@ -55,30 +56,30 @@ def _tokens_for(cfg: DataConfig, step: int, rows: np.ndarray) -> np.ndarray:
 
 def make_batch(cfg: DataConfig, step: int, sharding=None, *,
                device=None) -> dict:
-    """Batch for ``step`` as int32 tensors on ``device`` (CUDA unless named;
-    the sharding's mesh device when there is one): ``tokens`` and
-    ``labels`` (the tokens shifted by one), and the seeded
+    """Batch for ``step`` as tensors on ``device`` (CUDA unless named; the
+    sharding's mesh device when there is one): int32 ``tokens`` and
+    ``labels`` (the tokens shifted by one), and the seeded fp32
     ``img_embeds``/``frames`` when the config asks for them.  Without a
-    ``sharding`` the global batch; with one, this rank's rows of it."""
+    ``sharding`` the global batch; with one, this rank's rows of each."""
     dev = resolve_device(device if device is not None or sharding is None
                          else sharding.mesh.device)
-    full = _tokens_for(cfg, step, np.arange(cfg.global_batch))
-    if sharding is not None:
-        full = shard_leaf(full, sharding.spec, sharding.mesh)
-    batch = {
-        "tokens": torch.from_numpy(np.ascontiguousarray(full[:, :-1])).to(dev),
-        "labels": torch.from_numpy(np.ascontiguousarray(full[:, 1:])).to(dev),
-    }
+
+    def rows(full: np.ndarray) -> torch.Tensor:
+        if sharding is not None:
+            full = shard_leaf(full, sharding.spec, sharding.mesh)
+        return torch.from_numpy(np.ascontiguousarray(full)).to(dev)
+
+    toks = _tokens_for(cfg, step, np.arange(cfg.global_batch))
+    batch = {"tokens": rows(toks[:, :-1]), "labels": rows(toks[:, 1:])}
     if cfg.n_img_tokens and cfg.d_model:
         rng = np.random.default_rng(np.uint64(cfg.seed * 7 + step))
-        batch["img_embeds"] = torch.from_numpy(rng.standard_normal(
+        batch["img_embeds"] = rows(rng.standard_normal(
             (cfg.global_batch, cfg.n_img_tokens, cfg.d_model),
-            dtype=np.float32)).to(dev)
+            dtype=np.float32))
     if cfg.n_frames and cfg.d_model:
         rng = np.random.default_rng(np.uint64(cfg.seed * 11 + step))
-        batch["frames"] = torch.from_numpy(rng.standard_normal(
-            (cfg.global_batch, cfg.n_frames, cfg.d_model),
-            dtype=np.float32)).to(dev)
+        batch["frames"] = rows(rng.standard_normal(
+            (cfg.global_batch, cfg.n_frames, cfg.d_model), dtype=np.float32))
     return batch
 
 

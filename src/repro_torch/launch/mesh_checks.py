@@ -232,8 +232,13 @@ def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
           opt_cfg: AdamWConfig = AdamWConfig(), schedule: tuple = ()) -> dict:
     """From a reference train state (numpy), this rank's loss, gradients
     and global norm at step 0, then ``steps_run`` train steps: the losses,
-    the rank's final state and the digests of its replicated leaves.
+    the rank's final state, the digests of its replicated leaves and the
+    kernel launches of the whole job (the card's counters; 0 on the CPU).
     ``schedule`` is ``make_schedule``'s ``(kind, peak, warmup, total)``."""
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+
+    before = {**xent_kernel.LAUNCHES,
+              **{f"rmsnorm.{k}": v for k, v in rms_kernel.LAUNCHES.items()}}
     rules = mesh_rules(mesh)
     sizes = mesh.axis_sizes
     st = interop.train_state_from_jax(state, cfg, device=mesh.device,
@@ -256,9 +261,40 @@ def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
     specs = specs_lib.state_specs(model.param_defs(), rules,
                                   master="master" in st["opt"],
                                   axis_sizes=sizes)
+    after = {**xent_kernel.LAUNCHES,
+             **{f"rmsnorm.{k}": v for k, v in rms_kernel.LAUNCHES.items()}}
     return {"loss0": float(loss0), "grads0": grads0, "gnorm0": float(gnorm0),
             "losses": losses, "state": st, "specs": specs,
-            "digests": digests(st, specs, sizes)}
+            "digests": digests(st, specs, sizes),
+            "launches": {k: after[k] - before[k] for k in before}}
+
+
+def moe_layer(mesh, cfg, tree: dict, x: np.ndarray) -> dict:
+    """One MoE layer (``tree``, numpy leaves) on this rank's rows of the
+    global (B, S, d) ``x``: the capacity ranks and the kept mask of the
+    rank's assignments, the rows its buffer gives an expert
+    (``moe.own_cells``), its output rows, the load-balance loss and the
+    router's gradient of that loss alone (the rank's share, before any sum
+    over the data axis)."""
+    from repro_torch.models import moe
+
+    rules = mesh_rules(mesh)
+    spec_ = rules_lib.spec("batch", None, None, rules=rules, shape=x.shape,
+                           axis_sizes=mesh.axis_sizes)
+    rows = specs_lib.shard_leaf(torch.from_numpy(x), spec_,
+                                mesh).to(mesh.device)
+    p = {k: torch.from_numpy(np.asarray(v)).to(mesh.device)
+         for k, v in tree.items()}
+    router = p["router"].requires_grad_(True)
+    with api.plan_context(mesh=mesh), rules_lib.use_rules(rules, mesh):
+        *_, slot, pos, keep, cap = moe.route(
+            p, rows.reshape(-1, x.shape[-1]), cfg)
+        cells = moe.own_cells(slot, pos, keep, cfg.n_experts, cap)[1]
+        out, aux = moe.apply_moe(p, rows, cfg)
+        (grad,) = torch.autograd.grad(aux, [router])
+    return {"pos": pos, "keep": keep, "cap": cap, "cells": cells,
+            "out": out.detach(),
+            "aux": float(aux.detach()), "router_grad": grad}
 
 
 def seeded_grads(mesh, cfg, seed: int, data_cfg) -> dict:

@@ -12,16 +12,21 @@ as the reference does; ``--mesh device`` runs the full configuration on the
 one card.  ``--mesh DxM`` spawns D x M ranks (``launch.mesh.spawn``), a
 (data, model) mesh over which the batch shards by data and the vocabulary
 by model (``models.transformer``'s vocab-parallel layout), under
-``rules.make_rules(tensor_parallel=False)``; it runs the full configuration
-on CUDA (every rank on card 0 when the ranks outnumber the cards, over
-gloo) and the reduced one on the CPU, and pads the configuration for the
-model axis (``padded_for_mesh``) unless ``--baseline``; a hybrid or ssm
-arch (``zamba2-1.2b``, ``xlstm-1.3b``) raises under a model axis of more
-than one rank, and a moe, vlm or encdec arch (``qwen3-moe-30b-a3b``,
-``pixtral-12b``, ``whisper-tiny``) under any mesh of more than one rank
-(ROADMAP A11).  A vlm batch carries seeded image embeddings and an encdec
-batch seeded audio frames (``data.pipeline``).  The learning-rate schedule is the arch's (``configs.get_schedule``:
-``wsd`` for ``minicpm-2b``, ``cosine`` for the others).  The run is on CUDA
+``rules.make_rules(tensor_parallel=False)``, for every family; it runs the
+full configuration on CUDA (every rank on card 0 when the ranks outnumber
+the cards, over gloo) and the reduced one on the CPU, and pads the
+configuration for the model axis (``padded_for_mesh``) unless
+``--baseline``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --mesh 2x1 --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+        --mesh 1x2 --steps 4 --seq-len 448
+
+A vlm batch carries seeded image embeddings and an encdec batch seeded
+audio frames, a rank its rows of them (``data.pipeline``).  The
+learning-rate schedule is the arch's (``configs.get_schedule``: ``wsd``
+for ``minicpm-2b``, ``cosine`` for the others).  The run is on CUDA
 unless ``--device cpu``.  ``--layers``/``--d-model`` override the depth and
 width.  Checkpoints go under ``--ckpt-dir`` (inside the checkout by
 default); a complete checkpoint at or past ``--steps`` restores past the
@@ -217,11 +222,7 @@ def main(argv=None):
 def _main_mesh(args, device):
     from repro_torch.launch import mesh as mesh_lib
 
-    from repro_torch.models.transformer import require_mesh_ported
-
     shape = mesh_lib.parse_shape(args.mesh)
-    require_mesh_ported(_config(args, device.type == "cuda"),
-                        {"data": shape[0], "model": shape[1]})
     if device.type == "cuda":
         from repro_torch.kernels import _build
 

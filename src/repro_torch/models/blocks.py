@@ -43,6 +43,28 @@ from repro_torch.models.params import ParamDef
 NEG_INF = -1e30
 
 # ---------------------------------------------------------------------------
+# Sums over a mesh's ranks
+# ---------------------------------------------------------------------------
+
+
+class SumOverRanks(torch.autograd.Function):
+    """Forward: ``x`` summed over the ranks of a mesh's ``axes``; backward:
+    the identity.  The pairing for a sum whose every rank goes on to
+    compute the same thing from it: each rank's own part gets the whole
+    gradient of the sum, and no rank's gradient is counted twice (the
+    vocab-parallel lookup sums its rows over the vocab ranks; an MoE layer
+    sums its router statistics over the data ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return mesh.all_reduce(x, axes, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 

@@ -23,6 +23,15 @@ The rounding order is the reference's: ``sinusoid`` in fp32 from an fp32
 the activation dtype before the sinusoid is added; the tied head
 ``embed.T``.
 
+On a mesh of ranks (training only) the decoder's lookup and head are the
+decoder-only model's vocab-parallel ones (``transformer.embed_tokens``,
+``transformer.enter_vocab_parallel``): the tied embedding shards its rows
+over the model axis, and so do the logits and the loss; the encoder and
+the decoder's layers stay whole on every rank of a model line, and a rank
+holds its rows of the batch's frames.  The lookup's ``embed_scale`` is
+whisper's 1.0, so its product is exact and the sum with the sinusoid
+rounds as the reference's.
+
 Serving is a static batch (``launch.serve``'s encdec path): ``prefill_cross``
 runs the encoder once and gives every decoder layer's cross K/V, which the
 caller puts into the cache (``cache["cross_k"]``, ``cache["cross_v"]``);
@@ -43,7 +52,14 @@ from repro_torch.models.params import (
     init_params,
     stack_defs,
 )
-from repro_torch.models.transformer import apply_layer, layers, lm_loss
+from repro_torch.models.transformer import (
+    apply_layer,
+    embed_tokens,
+    enter_vocab_parallel,
+    layers,
+    lm_loss,
+    refuse_mesh,
+)
 
 
 def sinusoid(positions: torch.Tensor, d: int,
@@ -135,8 +151,10 @@ def _dec_layer(lp: Tree, h: torch.Tensor, pos: torch.Tensor,
 
 
 def _head(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The final norm and the head (tied: ``embed.T``), fp32 logits."""
-    x = blocks.apply_norm(params["final_norm"], x, cfg)
+    """The final norm and the head (tied: ``embed.T``), fp32 logits (this
+    rank's vocab shard of them under a vocab-parallel mesh)."""
+    x = enter_vocab_parallel(
+        blocks.apply_norm(params["final_norm"], x, cfg), cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return torch.matmul(x, head).to(torch.float32)
 
@@ -148,7 +166,7 @@ def decode_train(params: Tree, tokens: torch.Tensor, enc_out: torch.Tensor,
     b, s = tokens.shape
     pos = _positions(b, s, tokens.device)
     epos = _positions(b, enc_out.shape[1], tokens.device)
-    x = (params["embed"][tokens.to(torch.int64)]
+    x = (embed_tokens(params, tokens, cfg)
          + sinusoid(pos, cfg.d_model, cfg.adtype))
     for lp in layers(params["dec"]):
         x = apply_layer(cfg, _dec_layer, lp, x, pos, enc_out, epos, cfg)
@@ -209,7 +227,9 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, Tree]:
     """One decoder token a row (tokens (B, 1)) against the self-attention
     cache, written in place, and the fixed cross K/V.  Returns (logits
-    (B, 1, V) fp32, cache with ``idx`` advanced)."""
+    (B, 1, V) fp32, cache with ``idx`` advanced).  Raises under a mesh of
+    ranks."""
+    refuse_mesh()
     idx = torch.as_tensor(cache["idx"], dtype=torch.int32).expand(
         tokens.shape[0])
     x = (params["embed"][tokens.to(torch.int64)]

@@ -32,6 +32,33 @@ run to run:
   * the capacity is static from the shapes, and the ranks come from
     ``torch.sort(stable=True)`` and integer ``scatter_add_``/``cumsum`` on
     the card: no boolean-mask indexing, no host synchronisation.
+
+On a mesh of ranks a rank holds its rows of the batch, and the layer
+computes the reference's function of the global batch, whose groups are
+the global token order cut in ``cfg.moe_groups``:
+
+  * where the groups are a multiple of the data ranks, a rank's tokens are
+    whole groups and it ranks them alone; where a group spans several
+    ranks (``moe_groups`` 1, every config's), each rank all-gathers the
+    group's slot ids (int32, T * k a layer over the data axis, no
+    activations), ranks them as one device does and keeps its own
+    assignments' ranks.  The capacity is the global group's;
+  * the expert FFNs are row-wise, so a rank's buffer holds only the
+    cells of its own tokens: where a group spans ranks, a rank's kept
+    assignments to an expert are a run of consecutive global ranks, and
+    ``own_cells`` shifts each run to start at 0 and sizes the buffer to
+    the longest run (rounded up to 8, at most the capacity; read on the
+    host, which the all-gather has already synchronised), so the three
+    products run over the rank's own kept rows, not over the global
+    buffer's.  The keep decision stays the global ranking's;
+  * the load-balance loss's router mean and assignment shares are summed
+    over the data ranks before their product, the mean through
+    ``blocks.SumOverRanks``: every rank holds the global loss, and its
+    backward gives each rank the gradient through its own tokens, which
+    the train step's sum over the data axes completes once.
+
+The experts stay whole on every rank (the rules map "expert" to no mesh
+axis); sharding them is tensor parallelism (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -39,9 +66,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.api import spmd as spmd_lib
 from repro_torch.core.sharding_skew import expert_permutation
+from repro_torch.models.blocks import SumOverRanks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel import rules as rules_lib
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -96,25 +126,71 @@ def _ranks(slots: torch.Tensor, e: int) -> torch.Tensor:
     return torch.empty_like(slots).scatter_(1, order, rank_sorted)
 
 
+def data_parallel():
+    """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes the
+    batch's rows shard over (the rules' "batch"), or ``(None, ())`` outside
+    a mesh or on a data axis of one rank."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is None:
+        return None, ()
+    axes = rules_lib.mesh_axes("batch", mesh)
+    return (mesh, axes) if mesh.axis_size(axes) > 1 else (None, ())
+
+
+def own_cells(slot: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+              e: int, cap: int) -> tuple[torch.Tensor, int]:
+    """A rank's (1, n) assignments with their ranks in a group that spans
+    ranks: ``(local, cells)``, each rank less the first rank this rank's
+    assignments hold at the same slot (they are consecutive, its tokens
+    being consecutive in the group's order), and the buffer rows an expert
+    needs for the kept ones, the longest run rounded up to a multiple of 8
+    (at least 8, at most ``cap``)."""
+    first = torch.full((slot.shape[0], e), cap, dtype=pos.dtype,
+                       device=pos.device)
+    first.scatter_reduce_(1, slot, pos, "amin")
+    local = pos - torch.gather(first, 1, slot)
+    longest = int(torch.where(keep, local + 1, 0).max())
+    return local, min(max(longest + (-longest) % 8, 8), cap)
+
+
 def route(p: dict, xf: torch.Tensor, cfg: ModelConfig):
     """The router and the capacity ranking of (T, d) rows: ``(probs (T, E),
     top_e (T, k), weights (T, k), slot (G, tg*k), pos (G, tg*k), keep
     (G, tg*k), cap)``; assignments are ordered token-major within a group.
     ``p["slot_of"]``, when present, is ``expert_slots(p["perm"])``
-    computed once for the stage."""
+    computed once for the stage.  On a data axis of D ranks the rows are
+    this rank's and the ranks and the capacity the global batch's: G / D
+    whole groups of ``slot``, ``pos`` and ``keep`` where D divides G, else
+    one row of this rank's assignments in the group that holds them."""
     t = xf.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     g = max(cfg.moe_groups, 1)
-    if t % g:
-        raise ValueError(f"{t} tokens do not split into {g} groups")
+    mesh, axes = data_parallel()
+    n = mesh.axis_size(axes) if mesh is not None else 1
+    if (t * n) % g:
+        raise ValueError(f"{t * n} tokens do not split into {g} groups")
+    if g % n and n % g:
+        raise ValueError(f"{g} MoE groups over {n} data ranks: a rank's rows "
+                         f"would cut a group at both ends")
+    tg = t * n // g
     logits = torch.matmul(xf.to(torch.float32), p["router"].to(torch.float32))
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)
     weights = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
     slot_of = p["slot_of"] if "slot_of" in p else expert_slots(p["perm"])
-    slot = slot_of[top_e].reshape(g, (t // g) * k)
-    cap = capacity(cfg, t // g)
-    pos = _ranks(slot, e)
+    slot = slot_of[top_e]
+    cap = capacity(cfg, tg)
+    if g % n == 0:      # whole groups on this rank (and on one device)
+        slot = slot.reshape(g // n, tg * k)
+        pos = _ranks(slot, e)
+    else:               # a group spans n // g ranks, in token order
+        span, i = n // g, mesh.index(axes)
+        every = mesh.all_gather(slot.reshape(1, t * k).to(torch.int32),
+                                axes, dim=1).to(slot.dtype)
+        group = every.reshape(g, tg * k)[i // span][None]
+        mine = (i % span) * t * k
+        slot = slot.reshape(1, t * k)
+        pos = _ranks(group, e)[:, mine:mine + t * k]
     return probs, top_e, weights, slot, pos, pos < cap, cap
 
 
@@ -142,11 +218,16 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     g, n = slot.shape
     tg = t // g
     dev = x.device
+    mesh, axes = data_parallel()
+    ranks = mesh.axis_size(axes) if mesh is not None else 1
+    if max(cfg.moe_groups, 1) % ranks:      # a group spans ranks
+        pos, cap = own_cells(slot, pos, keep, e, cap)
 
     # dispatch: the source row of each (expert, rank) cell; a dropped
     # assignment writes a cell of its own past the buffer, so no cell is
     # written twice, and an empty cell keeps the index of a zero row
     idx = slot * cap + torch.clamp(pos, max=cap - 1)   # the reference's cell
+    #                                                   or the rank's own
     spill = e * cap + torch.arange(n, device=dev)
     cell = torch.where(keep, idx, spill)                            # (G, n)
     src = torch.full((g, e * cap + n), tg, dtype=torch.int64, device=dev)
@@ -175,9 +256,14 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         return out, None
 
     # the load-balance loss over logical experts: mean router probability
-    # times the share of assignments, E * sum(me * ce) * weight
+    # times the share of assignments, E * sum(me * ce) * weight, both over
+    # the global batch on a mesh
     me = probs.mean(0)
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).scatter_add_(
-        0, top_e.reshape(-1), torch.ones(t * k, device=dev)) / (t * k)
+    counts = torch.zeros(e, dtype=torch.float32, device=dev).scatter_add_(
+        0, top_e.reshape(-1), torch.ones(t * k, device=dev))
+    if mesh is not None:
+        me = SumOverRanks.apply(me, mesh, axes) / ranks
+        counts = mesh.all_reduce(counts, axes, "sum")
+    ce = counts / (t * ranks * k)
     aux = e * torch.sum(me * ce) * cfg.router_aux_weight
     return out, aux

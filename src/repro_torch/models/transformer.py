@@ -39,7 +39,7 @@ model line.  Three pieces carry it:
   * the embedding lookup takes the tokens in this rank's rows
     ``[off, off + V/M)`` and sums the rows over the vocab ranks (one rank
     holds each token's row, the others add zeros); its backward is the
-    identity (``_SumOverVocab``);
+    identity (``blocks.SumOverRanks``);
   * before the head, the activations enter the vocab-parallel region: the
     forward is the identity and the backward sums dx over the vocab ranks
     (``_EnterVocabParallel``), so the replicated body gets the same
@@ -48,12 +48,18 @@ model line.  Three pieces carry it:
     the log-sum-exp combine) and differentiates it by the vocab-parallel
     ``xent_grad``.
 
-Attention heads and the MLP stay whole (no tensor parallelism yet, ROADMAP
-A11): the model raises if the ambient rules shard "heads", "kv_heads",
-"mlp" or "expert" over a mesh axis of more than one rank.  The hybrid
-and ssm families on a mesh wait for A11 too: they raise under a model
-axis of more than one rank, and the moe, vlm and encdec families under any
-mesh of more than one rank (``require_mesh_ported``).
+Every family trains on a ``(data, model)`` mesh under
+``rules.make_rules(tensor_parallel=False)``, computing the reference's
+function of the global batch: a rank holds its rows of the batch (the
+image embeddings of a vlm batch too), an MoE layer ranks capacity and
+averages its load-balance statistics over the global batch
+(``models.moe``), and the encoder-decoder shares this module's
+vocab-parallel lookup and head entry (``models.encdec``).  Attention
+heads, the MLP and the experts stay whole (no tensor parallelism yet,
+ROADMAP A11): the model raises if the ambient rules shard "heads",
+"kv_heads", "mlp" or "expert" over a mesh axis of more than one rank.
+Decoding on a mesh (``decode_step``, and so serving) raises too, as does
+the masked loss.
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -62,7 +68,7 @@ callers that need the old cache keep a copy.
 """
 from __future__ import annotations
 
-import math
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -172,11 +178,25 @@ def layers(tree: Tree) -> list[Tree]:
     return [map_leaves(lambda parts: parts[i], split) for i in range(count)]
 
 
+@contextlib.contextmanager
+def _reenter(scope):
+    plan_ctx, rules, mesh = scope
+    with context_lib.use_context(plan_ctx), rules_lib.use_rules(rules, mesh):
+        yield
+
+
 def apply_layer(cfg: ModelConfig, body, *args):
     """``body(*args)``, one layer: under ``checkpoint`` (non-reentrant) when
-    ``cfg.remat`` and autograd records, else a plain call."""
+    ``cfg.remat`` and autograd records, else a plain call.  The backward's
+    recomputation may run on autograd's device thread, which does not see
+    this thread's plan context and rules, so it re-enters the forward's
+    (an MoE layer on a mesh reads the mesh)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(body, *args, use_reentrant=False)
+        scope = (context_lib.current_context(), rules_lib.current_rules(),
+                 rules_lib.current_mesh())
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              _reenter(scope)))
     return body(*args)
 
 
@@ -234,61 +254,34 @@ def vocab_parallel(cfg: ModelConfig):
     """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes the
     vocabulary shards over, or ``(None, ())`` outside a mesh or when the
     vocab stays whole (a model axis of one rank, or a vocab that does not
-    divide).  Raises where the rules would shard a layer's heads or MLP,
-    or for a config whose family the port does not run on this mesh
-    (``require_mesh_ported``)."""
+    divide).  Raises where the rules would shard a layer's heads, MLP or
+    experts (tensor parallelism, ROADMAP A11)."""
     mesh = spmd_lib.spmd_mesh()
     if mesh is None:
         return None, ()
-    require_mesh_ported(cfg, mesh.axis_sizes)
-    table = rules_lib.restrict_to_mesh(
-        rules_lib.current_rules() or rules_lib.DEFAULT_RULES, mesh)
+    table = rules_lib.mesh_table(mesh)
     sizes = mesh.axis_sizes
     for ax in rules_lib.TENSOR_PARALLEL_AXES:
-        axes = rules_lib.target_axes(table.get(ax))
+        axes = rules_lib.mesh_axes(ax, mesh, table)
         if rules_lib.spec_size(axes, sizes) > 1:
             raise NotImplementedError(
                 f"the rules shard {ax!r} over mesh axes {axes}: tensor "
-                f"parallelism of attention and MLP is not ported (ROADMAP "
-                f"A11); map {list(rules_lib.TENSOR_PARALLEL_AXES)} to None, "
-                f"as rules.make_rules(tensor_parallel=False) does")
+                f"parallelism of attention, MLP and experts is not ported "
+                f"(ROADMAP A11); map {list(rules_lib.TENSOR_PARALLEL_AXES)} "
+                f"to None, as rules.make_rules(tensor_parallel=False) does")
     s = rules_lib.spec("vocab", "embed", rules=table,
                        shape=(cfg.vocab_size, cfg.d_model), axis_sizes=sizes)
     return mesh, rules_lib.dim_axes(s, 2)[0]
 
 
-def require_mesh_ported(cfg: ModelConfig, axis_sizes) -> None:
-    """Raise for a hybrid or ssm config on a mesh ({axis: ranks}) whose
-    model axis has more than one rank, and for a moe, vlm or encdec config
-    on any mesh of more than one rank: those families on a mesh are ROADMAP
-    A11.  An MoE layer ranks capacity over the global token set, and a
-    data-parallel mesh would rank over each rank's tokens; the batch's
-    image embeddings and audio frames are not cut into a rank's rows, and
-    the encoder-decoder's embedding and head are not vocab-parallel."""
-    ranks = math.prod(int(n) for n in axis_sizes.values())
-    if cfg.family in ("moe", "vlm", "encdec") and ranks > 1:
+def refuse_mesh() -> None:
+    """Raise under a mesh of ranks: decoding, and so serving, is not
+    ported there, only training (ROADMAP A11)."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a mesh of {ranks} "
-            f"ranks is not ported (ROADMAP A11)")
-    if (cfg.family in ("hybrid", "ssm")
-            and int(axis_sizes.get("model", 1)) > 1):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family on a mesh with a model "
-            f"axis of {axis_sizes['model']} ranks is not ported (ROADMAP "
-            f"A11)")
-
-
-class _SumOverVocab(torch.autograd.Function):
-    """Forward: the sum over the vocab ranks; backward: the identity (each
-    rank's lookup gets the whole gradient of the summed embedding)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axes):
-        return mesh.all_reduce(x, axes, "sum")
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None, None
+            f"decoding on a mesh of {mesh.size} ranks is not ported (ROADMAP "
+            f"A11): decode and serve on one device")
 
 
 class _EnterVocabParallel(torch.autograd.Function):
@@ -320,19 +313,24 @@ def embed_tokens(params: Tree, tokens: torch.Tensor,
         hit = (local >= 0) & (local < rows)
         x = torch.where(hit[..., None], emb[local.clamp(0, rows - 1)],
                         torch.zeros((), dtype=emb.dtype, device=emb.device))
-        x = _SumOverVocab.apply(x, mesh, axes)
+        x = blocks.SumOverRanks.apply(x, mesh, axes)
     else:
         x = emb[tok]
     return x * _scalar(cfg.embed_scale, cfg.adtype)
 
 
+def enter_vocab_parallel(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``x``, the head's input; under a vocab-parallel mesh its backward
+    sums dx over the vocab ranks (``_EnterVocabParallel``)."""
+    mesh, axes = vocab_parallel(cfg)
+    return _EnterVocabParallel.apply(x, mesh, axes) if axes else x
+
+
 def unembed(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits (..., V) fp32, or this rank's vocab shard of them under a
     vocab-parallel mesh."""
-    x = blocks.apply_norm(params["final_norm"], x, cfg)
-    mesh, axes = vocab_parallel(cfg)
-    if axes:
-        x = _EnterVocabParallel.apply(x, mesh, axes)
+    x = enter_vocab_parallel(
+        blocks.apply_norm(params["final_norm"], x, cfg), cfg)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.matmul(x, head) * _scalar(cfg.logit_scale, x.dtype)
     logits = logits.to(torch.float32)
@@ -541,7 +539,8 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
     A cache built by ``paged_cache_defs`` (a ``pages`` leaf) routes the
     attention through the page table.  An ``act`` leaf masks the writes of
     inactive rows on either backend (the chunk step sets one on a dense
-    cache for the length of the step)."""
+    cache for the length of the step).  Raises under a mesh of ranks."""
+    refuse_mesh()
     idx = cache["idx"]
     pages = cache.get("pages")
     act = cache.get("act")

@@ -125,6 +125,21 @@ def restrict_to_mesh(rules: Mapping[str, AxisTarget],
     return out
 
 
+def mesh_table(mesh, rules: Mapping[str, AxisTarget] | None = None
+               ) -> dict[str, AxisTarget]:
+    """``rules`` (else the ambient rules, else ``DEFAULT_RULES``) restricted
+    to the axes ``mesh`` has."""
+    return restrict_to_mesh(rules or current_rules() or DEFAULT_RULES, mesh)
+
+
+def mesh_axes(name: str, mesh,
+              rules: Mapping[str, AxisTarget] | None = None
+              ) -> tuple[str, ...]:
+    """The axes of ``mesh`` that the logical axis ``name`` shards over
+    under ``mesh_table(mesh, rules)``."""
+    return target_axes(mesh_table(mesh, rules).get(name))
+
+
 def make_rules(
     *,
     multi_pod: bool = False,

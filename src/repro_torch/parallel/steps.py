@@ -6,9 +6,11 @@ is a plain function (the reference wraps them in ``jax.jit``), and a
 Python loop.
 
 On a mesh of ranks (``make_train_step(..., mesh=, rules=)``) the state and
-the batch are this rank's shards.  The loss is the global mean (the
-vocab-parallel ``xent`` combines over the model axis and means over the
-data axis), so each rank's gradient is its share of the global mean's
+the batch are this rank's shards, in every family.  The loss is the global
+one (the vocab-parallel ``xent`` combines over the model axis and means
+over the data axis; an MoE layer's load-balance term sums its statistics
+over the data axis), and each rank's backward gives the gradient through
+its own rows, so each rank's gradient is its share of the global loss's
 gradient: every leaf is summed over the data axes -- the mean over the data
 ranks of each rank's own-token gradient, which the reference's ``jit`` gets
 from its global arrays.  The replicated leaves then hold the same bits on
@@ -94,12 +96,9 @@ def make_grad_fn(model, *, microbatches: int = 1, mesh=None,
     sums the gradients over the data axes."""
     on_mesh = mesh is not None and mesh.size > 1
     if on_mesh:
-        from repro_torch.models.transformer import require_mesh_ported
-
-        require_mesh_ported(model.cfg, mesh.axis_sizes)
-        rules = rules_lib.restrict_to_mesh(
-            rules or rules_lib.make_rules(tensor_parallel=False), mesh)
-        data_axes = rules_lib.target_axes(rules.get("batch"))
+        rules = rules_lib.mesh_table(
+            mesh, rules or rules_lib.make_rules(tensor_parallel=False))
+        data_axes = rules_lib.mesh_axes("batch", mesh, rules)
         pspecs = specs_lib.param_specs(model.param_defs(), rules,
                                        mesh.axis_sizes)
         shard_axes = {}

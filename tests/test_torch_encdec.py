@@ -53,6 +53,7 @@ from repro_torch.models import EncDecLM, build_model, encdec
 from repro_torch.models.params import init_params, leaves, map_leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
 
 ARCH = "whisper-tiny"
 CPU = dict(device="cpu")
@@ -363,10 +364,10 @@ def test_train_launcher_runs_whisper_on_the_cpu(tmp_path):
     assert all(np.isfinite(m["loss"]) for m in metrics)
 
 
-def test_encdec_on_a_mesh_raises():
-    from repro_torch.models.transformer import require_mesh_ported
-
-    cfg = reduce_for_smoke(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="encdec family .* A11"):
-        require_mesh_ported(cfg, {"data": 2, "model": 1})
-    require_mesh_ported(cfg, {"data": 1, "model": 1})
+def test_encdec_on_a_mesh_raises(tmp_path):
+    """The encoder-decoder on a mesh: tensor-parallel rules, decoding and
+    the masked loss raise (ROADMAP A11); training runs with the decoder's
+    lookup and head vocab-parallel (tests/test_torch_mesh_families.py holds
+    it to the reference)."""
+    assert_mesh_refusals(reduce_for_smoke(get_config(ARCH)))
+    assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)

@@ -55,11 +55,11 @@ from repro.models.params import init_params as jinit_params
 from repro_torch import api, interop
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.interop import numpy_params
-from repro_torch.launch import train as train_launch
 from repro_torch.models import blocks, build_model, mamba2
 from repro_torch.models.params import init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
 
 ARCH = "zamba2-1.2b"
 LOGITS = dict(rtol=1e-4, atol=1e-5)
@@ -539,19 +539,14 @@ def test_slot_reset_zeroes_the_reused_slots_ssm_and_conv_rows():
         assert bool(leaf[:, 0].abs().sum() > 0), k
 
 
-def test_a_mesh_with_a_model_axis_refuses_the_hybrid():
+def test_a_mesh_with_a_model_axis_refuses_the_hybrid(tmp_path):
+    """The hybrid on a mesh: tensor-parallel rules, decoding and the masked
+    loss are refused (ROADMAP A11); the vocab-parallel training on a model
+    axis runs (tests/test_torch_mesh_families.py holds it to the
+    reference)."""
     _, cfg = configs()
-    model = build_model(cfg)
-    mesh = types.SimpleNamespace(size=2, axis_sizes={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="A11"):
-        steps.make_grad_fn(model, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_launch.main(["--arch", ARCH, "--mesh", "1x2", "--device",
-                           "cpu", "--steps", "1"])
-    # a data axis alone is not refused at the boundary
-    from repro_torch.models.transformer import require_mesh_ported
-
-    require_mesh_ported(cfg, {"data": 2, "model": 1})
+    assert_mesh_refusals(cfg)
+    assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)
 
 
 def test_serve_launcher_defaults_to_the_hybrid(capsys):

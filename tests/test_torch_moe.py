@@ -26,7 +26,6 @@ token are apart by at least 1e-6.
 """
 import contextlib
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +52,7 @@ from repro_torch.models.config import FAMILIES
 from repro_torch.models.params import ParamDef, init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
 
 ARCH = "qwen3-moe-30b-a3b"
 GROK = "grok-1-314b"
@@ -649,20 +649,15 @@ def test_serving_paged_equals_dense_and_isolated_at_cf_16():
             assert run("paged", [r])[r.rid] == dense[r.rid]
 
 
-def test_a_mesh_of_more_than_one_rank_refuses_the_moe_family():
-    from repro_torch.launch import train as train_launch
-    from repro_torch.models.transformer import require_mesh_ported
-
+def test_a_mesh_of_more_than_one_rank_refuses_the_moe_family(tmp_path):
+    """The moe family on a mesh: tensor-parallel rules (the experts sharded
+    over the model axis among them), decoding and the masked loss are
+    refused (ROADMAP A11); training on a data axis runs, ranking capacity
+    over the global batch (tests/test_torch_mesh_families.py holds it to
+    the reference)."""
     _, cfg = configs()
-    model = build_model(cfg)
-    for sizes in ({"data": 2, "model": 1}, {"data": 1, "model": 2}):
-        mesh = types.SimpleNamespace(size=2, axis_sizes=sizes)
-        with pytest.raises(NotImplementedError, match="moe family .* A11"):
-            steps.make_grad_fn(model, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_launch.main(["--arch", ARCH, "--mesh", "2x1", "--device",
-                           "cpu", "--steps", "1"])
-    require_mesh_ported(cfg, {"data": 1, "model": 1})
+    assert_mesh_refusals(cfg)
+    assert_launcher_trains_on_a_mesh(ARCH, "2x1", tmp_path)
 
 
 def test_serve_launcher_runs_the_moe(capsys):

@@ -38,6 +38,7 @@ from repro_torch.models import LM, build_model
 from repro_torch.models.params import leaves
 from repro_torch.parallel import steps
 from repro_torch.parallel.steps import make_prefill_step
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
 
 ARCH = "pixtral-12b"
 CPU = dict(device="cpu")
@@ -226,10 +227,10 @@ def test_train_launcher_runs_pixtral_on_the_cpu(tmp_path):
     assert all(np.isfinite(m["loss"]) for m in metrics)
 
 
-def test_vlm_on_a_mesh_raises():
-    from repro_torch.models.transformer import require_mesh_ported
-
-    cfg = reduce_for_smoke(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="vlm family .* A11"):
-        require_mesh_ported(cfg, {"data": 1, "model": 2})
-    require_mesh_ported(cfg, {"data": 1, "model": 1})
+def test_vlm_on_a_mesh_raises(tmp_path):
+    """The vlm on a mesh: tensor-parallel rules, decoding and the masked
+    loss raise (ROADMAP A11); training runs, a rank on its rows of the
+    image embeddings (tests/test_torch_mesh_families.py holds it to the
+    reference)."""
+    assert_mesh_refusals(reduce_for_smoke(get_config(ARCH)))
+    assert_launcher_trains_on_a_mesh(ARCH, "2x1", tmp_path)

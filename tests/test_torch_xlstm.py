@@ -56,6 +56,7 @@ from repro_torch.models import build_model, xlstm
 from repro_torch.models.params import ParamDef, init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
 
 ARCH = "xlstm-1.3b"
 LOGITS = dict(rtol=1e-4, atol=1e-5)
@@ -654,20 +655,14 @@ def test_greedy_tokens_equal_across_frameworks():
     assert got == want
 
 
-def test_a_mesh_with_a_model_axis_refuses_the_ssm_family():
-    from repro_torch.launch import train as train_launch
-    from repro_torch.models.transformer import require_mesh_ported
-
+def test_a_mesh_with_a_model_axis_refuses_the_ssm_family(tmp_path):
+    """The ssm family on a mesh: tensor-parallel rules, decoding and the
+    masked loss are refused (ROADMAP A11); the vocab-parallel training on a
+    model axis runs (tests/test_torch_mesh_families.py holds it to the
+    reference)."""
     _, cfg = configs()
-    model = build_model(cfg)
-    mesh = types.SimpleNamespace(size=2, axis_sizes={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="ssm family .* A11"):
-        steps.make_grad_fn(model, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A11"):
-        train_launch.main(["--arch", ARCH, "--mesh", "1x2", "--device",
-                           "cpu", "--steps", "1"])
-    # a data axis alone is not refused at the boundary
-    require_mesh_ported(cfg, {"data": 2, "model": 1})
+    assert_mesh_refusals(cfg)
+    assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)
 
 
 def test_serve_launcher_runs_the_xlstm(capsys):
