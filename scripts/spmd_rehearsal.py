@@ -1,0 +1,65 @@
+"""Phase 3d of ``chip_smoke.py`` alone on the card: the B12 checks, the
+(2, 2) backward checks, the full-width fp32 backward, the Qwen2-0.5B
+(1, 2) launcher run and its replay (``spmd_phase``), and whisper-tiny's
+two meshes (``whisper_mesh_phase``), each held against one-device forwards
+of the same seeded weights, which stand in for phases 3c's and 3h's
+training runs (step 0's rate is 0 under warmup, so a run's first two
+losses are forwards).  From the root of a checkout, on a machine with a
+CUDA card:
+
+    python3 scripts/spmd_rehearsal.py
+
+It prints the phases' ``check:``, ``spmd:`` and ``profile:`` lines and
+their seconds (about 5 minutes on an H100)."""
+import sys
+import time
+
+sys.path[:0] = ["src", "."]
+
+
+def main():
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.nvidia_smi_line())
+    t0 = time.perf_counter()
+    _build.build()
+    print(f"build {time.perf_counter() - t0:.1f} s")
+
+    def forwards(arch, data, n):
+        model = build_model(get_config(arch))
+        params = model.init(cs.SEED)
+        with torch.no_grad():
+            out = [{"loss": float(model.loss(params, make_batch(data, i))),
+                    "grad_norm": float("nan")} for i in range(n)]
+        del model, params
+        torch.cuda.empty_cache()
+        return out
+
+    q = get_config(cs.TRAIN_ARCH)
+    train = forwards(cs.TRAIN_ARCH, DataConfig(
+        vocab_size=q.vocab_size, seq_len=cs.TRAIN_SEQ,
+        global_batch=cs.TRAIN_BATCH), cs.SPMD_STEPS)
+    w = get_config(cs.ENCDEC_ARCH)
+    whisper = forwards(cs.ENCDEC_ARCH, DataConfig(
+        vocab_size=w.vocab_size, seq_len=cs.ENCDEC_TRAIN_SEQ,
+        global_batch=cs.ENCDEC_TRAIN_BATCH, n_frames=w.n_frames,
+        d_model=w.d_model), 2)
+    print("one-device forwards", train, whisper)
+    t0 = time.perf_counter()
+    cs.spmd_phase(train)
+    print(f"phase 3d {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cs.whisper_mesh_phase(whisper)
+    print(f"phase 3d's whisper part {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()

@@ -202,7 +202,7 @@ def train_state_from_jax(state: Mapping[str, Any], cfg, *,
     With a ``mesh`` (a ``launch.mesh.Mesh``, or an ``{axis: size}``
     mapping with the ``rank`` to cut for) the state is that rank's blocks,
     cut by ``parallel.specs.state_specs`` under ``rules`` (default: the
-    ambient rules, else ``make_rules(tensor_parallel=False)``)."""
+    ambient rules, else ``rules.launcher_rules(cfg)``)."""
     device = resolve_device(device)
     if mesh is not None:
         from repro_torch.models import build_model
@@ -212,7 +212,7 @@ def train_state_from_jax(state: Mapping[str, Any], cfg, *,
         full = train_state_from_jax(state, cfg, device=device)
         table = rules_lib.restrict_to_mesh(
             rules or rules_lib.current_rules()
-            or rules_lib.make_rules(tensor_parallel=False), mesh)
+            or rules_lib.launcher_rules(cfg), mesh)
         specs = specs_lib.state_specs(
             build_model(cfg).param_defs(), table,
             master="master" in state["opt"],

@@ -1,8 +1,9 @@
 """Rank functions that run the SPMD path on global inputs, for ``spawn``.
 
 Each takes the ``launch.mesh.Mesh`` a spawned rank was given and global
-numpy inputs, cuts this rank's shards by the specs of
-``rules.make_rules(tensor_parallel=False)``, runs the port's SPMD path on
+numpy inputs, cuts this rank's shards by the specs of the launchers' rules
+(``rules.launcher_rules`` for a model, ``make_rules()`` for a kernel
+alone), runs the port's SPMD path on
 them and returns what the rank computed on its shards, for the caller to
 put back together and hold against a single-device run.  They live in the
 package so that a spawned rank imports nothing but the port.  ``run``
@@ -47,11 +48,13 @@ def run(mesh, jobs) -> list:
     return [globals()[name](mesh, **kw) for name, kw in jobs]
 
 
-def mesh_rules(mesh, rules: dict | None = None) -> dict:
-    """``rules`` (the launchers' rules unless given) restricted to
-    ``mesh``."""
+def mesh_rules(mesh, rules: dict | None = None, cfg=None) -> dict:
+    """``rules`` restricted to ``mesh``; unless given, the launchers' rules
+    for model config ``cfg`` (``rules.launcher_rules``), or the default
+    rules for a kernel alone."""
     return rules_lib.restrict_to_mesh(
-        rules or rules_lib.make_rules(tensor_parallel=False), mesh)
+        rules or (rules_lib.launcher_rules(cfg) if cfg is not None
+                  else rules_lib.make_rules()), mesh)
 
 
 def digests(tree, specs, axis_sizes) -> dict[str, str]:
@@ -239,7 +242,7 @@ def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
 
     before = {**xent_kernel.LAUNCHES,
               **{f"rmsnorm.{k}": v for k, v in rms_kernel.LAUNCHES.items()}}
-    rules = mesh_rules(mesh)
+    rules = mesh_rules(mesh, cfg=cfg)
     sizes = mesh.axis_sizes
     st = interop.train_state_from_jax(state, cfg, device=mesh.device,
                                       mesh=mesh, rules=rules)
@@ -278,7 +281,7 @@ def moe_layer(mesh, cfg, tree: dict, x: np.ndarray) -> dict:
     over the data axis)."""
     from repro_torch.models import moe
 
-    rules = mesh_rules(mesh)
+    rules = mesh_rules(mesh, cfg=cfg)
     spec_ = rules_lib.spec("batch", None, None, rules=rules, shape=x.shape,
                            axis_sizes=mesh.axis_sizes)
     rows = specs_lib.shard_leaf(torch.from_numpy(x), spec_,
@@ -303,7 +306,7 @@ def seeded_grads(mesh, cfg, seed: int, data_cfg) -> dict:
     every rank and of one device on that device type), on batch 0 of
     ``data_cfg``, with the parameter specs.  No numpy state crosses the
     spawn, so it serves full-width models."""
-    rules = mesh_rules(mesh)
+    rules = mesh_rules(mesh, cfg=cfg)
     sizes = mesh.axis_sizes
     model = build_model(cfg)
     specs = specs_lib.param_specs(model.param_defs(), rules, sizes)

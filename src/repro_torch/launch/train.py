@@ -11,8 +11,12 @@ ranks.
 as the reference does; ``--mesh device`` runs the full configuration on the
 one card.  ``--mesh DxM`` spawns D x M ranks (``launch.mesh.spawn``), a
 (data, model) mesh over which the batch shards by data and the vocabulary
-by model (``models.transformer``'s vocab-parallel layout), under
-``rules.make_rules(tensor_parallel=False)``, for every family; it runs the
+by model (``models.transformer``'s vocab-parallel layout), and the heads,
+KV heads, MLP and experts by model too (tensor parallelism:
+``models.blocks``, ``models.moe``), under ``rules.launcher_rules(cfg)``: the
+reference's ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)`` less
+FSDP, and ``make_rules(tensor_parallel=False)`` for the hybrid and ssm
+families (ROADMAP A11.5).  It runs the
 full configuration on CUDA (every rank on card 0 when the ranks outnumber
 the cards, over gloo) and the reduced one on the CPU, and pads the
 configuration for the model axis (``padded_for_mesh``) unless
@@ -150,13 +154,15 @@ def rank_main(mesh, args) -> dict:
     """One rank of a ``--mesh DxM`` run: its ``Trainer`` on the mesh, then
     what the rank saw -- its metrics, kernel launches, collectives
     (``Mesh.comm``, checkpoint gathers included), peak device memory,
-    the digests of the leaves every rank must hold bit for bit, and with
-    ``--profile`` one more step profiled on rank 0, with its collectives."""
+    the shapes of its parameter blocks, the digests of the leaves every
+    rank must hold bit for bit, and with ``--profile`` one more step
+    profiled on rank 0, with its collectives."""
     import torch
 
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.xent import kernel as xent_kernel
     from repro_torch.launch.mesh_checks import digests
+    from repro_torch.models.params import leaves
 
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s rank {mesh.rank} %(name)s "
@@ -179,6 +185,8 @@ def rank_main(mesh, args) -> dict:
                      "xent": xent_kernel.LAUNCHES["xent"],
                      "rmsnorm": rms_kernel.LAUNCHES["plain"]},
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+        "shapes": {"/".join(p): tuple(t.shape)
+                   for p, t in leaves(trainer.state["params"])},
         "digests": digests(trainer.state, trainer.specs, mesh.axis_sizes),
     }
     if args.profile and cuda:

@@ -7,9 +7,20 @@ registered kernel (``api.launch("rmsnorm")``, the hand-written CUDA kernel
 on the card), differentiated by ``RMSNormFn`` under autograd, and so does
 the gated norm of the Mamba2 and mLSTM blocks
 (``api.launch("rmsnorm.gated")``, ``GatedRMSNormFn``); attention and
-the projections are plain PyTorch, as the JAX package leaves them to XLA.  The reference's activation-sharding
-annotations (``parallel.rules.shard``) have no counterpart until the SPMD
-slice (ROADMAP A11).
+the projections are plain PyTorch, as the JAX package leaves them to XLA.
+
+On a mesh of ranks the attention and the MLP are tensor-parallel where
+the rules cut "heads" and "mlp" (Megatron's layout; the reference's
+``parallel.rules.shard`` annotations leave the same cut to GSPMD): the
+query, key and value projections and the MLP's ``wi``/``wg`` are
+column-parallel, each rank multiplying by its heads' or columns' slice,
+and the attention's ``wo`` and the MLP's ``wo`` row-parallel, each rank's
+partial product summed over the ranks.  The activations between the
+layers stay whole on every rank.  Two autograd functions carry it:
+``SumGradOverRanks`` (Megatron's *f*) where a tensor whole on every rank
+enters a rank's own part of the work, ``SumOverRanks`` (*g*) where the
+ranks' parts are summed.  Outside a mesh, or where an axis maps to no
+mesh axis of more than one rank, the same code runs whole.
 
 Two decisions of the port, for its bit-exact serving contracts:
 
@@ -37,8 +48,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.api import dispatch
+from repro_torch.api import spmd as spmd_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
+from repro_torch.parallel import rules as rules_lib
 
 NEG_INF = -1e30
 
@@ -49,11 +62,12 @@ NEG_INF = -1e30
 
 class SumOverRanks(torch.autograd.Function):
     """Forward: ``x`` summed over the ranks of a mesh's ``axes``; backward:
-    the identity.  The pairing for a sum whose every rank goes on to
-    compute the same thing from it: each rank's own part gets the whole
-    gradient of the sum, and no rank's gradient is counted twice (the
-    vocab-parallel lookup sums its rows over the vocab ranks; an MoE layer
-    sums its router statistics over the data ranks)."""
+    the identity (Megatron's *g*).  The pairing for a sum whose every rank
+    goes on to compute the same thing from it: each rank's own part gets
+    the whole gradient of the sum, and no rank's gradient is counted twice
+    (a row-parallel product's partial sums; the vocab-parallel lookup sums
+    its rows over the vocab ranks; an MoE layer sums its router statistics
+    over the data ranks)."""
 
     @staticmethod
     def forward(ctx, x, mesh, axes):
@@ -62,6 +76,52 @@ class SumOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class SumGradOverRanks(torch.autograd.Function):
+    """Forward: the identity; backward: the gradient summed over the ranks
+    of a mesh's ``axes`` (Megatron's *f*, the pair of ``SumOverRanks``).
+    Where a tensor whole on every rank enters work each rank does on its
+    own part -- a column-parallel product, the vocab-parallel head, a
+    parameter the rank's heads or experts use --, each rank's backward
+    gives its part of the gradient, and the sum gives every rank the
+    whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), ctx.axes, "sum"), None, None
+
+
+def model_parallel(name: str, size: int):
+    """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes over
+    which the rules cut the logical axis ``name`` of global ``size`` -- the
+    cut ``parallel.specs.param_specs`` gives a parameter's dim, a dim that
+    does not divide staying whole --, or ``(None, ())`` outside a mesh or
+    where it stays whole on every rank."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is None:
+        return None, ()
+    s = rules_lib.spec(name, rules=rules_lib.mesh_table(mesh), shape=(size,),
+                       axis_sizes=mesh.axis_sizes)
+    axes = rules_lib.dim_axes(s, 1)[0]
+    return (mesh, axes) if mesh.axis_size(axes) > 1 else (None, ())
+
+
+def enter(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` into the ranks' own parts of the work over ``axes``
+    (``SumGradOverRanks``); ``x`` itself for no axes."""
+    return SumGradOverRanks.apply(x, mesh, axes) if axes else x
+
+
+def leave(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The ranks' partial ``x`` summed over ``axes`` (``SumOverRanks``);
+    ``x`` itself for no axes."""
+    return SumOverRanks.apply(x, mesh, axes) if axes else x
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +301,50 @@ def attention_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def _rank_heads(p: dict, cfg: ModelConfig, mesh, axes):
+    """A rank's attention parameters where the query heads shard over mesh
+    ``axes``: ``(p, kv_of_q)``.  The query heads' leaves (``wq``, ``bq``,
+    ``wo``) are the rank's already.  The KV heads shard with them, or,
+    where their count does not divide (``rules.spec_report``'s fallback),
+    are whole on every rank: then a rank's query heads read the KV heads
+    they belong to globally (query head ``j`` reads ``j // (H / KH)``), a
+    block ``[lo, hi)`` of them, and ``kv_of_q`` maps each local query head
+    to its place in the block where the groups are not equal (else
+    ``None``, the block's own ratio).  The leaves whole on every rank that
+    a rank uses only in part (the KV heads in the fallback, the qk-norm
+    scales) enter through ``SumGradOverRanks``, so their gradient is the
+    ranks' parts summed."""
+    out = dict(p)
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            out[name] = enter(p[name], mesh, axes)
+    if model_parallel("kv_heads", cfg.n_kv_heads)[1]:
+        return out, None
+    h_loc = cfg.n_heads // mesh.axis_size(axes)
+    group = cfg.n_heads // cfg.n_kv_heads
+    q0 = mesh.index(axes) * h_loc
+    kv = [(q0 + j) // group for j in range(h_loc)]
+    lo, hi = kv[0], kv[-1] + 1
+    for name in ("wk", "wv", "bk", "bv"):
+        if name in p:
+            t = enter(p[name], mesh, axes)
+            out[name] = t[:, lo:hi] if t.ndim == 3 else t[lo:hi]
+    equal = group % h_loc == 0 or h_loc % group == 0
+    return out, None if equal else [i - lo for i in kv]
+
+
 def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, tp=(None, ())):
+    """q, k, v of (B, S, d) rows, (B, S, H, D) each: under tensor
+    parallelism ``tp`` (``(mesh, axes)`` of the heads) the rank's heads, the
+    inputs entering through ``SumGradOverRanks`` (column-parallel)."""
+    mesh, axes = tp
+    kv_of_q = None
+    if axes:
+        p, kv_of_q = _rank_heads(p, cfg, mesh, axes)
+        same = x_kv is x
+        x = enter(x, mesh, axes)
+        x_kv = x if same else enter(x_kv, mesh, axes)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x_kv, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x_kv, p["wv"])
@@ -253,6 +355,8 @@ def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
     if cfg.qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
+    if kv_of_q is not None:         # one KV head a query head
+        k, v = k[:, :, kv_of_q], v[:, :, kv_of_q]
     return q, k, v
 
 
@@ -279,8 +383,21 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
     return scores
 
 
+def _out_proj(ctx: torch.Tensor, wo: torch.Tensor,
+              tp=(None, ())) -> torch.Tensor:
+    """(B, Sq, H, D) context times ``wo`` (H, D, d): under tensor
+    parallelism ``tp`` the rank's heads' rows of ``wo`` and the partial
+    products summed over the ranks (row-parallel).  No bias follows ``wo``.
+    The sum stays in the activation dtype: in bf16 each rank's product
+    rounds once in its GEMM and the sum once more, where one device's
+    product rounds once, so a value may move by one more half ulp.  Over
+    two ranks an fp32 sum of the pair, rounded once, gives the same bits
+    as the bf16 sum, at twice the bytes through the host's buffers."""
+    return leave(torch.einsum("bqhd,hdm->bqm", ctx, wo), *tp)
+
+
 def _gqa_out(probs: torch.Tensor, v: torch.Tensor, p: dict,
-             dtype: torch.dtype) -> torch.Tensor:
+             dtype: torch.dtype, tp=(None, ())) -> torch.Tensor:
     """probs: (B,KH,G,Sq,Sk), v: (B,Sk,KH,D) -> (B,Sq,d_model)."""
     b, kh, g, sq, sk = probs.shape
     ctx = torch.matmul(probs.to(v.dtype).reshape(b, kh, g * sq, sk),
@@ -288,8 +405,7 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor, p: dict,
     dhd = ctx.shape[-1]
     ctx = ctx.reshape(b, kh, g, sq, dhd).permute(0, 3, 1, 2, 4)
     ctx = ctx.reshape(b, sq, kh * g, dhd)
-    out = torch.einsum("bqhd,hdm->bqm", ctx, p["wo"])
-    return out.to(dtype)
+    return _out_proj(ctx, p["wo"], tp).to(dtype)
 
 
 ATTN_BLOCK = 512  # KV tile length for the chunked (online-softmax) path
@@ -348,24 +464,27 @@ def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               x_kv: torch.Tensor | None = None,
               kv_positions: torch.Tensor | None = None,
               use_rope: bool = True) -> torch.Tensor:
-    """Full-sequence attention (prefill / encoder / cross)."""
+    """Full-sequence attention (prefill / encoder / cross); on a mesh
+    whose rules cut the heads, tensor-parallel: the rank's heads, the
+    output summed over the ranks."""
     cross = x_kv is not None
     x_kv = x if x_kv is None else x_kv
     kv_positions = positions if kv_positions is None else kv_positions
-    q, k, v = _project_qkv(p, x, x_kv, cfg)
+    tp = model_parallel("heads", cfg.n_heads)
+    q, k, v = _project_qkv(p, x, x_kv, cfg, tp)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
     if k.shape[1] > ATTN_BLOCK:  # chunked path: anything beyond one tile
         ctx = _chunked_gqa(q, k, v, cfg, positions, kv_positions,
                            causal and not cross)
-        return torch.einsum("bqhd,hdm->bqm", ctx.to(x.dtype), p["wo"])
+        return _out_proj(ctx.to(x.dtype), p["wo"], tp)
     scores = _gqa_scores(q, k, cfg)
     if causal and not cross:
         mask = positions[:, None, :, None] >= kv_positions[:, None, None, :]
         scores = torch.where(mask[:, :, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return _gqa_out(probs, v, p, x.dtype)
+    return _gqa_out(probs, v, p, x.dtype, tp)
 
 
 # ---- decode with KV cache -------------------------------------------------
@@ -533,8 +652,13 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated MLP; on a mesh whose rules cut "mlp", tensor-parallel:
+    ``wi``/``wg`` column-parallel, ``wo`` row-parallel (``_out_proj``'s
+    rounding)."""
+    mesh, axes = model_parallel("mlp", cfg.d_ff)
+    x = enter(x, mesh, axes)
     h = torch.matmul(x, p["wi"])
     g = torch.matmul(x, p["wg"])
     # jax.nn.gelu defaults to the tanh approximation
     act = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
-    return torch.matmul(act * h, p["wo"])
+    return leave(torch.matmul(act * h, p["wo"]), mesh, axes)

@@ -26,8 +26,11 @@ the activation dtype before the sinusoid is added; the tied head
 On a mesh of ranks (training only) the decoder's lookup and head are the
 decoder-only model's vocab-parallel ones (``transformer.embed_tokens``,
 ``transformer.enter_vocab_parallel``): the tied embedding shards its rows
-over the model axis, and so do the logits and the loss; the encoder and
-the decoder's layers stay whole on every rank of a model line, and a rank
+over the model axis, and so do the logits and the loss.  The encoder's
+and the decoder's attention (self and cross) and MLPs are tensor-parallel
+where the rules cut their heads and MLP (``models.blocks``); the cross
+attention's K and V come from the encoder's output, whole on every rank
+of a model line, as the activations between the layers are.  A rank
 holds its rows of the batch's frames.  The lookup's ``embed_scale`` is
 whisper's 1.0, so its product is exact and the sum with the sinusoid
 rounds as the reference's.
@@ -58,6 +61,7 @@ from repro_torch.models.transformer import (
     enter_vocab_parallel,
     layers,
     lm_loss,
+    ported_mesh,
     refuse_mesh,
 )
 
@@ -128,6 +132,7 @@ def encode(params: Tree, frames: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """frames: (B, T, d) precomputed embeddings (the stub frontend) ->
     the encoder's normed output (B, T, d) in the activation dtype."""
+    ported_mesh(cfg)
     b, t, _ = frames.shape
     pos = _positions(b, t, frames.device)
     x = frames.to(cfg.adtype) + sinusoid(pos, cfg.d_model, cfg.adtype)

@@ -57,8 +57,19 @@ the global token order cut in ``cfg.moe_groups``:
     backward gives each rank the gradient through its own tokens, which
     the train step's sum over the data axes completes once.
 
-The experts stay whole on every rank (the rules map "expert" to no mesh
-axis); sharding them is tensor parallelism (ROADMAP A11).
+Where the rules cut the experts over a model axis (the default rules:
+"expert" on "model"), a rank holds a block of the storage slots, rows of
+``wi``/``wg``/``wo``, and the skewed placement maps logical experts to
+them as on one device.  The tokens are whole on every rank of a model
+line, so the router, the capacity ranking and the load-balance loss run
+whole on each; a rank fills and multiplies only its own slots' cells.
+Under ``expert_tp`` ("expert_mlp" on "model") every rank holds every
+expert and a slice of each one's MLP columns, column- then row-parallel as
+``blocks.apply_mlp``.  Either way a rank's combine is its part of each
+token's sum, in fp32; the parts are summed over the model ranks
+(``blocks.SumOverRanks``) and rounded once, so the output still rounds
+once, as above.  The rows and the routing weights enter the rank's part
+through ``blocks.SumGradOverRanks``.
 """
 from __future__ import annotations
 
@@ -68,7 +79,7 @@ import torch.nn.functional as F
 
 from repro_torch.api import spmd as spmd_lib
 from repro_torch.core.sharding_skew import expert_permutation
-from repro_torch.models.blocks import SumOverRanks
+from repro_torch.models.blocks import SumOverRanks, enter, leave, model_parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 from repro_torch.parallel import rules as rules_lib
@@ -194,15 +205,18 @@ def route(p: dict, xf: torch.Tensor, cfg: ModelConfig):
     return probs, top_e, weights, slot, pos, pos < cap, cap
 
 
-def combine(picked: torch.Tensor, weights: torch.Tensor,
-            k: int) -> torch.Tensor:
+def combine(picked: torch.Tensor, weights: torch.Tensor, k: int,
+            dtype: torch.dtype | None = None) -> torch.Tensor:
     """(G, n, d) output rows of a group's assignments times their (G, n)
     weights, both in the activation dtype (a dropped assignment's weight is
     0), and the k picks of each token summed in one reduction: (G, n / k,
     d).  The products round to the dtype, as the reference's do; the sum
-    of a token's k products rounds once (fp32 accumulation)."""
+    of a token's k products rounds once (fp32 accumulation), to ``dtype``
+    where given (fp32 for a rank's part, summed over the ranks before the
+    one rounding)."""
     g, n, d = picked.shape
-    return (picked * weights[..., None]).reshape(g, n // k, k, d).sum(2)
+    return (picked * weights[..., None]).reshape(g, n // k, k, d).sum(
+        2, dtype=dtype)
 
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -223,6 +237,15 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if max(cfg.moe_groups, 1) % ranks:      # a group spans ranks
         pos, cap = own_cells(slot, pos, keep, e, cap)
 
+    # tensor parallelism over the model ranks: a block of the storage
+    # slots (expert-parallel) or of each expert's MLP columns (expert_tp)
+    mesh_e, e_axes = model_parallel("expert", e)
+    mesh_f, f_axes = model_parallel("expert_mlp", cfg.moe_d_ff)
+    tp_mesh, tp = mesh_e or mesh_f, e_axes + f_axes
+    e_loc = p["wi"].shape[0]
+    s0 = mesh_e.index(e_axes) * e_loc if e_axes else 0
+    xt = enter(xf, tp_mesh, tp)
+
     # dispatch: the source row of each (expert, rank) cell; a dropped
     # assignment writes a cell of its own past the buffer, so no cell is
     # written twice, and an empty cell keeps the index of a zero row
@@ -234,24 +257,39 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     token_of = torch.arange(tg, device=dev).repeat_interleave(k)
     src.scatter_(1, cell, token_of.expand(g, n))
     zero = torch.zeros((g, 1, d), dtype=x.dtype, device=dev)
-    xg = torch.cat([xf.reshape(g, tg, d), zero], dim=1)             # (G, tg+1, d)
-    buf = torch.gather(xg, 1, src[:, :e * cap, None].expand(-1, -1, d))
-    eb = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xg = torch.cat([xt.reshape(g, tg, d), zero], dim=1)             # (G, tg+1, d)
+    mine = src[:, s0 * cap:(s0 + e_loc) * cap]      # this rank's slots' cells
+    buf = torch.gather(xg, 1, mine[..., None].expand(-1, -1, d))
+    eb = buf.reshape(g, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, g * cap, d)
 
-    # the expert FFNs: three batched products over E
+    # the expert FFNs: three batched products over the rank's experts
     h = torch.bmm(eb, p["wi"])
     gate = torch.bmm(eb, p["wg"])
     # jax.nn.gelu defaults to the tanh approximation
     act = (F.silu(gate) if cfg.act == "silu"
            else F.gelu(gate, approximate="tanh"))
-    y = torch.bmm(act * h, p["wo"])                                 # (E, G*cap, d)
+    y = torch.bmm(act * h, p["wo"])                                 # (E', G*cap, d)
 
     # combine: each assignment's output row times its weight (a dropped
-    # one's 0, as the reference's), the k picks of a token summed at once
-    yg = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
-    picked = torch.gather(yg, 1, idx[..., None].expand(-1, -1, d))  # (G, n, d)
-    wk = torch.where(keep, weights.reshape(g, n), 0.0).to(x.dtype)
-    out = combine(picked, wk, k).reshape(b, s, d)
+    # one's 0, as the reference's), the k picks of a token summed at once;
+    # under tensor parallelism a rank's part (an assignment to another
+    # rank's slot reads a zero row) in fp32, summed over the ranks, then
+    # rounded once
+    yg = y.reshape(e_loc, g, cap, d).transpose(0, 1).reshape(
+        g, e_loc * cap, d)
+    at = idx - s0 * cap
+    if e_axes:
+        yg = torch.cat([yg, zero], dim=1)
+        at = torch.where((slot >= s0) & (slot < s0 + e_loc), at, e_loc * cap)
+    picked = torch.gather(yg, 1, at[..., None].expand(-1, -1, d))   # (G, n, d)
+    wk = torch.where(keep, enter(weights, tp_mesh, tp).reshape(g, n),
+                     0.0).to(x.dtype)
+    if tp:
+        out = leave(combine(picked, wk, k, torch.float32), tp_mesh, tp)
+        out = out.to(x.dtype).reshape(b, s, d)
+    else:
+        out = combine(picked, wk, k).reshape(b, s, d)
     if not with_aux:
         return out, None
 

@@ -33,8 +33,7 @@ batch's ``img_embeds`` in ``LM.loss``); it serves text alone, from position
 Under a mesh of ranks (an ambient ``launch.mesh.Mesh``, ``api.spmd``) the
 model is *vocab-parallel*, Megatron's layout: the tied embedding (V, d)
 shards its rows over the mesh axes the rules give "vocab", and so do the
-logits and the loss; everything between stays whole on every rank of a
-model line.  Three pieces carry it:
+logits and the loss.  Three pieces carry it:
 
   * the embedding lookup takes the tokens in this rank's rows
     ``[off, off + V/M)`` and sums the rows over the vocab ranks (one rank
@@ -42,24 +41,25 @@ model line.  Three pieces carry it:
     identity (``blocks.SumOverRanks``);
   * before the head, the activations enter the vocab-parallel region: the
     forward is the identity and the backward sums dx over the vocab ranks
-    (``_EnterVocabParallel``), so the replicated body gets the same
-    gradient on every rank;
+    (``blocks.SumGradOverRanks``), so the replicated activations get the
+    same gradient on every rank;
   * ``XentFn`` launches ``xent`` over the mesh (B12 on each vocab shard and
     the log-sum-exp combine) and differentiates it by the vocab-parallel
     ``xent_grad``.
 
-Every family trains on a ``(data, model)`` mesh under
-``rules.make_rules(tensor_parallel=False)``, computing the reference's
-function of the global batch: a rank holds its rows of the batch (the
-image embeddings of a vlm batch too), an MoE layer ranks capacity and
-averages its load-balance statistics over the global batch
-(``models.moe``), and the encoder-decoder shares this module's
-vocab-parallel lookup and head entry (``models.encdec``).  Attention
-heads, the MLP and the experts stay whole (no tensor parallelism yet,
-ROADMAP A11): the model raises if the ambient rules shard "heads",
-"kv_heads", "mlp" or "expert" over a mesh axis of more than one rank.
-Decoding on a mesh (``decode_step``, and so serving) raises too, as does
-the masked loss.
+The layers between are *tensor-parallel* where the rules cut their heads,
+MLP and experts (``models.blocks``' attention and MLP, ``models.moe``);
+their activations stay whole on every rank of a model line.  Every family
+trains on a ``(data, model)`` mesh under ``rules.launcher_rules(cfg)``,
+computing the reference's function of the global batch: a rank holds its
+rows of the batch (the image embeddings of a vlm batch too), an MoE layer
+ranks capacity and averages its load-balance statistics over the global
+batch (``models.moe``), and the encoder-decoder shares this module's
+vocab-parallel lookup and head entry (``models.encdec``).  The model
+raises where the rules cut a parameter axis the port does not run for the
+family (``rules.require_ported``: FSDP's "embed", and the hybrid and ssm
+families' heads, MLP and experts, ROADMAP A11).  Decoding on a mesh
+(``decode_step``, and so serving) raises too, as does the masked loss.
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -250,25 +250,26 @@ def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
     return x + rs * h, aux
 
 
+def ported_mesh(cfg: ModelConfig):
+    """The ambient mesh of ranks (``None`` outside one); raises where the
+    rules cut a parameter axis the port does not run for ``cfg``'s family
+    (``rules.require_ported``, ROADMAP A11)."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is not None:
+        rules_lib.require_ported(cfg.family, mesh)
+    return mesh
+
+
 def vocab_parallel(cfg: ModelConfig):
     """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes the
     vocabulary shards over, or ``(None, ())`` outside a mesh or when the
     vocab stays whole (a model axis of one rank, or a vocab that does not
-    divide).  Raises where the rules would shard a layer's heads, MLP or
-    experts (tensor parallelism, ROADMAP A11)."""
-    mesh = spmd_lib.spmd_mesh()
+    divide).  Raises as ``ported_mesh`` does."""
+    mesh = ported_mesh(cfg)
     if mesh is None:
         return None, ()
     table = rules_lib.mesh_table(mesh)
     sizes = mesh.axis_sizes
-    for ax in rules_lib.TENSOR_PARALLEL_AXES:
-        axes = rules_lib.mesh_axes(ax, mesh, table)
-        if rules_lib.spec_size(axes, sizes) > 1:
-            raise NotImplementedError(
-                f"the rules shard {ax!r} over mesh axes {axes}: tensor "
-                f"parallelism of attention, MLP and experts is not ported "
-                f"(ROADMAP A11); map {list(rules_lib.TENSOR_PARALLEL_AXES)} "
-                f"to None, as rules.make_rules(tensor_parallel=False) does")
     s = rules_lib.spec("vocab", "embed", rules=table,
                        shape=(cfg.vocab_size, cfg.d_model), axis_sizes=sizes)
     return mesh, rules_lib.dim_axes(s, 2)[0]
@@ -282,20 +283,6 @@ def refuse_mesh() -> None:
         raise NotImplementedError(
             f"decoding on a mesh of {mesh.size} ranks is not ported (ROADMAP "
             f"A11): decode and serve on one device")
-
-
-class _EnterVocabParallel(torch.autograd.Function):
-    """Forward: the identity; backward: the sum of dx over the vocab ranks
-    (each rank's head shard gives its part of the gradient)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.all_reduce(g.contiguous(), ctx.axes, "sum"), None, None
 
 
 def embed_tokens(params: Tree, tokens: torch.Tensor,
@@ -321,9 +308,8 @@ def embed_tokens(params: Tree, tokens: torch.Tensor,
 
 def enter_vocab_parallel(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``x``, the head's input; under a vocab-parallel mesh its backward
-    sums dx over the vocab ranks (``_EnterVocabParallel``)."""
-    mesh, axes = vocab_parallel(cfg)
-    return _EnterVocabParallel.apply(x, mesh, axes) if axes else x
+    sums dx over the vocab ranks (``blocks.SumGradOverRanks``)."""
+    return blocks.enter(x, *vocab_parallel(cfg))
 
 
 def unembed(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -44,12 +44,22 @@ DEFAULT_RULES: dict[str, AxisTarget] = {
     "frames": None,
 }
 
-# The logical axes whose sharding means tensor parallelism inside a layer
-# (attention heads, the MLP, experts).  The port shards only "batch" and
-# "vocab" so far (ROADMAP A11); a launcher that runs a model on a mesh maps
-# these to None (``make_rules(tensor_parallel=False)``), and the model raises
-# if the ambient rules shard one of them over a mesh axis of size > 1.
-TENSOR_PARALLEL_AXES = ("heads", "kv_heads", "mlp", "expert")
+# The logical axes of the models' parameters.  A rule that cuts one of them
+# over a mesh axis of more than one rank is tensor parallelism or FSDP, which
+# the port runs only where ``require_ported`` lets it.
+PARAMETER_AXES = ("embed", "vocab", "heads", "kv_heads", "head_dim", "mlp",
+                  "expert", "expert_mlp", "layers", "conv")
+
+# The logical axes whose sharding means tensor parallelism inside a layer:
+# attention heads and KV heads, the MLP, the experts (or, under
+# ``expert_tp``, each expert's MLP).
+TENSOR_PARALLEL_AXES = ("heads", "kv_heads", "mlp", "expert", "expert_mlp")
+
+# The families whose layers run tensor-parallel (ROADMAP A11.5).  The hybrid
+# and ssm families' gated norm spans the whole ``d_inner`` row, which
+# carries the "mlp" axis, so theirs needs a sum of squares across the ranks
+# in front of the norm kernel: not ported yet.
+TENSOR_PARALLEL_FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 _active: contextvars.ContextVar[Mapping[str, AxisTarget] | None] = (
     contextvars.ContextVar("repro_torch_sharding_rules", default=None)
@@ -150,8 +160,9 @@ def make_rules(
     overrides: Mapping[str, AxisTarget] | None = None,
 ) -> dict[str, AxisTarget]:
     """Build a rules table for a mesh/arch/shape combination.
-    ``tensor_parallel=False`` maps ``TENSOR_PARALLEL_AXES`` to None (the
-    port's launchers: only the batch and the vocab shard)."""
+    ``tensor_parallel=False`` maps ``TENSOR_PARALLEL_AXES`` to None (only
+    the batch and the vocab shard: the launchers' rules for the hybrid and
+    ssm families, ``launcher_rules``)."""
     rules = dict(DEFAULT_RULES)
     rules["batch"] = ("pod", "data") if multi_pod else ("data",)
     if multi_pod:
@@ -171,6 +182,62 @@ def make_rules(
     if overrides:
         rules.update(overrides)
     return rules
+
+
+def launcher_rules(cfg) -> dict[str, AxisTarget]:
+    """The rules a launcher trains model config ``cfg`` under on a mesh.
+
+    For the dense, vlm, moe and encdec families the reference's
+    ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``
+    (``repro.launch.train``) less ``fsdp``: heads, KV heads, the MLP and
+    the experts (each expert's MLP under ``expert_tp``) shard over "model".
+    FSDP ("embed" over "data") is not ported, a stated gap (ROADMAP A11.5),
+    so ``fsdp`` is not passed.  The hybrid and ssm families train under
+    ``make_rules(tensor_parallel=False)`` until their slice."""
+    if cfg.family in TENSOR_PARALLEL_FAMILIES:
+        return make_rules(expert_tp=cfg.expert_tp)
+    return make_rules(tensor_parallel=False)
+
+
+def require_ported(family: str, mesh,
+                   rules: Mapping[str, AxisTarget] | None = None) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A11 where ``rules``
+    (else the ambient rules) cut a parameter axis the port does not run for
+    ``family`` over a mesh axis of more than one rank: "embed" (FSDP) for
+    every family; heads, KV heads, the MLP and the experts for the hybrid
+    and ssm families.  Tensor parallelism must also keep off the batch's
+    mesh axes, and the KV heads on the heads' axes."""
+    table = mesh_table(mesh, rules)
+    sizes = axis_sizes_of(mesh)
+
+    def cut(ax):
+        return tuple(a for a in target_axes(table.get(ax))
+                     if sizes.get(a, 1) > 1)
+
+    ok = ("vocab",) + (TENSOR_PARALLEL_AXES
+                       if family in TENSOR_PARALLEL_FAMILIES else ())
+    for ax in PARAMETER_AXES:
+        axes = cut(ax)
+        if not axes:
+            continue
+        what = ("FSDP" if ax == "embed" else
+                "tensor parallelism" if ax in TENSOR_PARALLEL_AXES else
+                "sharding")
+        if ax not in ok:
+            raise NotImplementedError(
+                f"the rules shard {ax!r} over mesh axes {axes}: {what} of "
+                f"the {family} family is not ported (ROADMAP A11); train "
+                f"it under rules.launcher_rules(cfg)")
+        if ax in TENSOR_PARALLEL_AXES and set(axes) & set(cut("batch")):
+            raise NotImplementedError(
+                f"the rules shard {ax!r} over the batch's mesh axes {axes}: "
+                f"tensor parallelism over a data axis is not ported "
+                f"(ROADMAP A11)")
+    if cut("kv_heads") and cut("kv_heads") != cut("heads"):
+        raise NotImplementedError(
+            f"the rules shard 'kv_heads' over {cut('kv_heads')} and 'heads' "
+            f"over {cut('heads')}: tensor parallelism with the KV heads off "
+            f"their query heads' axes is not ported (ROADMAP A11)")
 
 
 def spec(*axes: str | None, rules: Mapping[str, AxisTarget] | None = None,

@@ -13,9 +13,14 @@ over the data axis), and each rank's backward gives the gradient through
 its own rows, so each rank's gradient is its share of the global loss's
 gradient: every leaf is summed over the data axes -- the mean over the data
 ranks of each rank's own-token gradient, which the reference's ``jit`` gets
-from its global arrays.  The replicated leaves then hold the same bits on
-every rank; the vocab-sharded ones (the embedding) keep their own rows.  The
-clipping norm sums each shard's squares once.
+from its global arrays.  Under tensor parallelism a rank's gradient of a
+leaf the rules cut is already its block's whole gradient (the layers sum
+over the model ranks where a replicated tensor enters a rank's part,
+``models.blocks``), so the model axis adds no sum.  The replicated leaves
+then hold the same bits on every rank; the sharded ones (the embedding,
+and the heads', MLP's and experts' weights) keep their own blocks.  The
+clipping norm sums each leaf's squares once: over the mesh axes that cut
+it, never for a replicated leaf.
 """
 from __future__ import annotations
 
@@ -92,12 +97,12 @@ def make_grad_fn(model, *, microbatches: int = 1, mesh=None,
     With ``microbatches > 1`` the batch is processed as micro-slices along
     its leading axis with fp32 gradient accumulation.  With a ``mesh`` of
     more than one rank it runs under the mesh and ``rules`` (default:
-    ``rules.make_rules(tensor_parallel=False)``) on this rank's shards, and
-    sums the gradients over the data axes."""
+    ``rules.launcher_rules(model.cfg)``) on this rank's shards, and sums the
+    gradients over the data axes."""
     on_mesh = mesh is not None and mesh.size > 1
     if on_mesh:
         rules = rules_lib.mesh_table(
-            mesh, rules or rules_lib.make_rules(tensor_parallel=False))
+            mesh, rules or rules_lib.launcher_rules(model.cfg))
         data_axes = rules_lib.mesh_axes("batch", mesh, rules)
         pspecs = specs_lib.param_specs(model.param_defs(), rules,
                                        mesh.axis_sizes)

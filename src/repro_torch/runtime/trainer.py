@@ -19,7 +19,7 @@ each step).
 ``Trainer(..., mesh=, sharding=)`` trains on a mesh of ranks
 (``launch.mesh``): every rank runs its own ``Trainer`` on its shards of the
 state (cut by ``parallel.specs`` under the ambient rules, or
-``rules.make_rules(tensor_parallel=False)``) and on its rows of each batch
+``rules.launcher_rules(cfg)``) and on its rows of each batch
 (``sharding``, by default the rules' batch spec).  A fresh state is the
 single-device init from the seed, cut to this rank's blocks, so a mesh run
 starts from the same weights as a one-device run.  A save gathers the
@@ -87,7 +87,7 @@ class Trainer:
         if self.mesh is not None:
             self.rules = rules_lib.restrict_to_mesh(
                 rules_lib.current_rules()
-                or rules_lib.make_rules(tensor_parallel=False), self.mesh)
+                or rules_lib.launcher_rules(model.cfg), self.mesh)
             sizes = self.mesh.axis_sizes
             self.specs = specs_lib.state_specs(
                 model.param_defs(), self.rules, master=opt_cfg.master,

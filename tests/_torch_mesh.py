@@ -1,27 +1,69 @@
 """What the port still refuses on a mesh of ranks, and what it now runs,
 for the family tests (``tests/test_torch_{moe,vlm,encdec,hybrid,xlstm}.py``).
 
-``TwoRanks`` is a (1, 2) mesh as the model's checks see it, without ranks:
-each refusal raises before any collective, so no process is spawned.
+``Ranks`` is a mesh as the model's checks see it, without ranks: each
+refusal raises before any collective, so no process is spawned.
+``assemble`` puts the ranks' blocks of a (data, model) mesh back together.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch import api
+from repro_torch import api, interop
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model, transformer
 from repro_torch.models.params import init_params
 from repro_torch.parallel import rules
 
+AXES = ("data", "model")
 
-class TwoRanks:
-    axis_names = ("data", "model")
-    shape = (1, 2)
-    size = 2
+
+def assemble(blocks, spec_, shape):
+    """The global array of per-rank ``blocks`` (rank order) laid out by
+    ``spec_`` on a (data, model) mesh of ``shape``; ranks that hold the same
+    block must hold the same bits."""
+    sizes = dict(zip(AXES, shape))
+    first = np.asarray(blocks[0])
+    dims = rules.dim_axes(spec_, first.ndim)
+    full = [first.shape[d] * rules.spec_size(dims[d], sizes)
+            for d in range(first.ndim)]
+    out = np.full(full, np.nan, dtype=first.dtype) if first.dtype.kind == "f" \
+        else np.zeros(full, dtype=first.dtype)
+    seen = {}
+    for r, b in enumerate(blocks):
+        b = np.asarray(b)
+        coords = dict(zip(AXES, np.unravel_index(r, shape)))
+        where = []
+        for d in range(first.ndim):
+            idx = 0
+            for a in dims[d]:
+                idx = idx * sizes[a] + int(coords[a])
+            where.append(slice(idx * b.shape[d], (idx + 1) * b.shape[d]))
+        key = tuple((s.start, s.stop) for s in where)
+        if key in seen:
+            np.testing.assert_array_equal(b, seen[key])
+        seen[key] = b
+        out[tuple(where)] = b
+    return out
+
+
+def assemble_tree(blocks, spec_tree, shape):
+    if isinstance(spec_tree, dict):
+        return {k: assemble_tree([b[k] for b in blocks], spec_tree[k], shape)
+                for k in spec_tree}
+    return assemble([interop.to_numpy(b) for b in blocks], spec_tree, shape)
+
+
+class Ranks:
+    axis_names = AXES
     group = None
+
+    def __init__(self, shape=(1, 2)):
+        self.shape = shape
+        self.size = math.prod(shape)
 
     @property
     def axis_sizes(self):
@@ -29,9 +71,12 @@ class TwoRanks:
 
 
 def assert_mesh_refusals(cfg):
-    """On a mesh of two ranks: the loss under the tensor-parallel rules
-    (heads, MLP and experts sharded), a decode step, and the masked loss
-    each raise ``NotImplementedError`` naming ROADMAP A11."""
+    """On a mesh of two ranks, each raising ``NotImplementedError`` naming
+    ROADMAP A11: the loss under rules the port does not run for the family
+    -- FSDP (``make_rules(fsdp=True)``, "embed" on a data axis of two
+    ranks) for every family, and for the hybrid and ssm families the
+    tensor-parallel rules (heads and MLP on a model axis of two) --, and
+    under the launchers' rules a decode step and the masked loss."""
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=4, global_batch=2,
@@ -40,21 +85,24 @@ def assert_mesh_refusals(cfg):
                       d_model=cfg.d_model)
     batch = make_batch(data, 0, device="cpu")
     cache = init_params(0, model.cache_defs(2, 8), device="cpu")
-    mesh = TwoRanks()
-    with api.plan_context(mesh=mesh):
-        with rules.use_rules(rules.make_rules(), mesh):
-            with pytest.raises(NotImplementedError,
-                               match="tensor parallelism .* A11"):
+    refused = [(Ranks((2, 1)), rules.make_rules(fsdp=True), "FSDP .* A11")]
+    if cfg.family not in rules.TENSOR_PARALLEL_FAMILIES:
+        refused.append((Ranks((1, 2)), rules.make_rules(),
+                        "tensor parallelism .* A11"))
+    for mesh, table, match in refused:
+        with api.plan_context(mesh=mesh), rules.use_rules(table, mesh):
+            with pytest.raises(NotImplementedError, match=match):
                 model.loss(params, batch)
-        with rules.use_rules(rules.make_rules(tensor_parallel=False), mesh):
-            with pytest.raises(NotImplementedError,
-                               match="decoding on a mesh .* A11"):
-                model.decode_step(params, cache, batch["tokens"][:, :1])
-            logits = torch.zeros((2, 4, cfg.vocab_size))
-            with pytest.raises(NotImplementedError,
-                               match="masked loss .* A11"):
-                transformer.lm_loss(logits, batch["labels"], cfg,
-                                    torch.ones((2, 4)))
+    mesh = Ranks((1, 2))
+    with api.plan_context(mesh=mesh), \
+            rules.use_rules(rules.launcher_rules(cfg), mesh):
+        with pytest.raises(NotImplementedError,
+                           match="decoding on a mesh .* A11"):
+            model.decode_step(params, cache, batch["tokens"][:, :1])
+        logits = torch.zeros((2, 4, cfg.vocab_size))
+        with pytest.raises(NotImplementedError, match="masked loss .* A11"):
+            transformer.lm_loss(logits, batch["labels"], cfg,
+                                torch.ones((2, 4)))
 
 
 def assert_launcher_trains_on_a_mesh(arch, shape, ckpt_dir):

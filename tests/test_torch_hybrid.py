@@ -540,9 +540,9 @@ def test_slot_reset_zeroes_the_reused_slots_ssm_and_conv_rows():
 
 
 def test_a_mesh_with_a_model_axis_refuses_the_hybrid(tmp_path):
-    """The hybrid on a mesh: tensor-parallel rules, decoding and the masked
-    loss are refused (ROADMAP A11); the vocab-parallel training on a model
-    axis runs (tests/test_torch_mesh_families.py holds it to the
+    """The hybrid on a mesh: tensor-parallel rules, FSDP, decoding and the
+    masked loss are refused (ROADMAP A11); the vocab-parallel training on a
+    model axis runs (tests/test_torch_mesh_families.py holds it to the
     reference)."""
     _, cfg = configs()
     assert_mesh_refusals(cfg)

@@ -12,7 +12,10 @@ with remat on) and 2.
 
 Meshes: (2, 1) and (1, 2) over gloo, each spawned once for the module with
 every family as a job (``launch.mesh_checks``; a rank imports nothing of
-JAX), the MoE at ``moe_groups`` 2 on (2, 1) only.  On each mesh the step-0
+JAX), the MoE at ``moe_groups`` 2 on (2, 1) only.  Each family runs under
+its launchers' rules (``rules.launcher_rules``): on (1, 2) the moe, vlm and
+encdec layers are tensor-parallel (heads, MLP and experts cut by rank),
+the hybrid and ssm families vocab-parallel only.  On each mesh the step-0
 loss and every gradient leaf, put back together from the ranks' blocks,
 against the reference's ``jax.value_and_grad(model.loss)``; the global
 norm; the loss after one AdamW update against the port's one-device step;
@@ -236,10 +239,17 @@ def test_unsharded_leaves_are_bit_equal_on_every_rank(mesh_run, family):
     sizes = dict(zip(AXES, shape))
     sharded = {"/".join(p) for p in specs.sharded_paths(ranks[0]["specs"],
                                                         sizes)}
-    # on a model axis the embedding (and an untied head), their moments
-    # and their master copies shard
-    heads = 1 if ranks[0]["specs"]["params"].get("lm_head") is None else 2
-    assert len(sharded) == (4 * heads if shape[1] > 1 else 0)
+    # on a model axis the embedding (and an untied head), and in the
+    # tensor-parallel families every attention, MLP and expert weight and
+    # bias, shard, with their moments and master copies
+    names = ("embed", "lm_head") + (
+        ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg")
+        if family not in ("hybrid", "ssm") else ())
+    cut = {"/".join(p) for p, _ in leaves(ranks[0]["state"]["params"])
+           if p[-1] in names}
+    assert sharded == ({f"{part}/{p}" for p in cut for part in (
+        "params", "opt/m", "opt/v", "opt/master")} if shape[1] > 1
+        else set())
     assert set(ranks[0]["digests"]) | sharded == {
         "/".join(p) for p, _ in leaves(ranks[0]["state"])}
     for r in ranks[1:]:

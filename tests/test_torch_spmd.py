@@ -23,7 +23,9 @@ each mesh:
   * the reference's own SPMD path, run in a subprocess on 4 forced host
     devices (``XLA_FLAGS=--xla_force_host_platform_device_count=4``), gives
     the same loss and gradient on the same mesh;
-  * reduced qwen2-0.5b from the same numpy weights: the loss, every
+  * reduced qwen2-0.5b from the same numpy weights, under the launchers'
+    rules (``rules.launcher_rules``: on a model axis the vocab, the heads,
+    the KV heads and the MLP shard, tensor parallelism): the loss, every
     gradient leaf and the norm of the first step against the reference's
     single-device ``value_and_grad``, and three AdamW steps against its
     trajectory, with ``tests/test_torch_train.py``'s tolerances; every leaf
@@ -90,6 +92,8 @@ from repro_torch.optim import adamw, schedules
 from repro_torch.parallel import rules, specs, steps
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
+from _torch_mesh import assemble, assemble_tree
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = [(1, 2), (2, 1), (2, 2)]
 AXES = ("data", "model")
@@ -112,6 +116,8 @@ ODD_DTYPES = ["float32", "bfloat16"]
 # layout policy (``padded_for_mesh``, what ``launch.train --mesh DxM`` does
 # by default): 500 logical columns in 512, the limit inside the last shard
 PADDED_VOCAB = 500
+# the parameter leaves a model axis cuts in the reduced qwen2-0.5b
+TP_LEAVES = ("embed", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg")
 
 
 def xent_inputs(t, v, seed):
@@ -126,42 +132,6 @@ def xent_inputs(t, v, seed):
 def data_cfgs(vocab=512):
     kw = dict(vocab_size=vocab, seq_len=16, global_batch=4, seed=3)
     return jpipeline.DataConfig(**kw), pipeline.DataConfig(**kw)
-
-
-def assemble(blocks, spec_, shape):
-    """The global array of per-rank ``blocks`` (rank order) laid out by
-    ``spec_`` on a (data, model) mesh of ``shape``; ranks that hold the same
-    block must hold the same bits."""
-    sizes = dict(zip(AXES, shape))
-    first = np.asarray(blocks[0])
-    dims = rules.dim_axes(spec_, first.ndim)
-    full = [first.shape[d] * rules.spec_size(dims[d], sizes)
-            for d in range(first.ndim)]
-    out = np.full(full, np.nan, dtype=first.dtype) if first.dtype.kind == "f" \
-        else np.zeros(full, dtype=first.dtype)
-    seen = {}
-    for r, b in enumerate(blocks):
-        b = np.asarray(b)
-        coords = dict(zip(AXES, np.unravel_index(r, shape)))
-        where = []
-        for d in range(first.ndim):
-            idx = 0
-            for a in dims[d]:
-                idx = idx * sizes[a] + int(coords[a])
-            where.append(slice(idx * b.shape[d], (idx + 1) * b.shape[d]))
-        key = tuple((s.start, s.stop) for s in where)
-        if key in seen:
-            np.testing.assert_array_equal(b, seen[key])
-        seen[key] = b
-        out[tuple(where)] = b
-    return out
-
-
-def assemble_tree(blocks, spec_tree, shape):
-    if isinstance(spec_tree, dict):
-        return {k: assemble_tree([b[k] for b in blocks], spec_tree[k], shape)
-                for k in spec_tree}
-    return assemble([interop.to_numpy(b) for b in blocks], spec_tree, shape)
 
 
 def pick(tree, path):
@@ -431,8 +401,9 @@ def test_train_state_cut_by_rank_puts_back_together():
                                            mesh=mesh, rank=r)
               for r in range(2)]
     assert tuple(blocks[0]["params"]["embed"].shape) == (256, 128)
-    table = rules.restrict_to_mesh(rules.make_rules(tensor_parallel=False),
-                                   mesh)
+    assert tuple(blocks[0]["params"]["s00_dense"]["attn"]["wq"].shape) == (
+        4, 128, 2, 32)
+    table = rules.restrict_to_mesh(rules.launcher_rules(cfg), mesh)
     spec_tree = specs.state_specs(build_model(cfg).param_defs(), table,
                                   master=True, axis_sizes=mesh)
     whole = assemble_tree(blocks, spec_tree, (1, 2))
@@ -808,11 +779,17 @@ def test_train_trajectory_matches_reference(mesh_run, reference):
 def test_unsharded_leaves_are_bit_equal_on_every_rank(mesh_run):
     ranks = [r[2] for r in mesh_run["ranks"]]
     first = ranks[0]["digests"]
-    # everything but the vocab-sharded embedding (and its optimizer state)
+    # everything but, on a model axis, the vocab-sharded embedding and the
+    # attention's and MLP's tensor-parallel weights and biases (and their
+    # optimizer state)
     sharded = {"/".join(p) for p in specs.sharded_paths(
         ranks[0]["specs"], dict(zip(AXES, mesh_run["shape"])))}
     d, m = mesh_run["shape"]
-    assert len(sharded) == (4 if m > 1 else 0)
+    cut = {"/".join(p) for p, _ in leaves(ranks[0]["state"]["params"])
+           if p[-1] in TP_LEAVES}
+    assert len(cut) == 1 + 10
+    assert sharded == ({f"{part}/{p}" for p in cut for part in (
+        "params", "opt/m", "opt/v", "opt/master")} if m > 1 else set())
     assert set(first) | sharded == {"/".join(p) for p, _ in
                                     leaves(ranks[0]["state"])}
     for r in ranks[1:]:
@@ -866,8 +843,7 @@ def test_mesh_checkpoint_restores_into_one_device_bit_for_bit(mesh_run):
 def mesh_checks_specs(mesh_run):
     cfg = mesh_run["cfg"]
     sizes = dict(zip(AXES, mesh_run["shape"]))
-    table = rules.restrict_to_mesh(rules.make_rules(tensor_parallel=False),
-                                   sizes)
+    table = rules.restrict_to_mesh(rules.launcher_rules(cfg), sizes)
     return specs.state_specs(build_model(cfg).param_defs(), table,
                              master=True, axis_sizes=sizes)
 
@@ -887,16 +863,24 @@ def test_reference_sharded_batch_is_not_its_global_batch(reference_spmd):
 
 
 def test_model_refuses_tensor_parallel_rules():
-    cfg = reduce_for_smoke(get_config("qwen2-0.5b"))
+    """The tensor-parallel rules on a model axis: the dense family runs
+    them; the hybrid and ssm families raise naming ROADMAP A11 (their
+    gated norm spans the rank-cut ``d_inner`` row) and run vocab-parallel
+    under their launchers' rules."""
     from repro_torch.models import transformer
 
+    dense = reduce_for_smoke(get_config("qwen2-0.5b"))
     with rules.use_rules(rules.DEFAULT_RULES, _TwoRanks()):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            transformer.vocab_parallel(cfg)
-    with rules.use_rules(rules.make_rules(tensor_parallel=False),
-                         _TwoRanks()):
-        mesh, axes = transformer.vocab_parallel(cfg)
-        assert axes == ("model",)
+        assert transformer.vocab_parallel(dense)[1] == ("model",)
+    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+        cfg = reduce_for_smoke(get_config(arch))
+        with rules.use_rules(rules.DEFAULT_RULES, _TwoRanks()):
+            with pytest.raises(NotImplementedError,
+                               match="tensor parallelism .* A11"):
+                transformer.vocab_parallel(cfg)
+        with rules.use_rules(rules.launcher_rules(cfg), _TwoRanks()):
+            mesh, axes = transformer.vocab_parallel(cfg)
+            assert axes == ("model",)
 
 
 def test_launcher_parses_meshes():

@@ -1,0 +1,418 @@
+"""Tensor parallelism of heads, KV heads, MLP and experts (ROADMAP A11.5)
+on gloo meshes of ranks on the CPU, against one device and the JAX
+reference.
+
+Each case is a reduced fp32 model (``reduce_for_smoke`` on both sides, cut
+to two layers) with the same numpy weights (``interop.numpy_params`` at the
+port's true fan-ins, the MoE's perm tables from ``cfg=``) and the same
+global batch, trained under its launchers' rules (``rules.launcher_rules``:
+heads, KV heads, MLP and experts on "model"):
+
+  * qwen2-0.5b (QKV bias, GQA 4 heads over 2 KV heads) on (1, 2) and
+    (2, 2); qwen3-4b (qk-norm) on (1, 2);
+  * the KV heads' fallbacks: one KV head on (1, 2) (the KV heads whole on
+    every rank, the query heads cut), 4 heads over 2 KV heads on (1, 4)
+    (a rank's one query head reads its global KV head), and 6 heads over
+    3 KV heads on (1, 2) (a rank's 3 query heads read 2 KV heads unevenly);
+  * the moe (expert-parallel, ``moe_groups`` 1, top-2 of 8 at capacity
+    factor 1.0, where assignments drop) on (2, 2);
+  * the vlm and the encdec on (1, 2).
+
+The step-0 loss, the global gradient norm and every gradient leaf, put
+back together from the ranks' blocks, against the port on one device (the
+loss and the norm rtol 1e-6, each leaf within 1e-5 of its largest
+magnitude) and against the reference's one-device ``value_and_grad`` (the
+fp32 ``tol`` of ``tests/test_kernels.py``: rtol 1e-5, atol 1e-6); the
+leaves no rule cuts hold the same
+bits on every rank after an AdamW step; a (1, 2) checkpoint restores bit
+for bit on one device, and a one-device one into the mesh.  Each mesh
+shape is spawned once (``launch.mesh_checks``; a rank imports nothing of
+JAX).
+
+The ROADMAP §C regressions: the reduced grok-1-314b under
+``make_rules(expert_tp=True)`` (each expert's MLP cut by rank) gives one
+device's loss on (1, 2), where it gave 6.866222 and 6.870471 before the
+guard was repaired; FSDP's rules and the hybrid and ssm families'
+tensor-parallel rules raise ``NotImplementedError`` naming A11.
+"""
+import concurrent.futures
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jget_config
+from repro.configs import reduce_for_smoke as jreduce
+from repro.data import pipeline as jpipeline
+from repro.models import build_model as jbuild_model
+from repro.parallel import rules as jrules
+from repro_torch import api, interop
+from repro_torch.configs import ARCHS, get_config, reduce_for_smoke
+from repro_torch.data import pipeline
+from repro_torch.interop import numpy_params
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import mesh_checks
+from repro_torch.models import build_model
+from repro_torch.models.params import leaves, map_leaves
+from repro_torch.optim import adamw, schedules
+from repro_torch.parallel import rules, specs, steps
+from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+from _torch_mesh import AXES, Ranks, assemble, assemble_tree
+LR = 1e-3
+SCHEDULE = ("cosine", LR, 0, 10)
+ONE = dict(loss=1e-6, leaf=1e-5)          # against the port on one device
+REF = dict(rtol=1e-5, atol=1e-6)          # tests/test_kernels.py's fp32 tol
+# case -> (arch, config changes on both sides, mesh shape)
+CASES = {
+    "qwen2-1x2": ("qwen2-0.5b", {}, (1, 2)),
+    "qwen2-2x2": ("qwen2-0.5b", {}, (2, 2)),
+    "qwen3-1x2": ("qwen3-4b", {}, (1, 2)),
+    "kv1-1x2": ("qwen2-0.5b", dict(n_kv_heads=1), (1, 2)),
+    "h4kv2-1x4": ("qwen2-0.5b", dict(n_heads=4, n_kv_heads=2), (1, 4)),
+    "h6kv3-1x2": ("qwen2-0.5b", dict(n_heads=6, n_kv_heads=3, head_dim=32),
+                  (1, 2)),
+    "moe-2x2": ("qwen3-moe-30b-a3b",
+                dict(top_k=2, capacity_factor=1.0, moe_groups=1), (2, 2)),
+    "vlm-1x2": ("pixtral-12b", {}, (1, 2)),
+    "encdec-1x2": ("whisper-tiny", {}, (1, 2)),
+}
+SHAPES = sorted({shape for _, _, shape in CASES.values()})
+# the §C input: the reduced grok-1-314b, model.init(0), batch 0 of 512
+# tokens x 16 x 4, and its one-device loss (ROADMAP §C)
+GROK_LOSS = 6.957777500152588
+# the parameter leaves tensor parallelism and the vocab cut
+CUT = ("embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi",
+       "wg")
+
+
+def configs(case):
+    arch, changes, _ = CASES[case]
+    changes = dict(n_layers=2, **changes)
+    return (dataclasses.replace(jreduce(jget_config(arch)), **changes),
+            dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                                **changes))
+
+
+def data_kw(cfg) -> dict:
+    return dict(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                seed=3, n_img_tokens=cfg.n_img_tokens,
+                n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
+                d_model=cfg.d_model)
+
+
+def data_cfg(cfg):
+    return pipeline.DataConfig(**data_kw(cfg))
+
+
+def pick(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.fixture(scope="module")
+def one_device():
+    """Per case: the numpy train state and the port's one-device step-0
+    loss, gradients and norm."""
+    out = {}
+    for case in CASES:
+        cfg = configs(case)[1]
+        model = build_model(cfg)
+        tree = numpy_params(model.param_defs(), 0, true_fan_in=True, cfg=cfg)
+        data = data_cfg(cfg)
+        host = interop.params_from_jax(tree, cfg, device="cpu")
+        loss, grads = steps.value_and_grad(
+            model, host, pipeline.make_batch(data, 0, device="cpu"))
+        out[case] = {
+            "cfg": cfg, "data": data, "tree": tree,
+            "state": map_leaves(interop.to_numpy, {
+                "params": host,
+                "opt": adamw.init_state(host, adamw.AdamWConfig())}),
+            "loss": float(loss), "grads": grads,
+            "norm": float(adamw.global_norm(grads))}
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference(one_device):
+    """Per case: the reference's one-device step-0 loss and gradients."""
+    out = {}
+    for case in CASES:
+        jcfg, cfg = configs(case)
+        loss, grads = jax.jit(jax.value_and_grad(
+            jbuild_model(jcfg).loss, allow_int=True))(
+            jax.tree.map(jnp.asarray, one_device[case]["tree"]),
+            jpipeline.make_batch(jpipeline.DataConfig(**data_kw(cfg)), 0))
+        out[case] = {"loss": float(loss),
+                     "grads": {path: np.asarray(g) for path, g in leaves(grads)
+                               if np.issubdtype(np.asarray(g).dtype,
+                                                np.floating)}}
+    return out
+
+
+@pytest.fixture(scope="module")
+def single_ckpt(tmp_path_factory):
+    """A one-device checkpoint of the reduced qwen2-0.5b after one step."""
+    root = tmp_path_factory.mktemp("tp_ckpt")
+    cfg = configs("qwen2-1x2")[1]
+    trainer = Trainer(build_model(cfg), data_cfg(cfg), adamw.AdamWConfig(),
+                      schedules.make_schedule(SCHEDULE[0], peak=LR, warmup=0,
+                                              total=SCHEDULE[3]),
+                      TrainerConfig(n_steps=1, ckpt_every=1,
+                                    ckpt_dir=str(root / "single"), keep=1),
+                      device="cpu")
+    trainer.train(1)
+    return {"root": root, "single": trainer, "cfg": cfg}
+
+
+@pytest.fixture(scope="module")
+def meshes(one_device, single_ckpt):
+    """``run(shape)``: each mesh shape spawned once, all of them at once
+    in the background (the reference's steps run meanwhile), every case on
+    its shape as a ``train`` job (one AdamW step); on (1, 2) also the
+    checkpoint round trip (a mesh ``Trainer`` restoring the one-device
+    checkpoint, then two steps of its own) and the reduced grok-1-314b's
+    step-0 gradient."""
+
+    def spawn(shape):
+        names = [c for c, (_, _, s) in CASES.items() if s == shape]
+        jobs = [("train", dict(cfg=one_device[c]["cfg"],
+                               state=one_device[c]["state"],
+                               data_cfg=one_device[c]["data"], steps_run=1,
+                               schedule=SCHEDULE)) for c in names]
+        if shape == (1, 2):
+            root, cfg = single_ckpt["root"], single_ckpt["cfg"]
+            grok = reduce_for_smoke(get_config("grok-1-314b"))
+            jobs += [
+                ("trainer", dict(cfg=cfg, data_cfg=data_cfg(cfg),
+                                 restore_dir=str(root / "single"),
+                                 save_dir=str(root / "mesh"), steps_run=2,
+                                 schedule=SCHEDULE)),
+                ("seeded_grads", dict(
+                    cfg=grok, seed=0,
+                    data_cfg=pipeline.DataConfig(512, seq_len=16,
+                                                 global_batch=4)))]
+        ranks = mesh_lib.spawn(mesh_checks.run, shape, AXES, device="cpu",
+                               args=(jobs,))
+        out = {c: [r[i] for r in ranks] for i, c in enumerate(names)}
+        if shape == (1, 2):
+            out["trainer"] = [r[-2] for r in ranks]
+            out["grok"] = [r[-1] for r in ranks]
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(len(SHAPES)) as pool:
+        runs = {shape: pool.submit(spawn, shape) for shape in SHAPES}
+        yield lambda shape: runs[shape].result()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tp_loss_and_norm_match_one_device_and_the_reference(
+        case, meshes, one_device, reference):
+    want = one_device[case]
+    for r in meshes(CASES[case][2])[case]:
+        np.testing.assert_allclose(r["loss0"], want["loss"], rtol=ONE["loss"])
+        np.testing.assert_allclose(r["gnorm0"], want["norm"],
+                                   rtol=ONE["loss"])
+        np.testing.assert_allclose(r["loss0"], reference[case]["loss"],
+                                   **REF)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tp_grads_match_one_device_and_the_reference(case, meshes,
+                                                     one_device, reference):
+    shape = CASES[case][2]
+    ranks, want = meshes(shape)[case], one_device[case]
+    n = 0
+    for path, g in leaves(want["grads"]):
+        if g is None:
+            continue
+        g, name = interop.to_numpy(g), "/".join(path)
+        got = assemble([pick(r["grads0"], path) for r in ranks],
+                       pick(ranks[0]["specs"]["params"], path), shape)
+        scale = float(np.abs(g).max())
+        assert scale > 0, name
+        np.testing.assert_allclose(got, g, rtol=0, atol=ONE["leaf"] * scale,
+                                   err_msg=name)
+        np.testing.assert_allclose(got, reference[case]["grads"][path],
+                                   err_msg=name, **REF)
+        n += 1
+    assert n == len(reference[case]["grads"])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tp_cuts_heads_kv_heads_mlp_and_experts(case, one_device, meshes):
+    """A rank's blocks: its query heads, its KV heads where they divide
+    (else all of them), its MLP columns, its experts, its vocab rows."""
+    shape = CASES[case][2]
+    cfg = one_device[case]["cfg"]
+    m = shape[1]
+    params = meshes(shape)[case][0]["state"]["params"]
+    kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else cfg.n_kv_heads
+    want = {"wq": (2, cfg.d_model, cfg.n_heads // m, cfg.hd),
+            "wk": (2, cfg.d_model, kv, cfg.hd),
+            "wo": (2, cfg.n_heads // m, cfg.hd, cfg.d_model)}
+    if cfg.family == "moe":
+        want["moe/wi"] = (2, cfg.n_experts // m, cfg.d_model, cfg.moe_d_ff)
+    else:
+        want["mlp/wi"] = (2, cfg.d_model, cfg.d_ff // m)
+    stage = "dec" if cfg.family == "encdec" else next(
+        k for k in params if k.startswith("s00_"))
+    for name, dims in want.items():
+        leaf = params[stage]["attn" if "/" not in name else name.split("/")[0]]
+        got = leaf[name.split("/")[-1]]
+        assert tuple(got.shape) == dims, (case, name)
+    assert tuple(params["embed"].shape) == (cfg.vocab_size // m, cfg.d_model)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_unsharded_leaves_are_bit_equal_on_every_rank(case, one_device,
+                                                      meshes):
+    """After an AdamW step every leaf no rule cuts -- the norms, the
+    router, the perms, the KV heads where they do not divide -- holds the
+    same bits on every rank; the cut ones are the embedding and the
+    attention's, MLP's and experts' weights and biases, with their moments
+    and master copies."""
+    shape = CASES[case][2]
+    ranks, cfg = meshes(shape)[case], one_device[case]["cfg"]
+    sharded = {"/".join(p) for p in specs.sharded_paths(
+        ranks[0]["specs"], dict(zip(AXES, shape)))}
+    state = ranks[0]["state"]
+    names = set(CUT)
+    if cfg.n_kv_heads % shape[1]:
+        names -= {"wk", "wv", "bk", "bv"}
+    cut = {"/".join(p) for p, _ in leaves(state["params"]) if p[-1] in names}
+    assert sharded == {f"{part}/{p}" for p in cut for part in (
+        "params", "opt/m", "opt/v", "opt/master")}
+    assert set(ranks[0]["digests"]) | sharded == {
+        "/".join(p) for p, _ in leaves(state)}
+    for r in ranks[1:]:
+        assert r["digests"] == ranks[0]["digests"]
+        assert r["losses"] == ranks[0]["losses"]
+
+
+def test_single_device_checkpoint_restores_into_the_mesh(single_ckpt,
+                                                         meshes):
+    single = single_ckpt["single"]
+    ranks = meshes((1, 2))["trainer"]
+    assert all(r["restored_step"] == 1 for r in ranks)
+    table = rules.restrict_to_mesh(rules.launcher_rules(single_ckpt["cfg"]),
+                                   dict(zip(AXES, (1, 2))))
+    spec_tree = specs.state_specs(build_model(single_ckpt["cfg"]).param_defs(),
+                                  table, master=True,
+                                  axis_sizes=dict(zip(AXES, (1, 2))))
+    whole = assemble_tree([r["restored"] for r in ranks], spec_tree, (1, 2))
+    for path, want in leaves(single.state):
+        np.testing.assert_array_equal(pick(whole, path),
+                                      interop.to_numpy(want))
+    assert tuple(ranks[0]["restored"]["params"]["s00_dense"]["mlp"][
+        "wi"].shape) == (2, 128, 128)
+
+
+def test_mesh_checkpoint_restores_into_one_device_bit_for_bit(single_ckpt,
+                                                              meshes):
+    cfg, root = single_ckpt["cfg"], single_ckpt["root"]
+    ranks = meshes((1, 2))["trainer"]
+    one = Trainer(build_model(cfg), data_cfg(cfg), adamw.AdamWConfig(),
+                  schedules.make_schedule(SCHEDULE[0], peak=LR, warmup=0,
+                                          total=SCHEDULE[3]),
+                  TrainerConfig(n_steps=2, ckpt_dir=str(root / "mesh")),
+                  device="cpu")
+    step, state = one.init_or_restore(0)
+    assert step == 2
+    table = rules.restrict_to_mesh(rules.launcher_rules(cfg),
+                                   dict(zip(AXES, (1, 2))))
+    spec_tree = specs.state_specs(build_model(cfg).param_defs(), table,
+                                  master=True,
+                                  axis_sizes=dict(zip(AXES, (1, 2))))
+    whole = assemble_tree([r["final"] for r in ranks], spec_tree, (1, 2))
+    for path, got in leaves(state):
+        want = pick(whole, path)
+        assert interop.to_numpy(got).dtype == want.dtype
+        np.testing.assert_array_equal(interop.to_numpy(got), want,
+                                      err_msg="/".join(path))
+
+
+def test_expert_tp_gives_one_devices_loss(meshes):
+    """ROADMAP §C: the reduced grok-1-314b with ``wi``/``wg``/``wo`` cut on
+    ``expert_mlp`` over two ranks returned 6.866222 and 6.870471 while the
+    guard let the rule through; each expert's MLP is now column- then
+    row-parallel, and both ranks give one device's loss under its
+    launchers' rules, ``make_rules(expert_tp=True)``."""
+    ranks = meshes((1, 2))["grok"]
+    grok = reduce_for_smoke(get_config("grok-1-314b"))
+    assert rules.launcher_rules(grok) == rules.make_rules(expert_tp=True)
+    model = build_model(grok)
+    loss, grads = steps.value_and_grad(
+        model, model.init(0, device="cpu"),
+        pipeline.make_batch(pipeline.DataConfig(512, seq_len=16,
+                                                global_batch=4), 0,
+                            device="cpu"))
+    np.testing.assert_allclose(float(loss), GROK_LOSS, rtol=1e-6)
+    for r in ranks:
+        np.testing.assert_allclose(r["loss0"], GROK_LOSS, rtol=1e-6)
+        np.testing.assert_allclose(r["gnorm0"],
+                                   float(adamw.global_norm(grads)), rtol=1e-6)
+        assert tuple(r["grads0"]["s00_moe"]["moe"]["wi"].shape) == (
+            grok.n_layers, grok.n_experts, grok.d_model, grok.moe_d_ff // 2)
+
+
+def _loss_under(arch, table, shape):
+    cfg = reduce_for_smoke(get_config(arch))
+    model = build_model(cfg)
+    batch = pipeline.make_batch(data_cfg(cfg), 0, device="cpu")
+    mesh = Ranks(shape)
+    with api.plan_context(mesh=mesh), rules.use_rules(table, mesh):
+        return model.loss(model.init(0, device="cpu"), batch)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "pixtral-12b", "whisper-tiny",
+                                  "qwen3-moe-30b-a3b", "zamba2-1.2b"])
+def test_fsdp_rules_raise_naming_a11(arch):
+    """``make_rules(fsdp=True)`` on (2, 1) cuts every "embed" axis over the
+    data ranks; it raised a plain ``ValueError`` or ``RuntimeError`` before
+    the guard (ROADMAP §C)."""
+    with pytest.raises(NotImplementedError, match="FSDP .* A11"):
+        _loss_under(arch, rules.make_rules(fsdp=True), (2, 1))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_hybrid_and_ssm_refuse_tensor_parallel_rules(arch):
+    for table in (rules.make_rules(), rules.make_rules(expert_tp=True)):
+        with pytest.raises(NotImplementedError,
+                           match="tensor parallelism .* A11"):
+            _loss_under(arch, table, (1, 2))
+
+
+def test_the_guard_refuses_tensor_parallelism_off_its_axes():
+    """Tensor parallelism over the batch's mesh axis, and KV heads cut over
+    other axes than their query heads, are refused."""
+    mesh = Ranks((2, 2))
+    for over in ({"heads": ("data",), "kv_heads": ("data",)},
+                 {"kv_heads": ("data",)}, {"mlp": ("data", "model")}):
+        with pytest.raises(NotImplementedError, match="A11"):
+            rules.require_ported("dense", mesh,
+                                 rules.make_rules(overrides=over))
+    rules.require_ported("dense", mesh, rules.make_rules())
+    rules.require_ported("moe", mesh, rules.make_rules(expert_tp=True))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_rules_are_the_references_less_fsdp(arch):
+    """The launchers' rules: the reference launcher's
+    ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)`` without FSDP
+    for the dense, vlm, moe and encdec families, and without tensor
+    parallelism for the hybrid and ssm families."""
+    cfg = get_config(arch)
+    got = rules.launcher_rules(cfg)
+    if cfg.family in ("hybrid", "ssm"):
+        assert got == rules.make_rules(tensor_parallel=False)
+        assert all(got[ax] is None for ax in rules.TENSOR_PARALLEL_AXES)
+    else:
+        assert got == jrules.make_rules(expert_tp=cfg.expert_tp)
+        assert got["heads"] == got["kv_heads"] == got["mlp"] == ("model",)
+        assert got["expert_mlp" if cfg.expert_tp else "expert"] == ("model",)
+    assert got["embed"] is None
+    rules.require_ported(cfg.family, Ranks((2, 2)), got)
