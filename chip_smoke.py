@@ -22,7 +22,7 @@ Phases, each fatal on failure:
   3b. serving at full Qwen3-4B width, its depth cut to 2 of 36 layers
      to make room for the later phases (bf16, seeded weights, one card):
      ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
-     serves 16 seeded requests (prompts 32-256 tokens, 16-64 new tokens)
+     serves 16 seeded requests (prompts 32-128 tokens, 16-32 new tokens)
      with the paged KV cache and again with the dense one; fatal unless
      every request completes, paged tokens equal dense tokens, two requests
      re-run alone in the same slot geometry give the same tokens, and the
@@ -60,12 +60,14 @@ Phases, each fatal on failure:
      of 8 at capacity factor 1, ``moe_groups`` 1, remat on), vlm, encdec,
      hybrid and ssm models, and the reduced grok-1-314b under
      ``expert_tp`` (``MESH_FAMILIES``), each under its launchers' rules
-     (``rules.launcher_rules``: the dense, moe, vlm, encdec and grok
-     layers tensor-parallel over the model axis): each model's loss,
+     (``rules.launcher_rules``: every family's layers tensor-parallel over
+     the model axis, the hybrid and ssm norms split): each model's loss,
      gradient norm, every gradient leaf and two AdamW steps, each rank's
      block against the one-device port on the card, its unsharded leaves
-     bit-equal on every rank, B12 and no B11 in each job, B9 and B10 where
-     the model has them (``mesh_backward_checks``); then the
+     bit-equal on every rank, B12 and no B11 in each job, B9 where the
+     model has it, the split passes of B10 (and of B9 for the sLSTM) and
+     no one-pass B10 in the hybrid and ssm jobs
+     (``mesh_backward_checks``); then the
      full-width Qwen2-0.5B backward in fp32 from ``model.init`` on one
      device against a (1, 2) mesh of two ranks on the card, the loss, the
      norm and every gradient leaf (``full_width_backward_check``, whose
@@ -107,6 +109,25 @@ Phases, each fatal on failure:
      weights on the same batches on (1, 2), with
      ``spmd:`` and ``profile:`` lines.  Two ranks on one card stand in
      for ranks on separate cards: their times are not scaling numbers;
+  3j. right after 3d (``recurrent_tp_phase``): the hybrid and ssm
+     families tensor-parallel at full width through ``launch.train
+     --mesh 1x2 --baseline`` on two ranks of the one card, bf16 + fp32
+     master, remat, no checkpoints, 3 steps of 2 x 1024 tokens and one
+     profiled: zamba2-1.2b at 6 layers (six Mamba2 layers, then its
+     shared block: a rank holds 32 of the 64 SSM heads and 2,048 of the
+     4,096 ``d_inner`` columns, 16 of the shared block's 32 heads and
+     4,096 of its 8,192 MLP columns) and xlstm-1.3b at 8 (seven mLSTM
+     layers, 2 of 4 heads and 2,048 of 4,096 columns a rank, and one
+     sLSTM, 1,024 of 2,048 columns), each rank's norms split (B10's, and
+     B9's for the sLSTM, stats and apply passes around a sum over the
+     ranks).  Fatal unless every loss is finite and equal on both ranks,
+     step 0's loss is within ``TP_LOSS_RTOL`` of a one-device bf16 loss
+     of the same seed's weights on the same batch, each rank's blocks
+     have those shapes (``recurrent_cut``), each rank launched B12 once a
+     step and no B11, the split passes once a layer a forward (remat's
+     recomputation one more) and no one-pass B10, and the unsharded
+     leaves hold the same bits on both ranks; ``spmd:`` and ``profile:``
+     lines give ms a step, tokens/s, busy share, collectives and peaks;
   3e. the hybrid at full zamba2-1.2b width, its depth cut to 12 of its 38
      Mamba2 layers to make room for the later phases (d_model 2048,
      d_inner 4096, 64 SSM heads of 64, state 64; one shared attention
@@ -241,7 +262,10 @@ Phases, each fatal on failure:
      its meshes' shapes, B11 on a (2, 1) rank's (1792, 51865) and B12 on
      a (1, 2) rank's (3584, 25984) half of the padded vocab; at
      minicpm-2b's vocab: B11 at (2048, 122753) fp32; B11 and B12 on views
-     at storage offset 1), with the tolerance stated;
+     at storage offset 1; the split norm's stats and apply passes at
+     phase 3j's ranks' blocks: B10's at a zamba2 and an mLSTM rank's
+     (2048, 2048) bf16, B9's at an sLSTM rank's (2048, 1024) fp32, the
+     apply pass with the whole row's width), with the tolerance stated;
   5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
      its plain version and one PyTorch library call computing the same
      function (``F.conv2d`` for B6 with cuDNN's TF32 off, as the line
@@ -299,7 +323,11 @@ SERVE_ARCH = "qwen3-4b"
 # 20-minute limit on a slow host; every width is the config's
 SERVE_LAYERS = 2
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 16
-SERVE_PROMPT, SERVE_GEN = (32, 256), (16, 64)
+# prompts and new tokens a request: 1,308 and 381 over the 16 requests,
+# 455 decode steps a run (from (32, 256) and (16, 64): 2,452, 704 and
+# 1,048 steps, cut for phase 3j's seconds; a request still crosses up to
+# 8 prefill chunks and 10 pages of 16 positions)
+SERVE_PROMPT, SERVE_GEN = (32, 128), (16, 32)
 PREFILL_B, PREFILL_S = 4, 512
 GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
 SEED = 0
@@ -391,6 +419,14 @@ SPMD_DIR = ROOT / "build" / "chip_smoke_spmd"
 # 1.4e-2 / sqrt(4096) = 2e-4 absolute, 2e-5 of the initial loss ln(V) =
 # 11.9 (10.9).  The gate is 1e-4 relative, five times that.  Before tensor
 # parallelism the (1, 2) body was whole on both ranks and the gate 1e-6.
+# The hybrid and ssm launches (phase 3j) hold step 0 to the same gate: their
+# recurrent blocks' row-parallel partials are summed in fp32 and rounded
+# once (``blocks.row_parallel``), since in bf16 xlstm-1.3b's moved 2.5e-4;
+# what remains is the GEMMs' other tiles at a rank's widths, which the
+# mLSTM amplifies: one device's own xlstm loss moves by a like share when
+# the batch is evaluated row by row (printed beside the gate), and the same
+# cut in fp32 lands within FULL_LOSS_RTOL of one device (phase 3j's
+# witness, ``full_width_backward_check``), where a fault would not
 TP_LOSS_RTOL = 1e-4
 # the vocab-parallel backward where rounding cannot hide a fault: reduced
 # fp32 qwen2-0.5b with a vocab of 500 padded for the model axis to 512 (the
@@ -415,6 +451,14 @@ MESH_FAMILIES = {
     "grok": ("grok-1-314b", {}),
 }
 MESH_FAMILY_SEQ = 64
+# phase 3j: the hybrid and ssm families tensor-parallel at full width on a
+# (1, 2) mesh of the card through the launcher: arch -> layers, zamba2-1.2b
+# cut to six Mamba2 layers and its shared block, xlstm-1.3b to one of its
+# blocks of seven mLSTM and one sLSTM; 1,024 tokens a row cross the SSD's
+# and the mLSTM's 256-token chunks
+RECURRENT_TP = {HYBRID_ARCH: 6, XLSTM_ARCH: 8}
+RECURRENT_TP_STEPS, RECURRENT_TP_BATCH, RECURRENT_TP_SEQ = 3, 2, 1024
+RECURRENT_TP_DIR = ROOT / "build" / "chip_smoke_recurrent_tp"
 # phase 3d's second part, after phase 3h: whisper-tiny at full width trained
 # through the launcher on a (2, 1) mesh of the card (--baseline: B11 on
 # each rank's 4 of the 8 rows x 448) and on a (1, 2) one (the vocab padded
@@ -465,6 +509,13 @@ KERNELS = {
     "lbm.ivjk": ("lbm.cu", "src/repro/kernels/lbm/kernel.py:57"),
     "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:29"),
     "rmsnorm.gated": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:34"),
+    # the split norm's passes on a tensor-parallel rank's block of a row
+    "rmsnorm.sumsq": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:29"),
+    "rmsnorm.apply": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:29"),
+    "rmsnorm.gated.sumsq": ("rmsnorm.cu",
+                            "src/repro/kernels/rmsnorm/kernel.py:34"),
+    "rmsnorm.gated.apply": ("rmsnorm.cu",
+                            "src/repro/kernels/rmsnorm/kernel.py:34"),
     "xent": ("xent.cu", "src/repro/kernels/xent/kernel.py:25"),
     "xent.partial": ("xent.cu", "src/repro/kernels/xent/kernel.py:54"),
 }
@@ -472,6 +523,12 @@ NO_LIBRARY = {"lbm.soa": "no single PyTorch call computes a BGK collision",
               "lbm.ivjk": "no single PyTorch call computes a BGK collision",
               "rmsnorm.gated": "no single PyTorch call gates x by silu(z) "
                                "before an RMSNorm",
+              "rmsnorm.apply": "no PyTorch call computes a split norm's "
+                               "pass",
+              "rmsnorm.gated.sumsq": "no PyTorch call computes a split "
+                                     "norm's pass",
+              "rmsnorm.gated.apply": "no PyTorch call computes a split "
+                                     "norm's pass",
               "xent.ragged": "F.cross_entropy does not mask padded vocab "
                              "columns"}
 # the nearest PyTorch call to a kernel that no single call computes
@@ -2300,7 +2357,7 @@ def mesh_backward_checks() -> None:
     reduced fp32 model padded for the model axis (``MESH_CHECK_VOCAB``);
     and the other families' reduced fp32 models (``MESH_FAMILIES``), each
     under its launchers' rules (``rules.launcher_rules``: tensor-parallel
-    over the model axis for all but the hybrid and ssm; grok-1-314b's
+    over the model axis, the hybrid and ssm norms split; grok-1-314b's
     experts under ``expert_tp``): each model's step-0 loss, global
     gradient norm and every gradient leaf,
     then two AdamW steps, against the one-device port on the card from the
@@ -2309,8 +2366,9 @@ def mesh_backward_checks() -> None:
     gradient rtol 1e-5 / atol 1e-9, the norm rtol 5e-3, each model
     gradient leaf rtol 1e-4 with an atol of 1e-2 of its scale, the loss
     after the first update rtol 2e-3; the unsharded leaves bit-equal on
-    every rank; each family's job launches B12 and not B11, and B9 and
-    B10 where its model has them.  Each rank's block is held against the
+    every rank; each family's job launches B12 and not B11, B9 where its
+    model has it, and the hybrid and ssm jobs the split passes of B10 (and
+    of B9 for the sLSTM) and no one-pass B10.  Each rank's block is held against the
     same block cut from the one-device result.  These launches compare;
     they are not the main path's."""
     import dataclasses
@@ -2432,13 +2490,20 @@ def mesh_backward_checks() -> None:
                 fail(f"{where}: unsharded leaves differ from rank 0's")
             launched = tr["launches"]
             need_rms = cfg.norm == "rmsnorm"
-            need_gated = cfg.family in ("hybrid", "ssm")
+            # the recurrent blocks' norms, split on the model axis: B10's
+            # passes (Mamba2, mLSTM), B9's (sLSTM), no one-pass B10
+            split = ({"rmsnorm.gated.sumsq", "rmsnorm.gated.apply"}
+                     if cfg.family in ("hybrid", "ssm") else set())
+            if cfg.family == "ssm":
+                split |= {"rmsnorm.plain.sumsq", "rmsnorm.plain.apply"}
             if (launched["xent.partial"] < 1 or launched["xent"]
                     or (need_rms and launched["rmsnorm.plain"] < 1)
-                    or (need_gated and launched["rmsnorm.gated"] < 1)):
+                    or any(launched[k] < 1 for k in split)
+                    or launched["rmsnorm.gated"]):
                 fail(f"{where}: launches {launched} (want B12 and no B11"
                      + (", B9" if need_rms else "")
-                     + (", B10" if need_gated else "") + ")")
+                     + (f", {sorted(split)}, no one-pass B10" if split
+                        else "") + ")")
         return (f"{name} ({cfg.family}) loss {got[0]['loss0']!r} vs "
                 f"{float(loss)!r}, norm {got[0]['gnorm0']!r} vs "
                 f"{float(gnorm)!r}, {n_leaves} leaves (worst "
@@ -2454,7 +2519,8 @@ def mesh_backward_checks() -> None:
           f"one-device run, B12 on every rank; reduced {TRAIN_ARCH} fp32 "
           f"with vocab {cfg.vocab_logical} padded to {cfg.vocab_size} and "
           f"the reduced fp32 {', '.join(MESH_FAMILIES)} models under their "
-          f"launchers' rules (tensor-parallel but the hybrid and ssm), each "
+          f"launchers' rules (tensor-parallel, the hybrid and ssm norms "
+          f"split), each "
           f"model's loss within rtol 1e-5, gradient norm within rtol 5e-3, "
           f"every gradient leaf within rtol 1e-4 / atol 1e-2 of its scale, "
           f"the loss after an update within rtol 2e-3 of the one-device "
@@ -2471,12 +2537,16 @@ def pick(tree: dict, path: tuple):
     return tree
 
 
-def full_width_backward_check() -> None:
+def full_width_backward_check(arch: str = TRAIN_ARCH, layers: int = 0,
+                              batch: int = TRAIN_BATCH,
+                              seq: int = TRAIN_SEQ) -> None:
     """The vocab-parallel backward at full width, fatal: Qwen2-0.5B in fp32
     (every dimension of the config, remat on, the weights ``model.init``
     draws from ``SEED``: the port's init, at the true attention fan-ins,
     ROADMAP §C) on one seeded batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
-    tokens, on one device and on a (1, 2) mesh of two ranks on the card
+    tokens -- or ``arch`` cut to ``layers`` on ``batch`` x ``seq`` tokens,
+    as phase 3j holds xlstm-1.3b --, on one device and on a (1, 2) mesh of
+    two ranks on the card
     (``launch.mesh_checks.seeded_grads``): the loss, the global gradient
     norm and every gradient leaf, each rank's block against the same block
     cut from the one-device gradient.  The mesh runs under the launchers'
@@ -2498,6 +2568,10 @@ def full_width_backward_check() -> None:
     5.8e-5 apart, ROADMAP §C).  Held: the loss rtol 1e-5, the norm rtol
     1e-4, each leaf atol 1e-4 of its largest magnitude.  A dropped or
     doubled sum over the ranks moves a leaf by the order of its scale.
+    xlstm-1.3b is held to the same gates: its bf16 launch's step 0 sits
+    near ``TP_LOSS_RTOL`` from one device's, and in fp32 (unit 2^16 times
+    smaller) rounding the mLSTM amplifies stays near 1e-6, where a fault
+    in its gate sums or a rank's head slice would not.
     These launches check; they are not the main path's."""
     import dataclasses
 
@@ -2512,10 +2586,12 @@ def full_width_backward_check() -> None:
     from repro_torch.optim.adamw import global_norm
     from repro_torch.parallel import specs, steps
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg)
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch, d_model=cfg.d_model)
     loss, grads = steps.value_and_grad(model, model.init(SEED),
                                        make_batch(data, 0))
     norm = float(global_norm(grads))
@@ -2547,8 +2623,8 @@ def full_width_backward_check() -> None:
             worst = max(worst, err / scale)
             n_leaves += 1
     rel = abs(ranks[0][0]["gnorm0"] - norm) / norm
-    print(f"check: full-width {TRAIN_ARCH} fp32 backward (seed {SEED}, "
-          f"{TRAIN_BATCH * TRAIN_SEQ} tokens), one device against a (1, 2) "
+    print(f"check: full-width {arch} fp32 backward ({cfg.n_layers} layers, "
+          f"seed {SEED}, {batch * seq} tokens), one device against a (1, 2) "
           f"mesh of two ranks on the card: loss {ranks[0][0]['loss0']!r} vs "
           f"{float(loss)!r}, step-0 gradient norm {ranks[0][0]['gnorm0']!r} "
           f"vs {norm!r} (relative {rel:.3g}; rtol {FULL_NORM_RTOL}), every "
@@ -2757,7 +2833,8 @@ def print_profile(label: str, prof: dict) -> None:
           f"{prof['busy_ms'] / prof['wall_ms']:.1%}) in {prof['launches']} "
           f"launches, collectives {prof['comm']['calls']} calls, "
           f"{prof['comm']['bytes']} bytes, "
-          f"{prof['comm']['seconds'] * 1e3:.1f} ms on the host's clock; "
+          f"{prof['comm']['seconds'] * 1e3:.1f} ms on the host's clock "
+          f"({prof['seconds']:.1f} s to profile it); "
           + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
 
 
@@ -2954,6 +3031,173 @@ def whisper_mesh_phase(one_device: list[dict]) -> dict[str, int]:
     return counts
 
 
+def recurrent_cut(ranks: list[dict], cfg, where: str) -> str:
+    """The gate on a tensor-parallel (1, 2) launch of the hybrid or ssm
+    family: every rank's blocks hold its share of the recurrent heads and
+    columns (zamba2's Mamba2 heads and ``d_inner``, and its shared block's
+    attention heads and MLP columns; xlstm's mLSTM heads and ``d_inner``
+    and its sLSTM heads and columns) and of the vocab rows.  Returns the
+    shares as text."""
+    m, d = 2, cfg.d_model
+    if cfg.family == "hybrid":
+        di = cfg.ssm_expand * d
+        h = di // cfg.ssm_head_dim
+        want = {"s00_mamba/mamba/wdt": (2, h // m, h),
+                "s00_mamba/mamba/wz": (2, di // m, di),
+                "shared_attn/attn/wq": (1, cfg.n_heads // m, cfg.n_heads),
+                "shared_attn/mlp/wi": (1, cfg.d_ff // m, cfg.d_ff)}
+        names = ("SSM heads", "d_inner columns", "shared-block heads",
+                 "shared-block MLP columns")
+    else:
+        h = cfg.n_heads
+        want = {"s00_mlstm/mlstm/wq": (1, h // m, h),
+                "s00_mlstm/mlstm/wup_x": (2, 2 * d // m, 2 * d),
+                "s01_slstm/slstm/r": (2, h // m, h),
+                "s01_slstm/slstm/wx": (3, d // m, d)}
+        names = ("mLSTM heads", "mLSTM d_inner columns", "sLSTM heads",
+                 "sLSTM columns")
+    want["embed"] = (0, cfg.vocab_size // m, cfg.vocab_size)
+    for r in ranks:
+        got = {k: r["shapes"][k][dim] for k, (dim, _, _) in want.items()}
+        if got != {k: n for k, (_, n, _) in want.items()}:
+            fail(f"{where}: rank {r['rank']}'s blocks {got} are not its "
+                 f"shares {want} of {cfg.name}")
+    return ", ".join(f"{n} of {total} {name}" for (_, n, total), name in
+                     zip(want.values(), names + ("vocab rows",)))
+
+
+def recurrent_tp_phase() -> dict[str, int]:
+    """Phase 3j: the hybrid and ssm families tensor-parallel at full width
+    through the launcher, ``launch.train --mesh 1x2 --baseline`` on two
+    ranks of the one card, bf16 with an fp32 master and remat, no
+    checkpoints: zamba2-1.2b at ``RECURRENT_TP[...]`` layers (six Mamba2
+    layers and the shared block) and xlstm-1.3b at eight (seven mLSTM, one
+    sLSTM), ``RECURRENT_TP_STEPS`` steps of ``RECURRENT_TP_BATCH`` x
+    ``RECURRENT_TP_SEQ`` tokens (across the SSD's and the mLSTM's
+    256-token chunks) and one more profiled on rank 0.  Gates: every loss
+    finite and equal on both ranks, B12 once a step and no B11; step 0's
+    loss within ``TP_LOSS_RTOL`` of a one-device bf16 loss of the same
+    seed's weights on the same batch, computed here first; each rank's
+    blocks its share of the recurrent heads and columns
+    (``recurrent_cut``); each rank's counters, zeroed just before its run
+    and read just after, show the split B10 (zamba2, the mLSTM) or B9 (the
+    sLSTM) stats and apply passes once a layer a forward (remat's
+    recomputation a forward too) and no one-pass B10; the unsharded
+    leaves bit-equal on both ranks.  Then xlstm-1.3b's cut again in fp32,
+    one device against the (1, 2) mesh (``full_width_backward_check``):
+    the witness that its bf16 step-0 gap is rounding.  Returns the
+    launches summed over the ranks."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    tokens = RECURRENT_TP_SEQ * RECURRENT_TP_BATCH
+    counts = {k: 0 for k in ("xent.partial", "rmsnorm.sumsq",
+                             "rmsnorm.apply", "rmsnorm.gated.sumsq",
+                             "rmsnorm.gated.apply")}
+    for arch, layers in RECURRENT_TP.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        data = DataConfig(vocab_size=cfg.vocab_size,
+                          seq_len=RECURRENT_TP_SEQ,
+                          global_batch=RECURRENT_TP_BATCH,
+                          d_model=cfg.d_model)
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        params = model.init(SEED)
+        batch = make_batch(data, 0)
+        with torch.no_grad():
+            one = float(model.loss(params, batch))
+            # the same loss row by row: the model's own rounding spread at
+            # other GEMM shapes, the yardstick of the mesh's (not gated)
+            by_row = statistics.mean(
+                float(model.loss(params, {k: v[i:i + 1]
+                                          for k, v in batch.items()}))
+                for i in range(RECURRENT_TP_BATCH))
+        spread = abs(by_row - one) / abs(one)
+        del model, params, batch
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t0
+        where = f"spmd: {arch} mesh 1x2"
+        ckpt = RECURRENT_TP_DIR / arch
+        shutil.rmtree(ckpt, ignore_errors=True)
+        t0 = time.perf_counter()
+        ranks = train_launcher.main([
+            "--arch", arch, "--layers", str(layers), "--mesh", "1x2",
+            "--baseline", "--steps", str(RECURRENT_TP_STEPS), "--seq-len",
+            str(RECURRENT_TP_SEQ), "--global-batch", str(RECURRENT_TP_BATCH),
+            "--ckpt-every", str(RECURRENT_TP_STEPS + 1), "--seed", str(SEED),
+            "--ckpt-dir", str(ckpt), "--profile"])
+        secs = time.perf_counter() - t0
+        shutil.rmtree(ckpt, ignore_errors=True)
+        losses = check_launch_ranks(ranks, where, RECURRENT_TP_STEPS,
+                                    "xent.partial", "xent")
+        cut = recurrent_cut(ranks, cfg, where)
+        rel = abs(losses[0] - one) / abs(one)
+        if not rel <= TP_LOSS_RTOL:
+            fail(f"{where}: step 0 loss {losses[0]!r} vs one device's "
+                 f"{one!r}: relative {rel} > {TP_LOSS_RTOL}")
+        forwards = RECURRENT_TP_STEPS * (2 if cfg.remat else 1)
+        stages = dict(cfg.stages())
+        want = {"gated": forwards * stages.get(
+                    "mamba", stages.get("mlstm", 0)),
+                "plain": forwards * stages.get("slstm", 0)}
+        for r in ranks:
+            got = r["launches"]
+            split = {v: (got[f"rmsnorm.{v}.sumsq"], got[f"rmsnorm.{v}.apply"])
+                     for v in want}
+            if (any(split[v] != (n, n) for v, n in want.items())
+                    or got["rmsnorm.gated"]):
+                fail(f"{where}: rank {r['rank']} launches {got} (want the "
+                     f"split passes {want} times, once a layer a forward, "
+                     f"and no one-pass B10)")
+        for v, name in (("plain", "rmsnorm"), ("gated", "rmsnorm.gated")):
+            for p in ("sumsq", "apply"):
+                counts[f"{name}.{p}"] += sum(
+                    r["launches"][f"rmsnorm.{v}.{p}"] for r in ranks)
+        counts["xent.partial"] += sum(r["launches"]["xent.partial"]
+                                      for r in ranks)
+        step_ms = statistics.median(m["step_s"] for m in
+                                    ranks[0]["metrics"][1:]) * 1e3
+        step_list = [round(m["step_s"] * 1e3, 1) for m in ranks[0]["metrics"]]
+        prof, comm = ranks[0]["profile"], ranks[0]["comm"]
+        print(f"{where} (data 1, model 2) on one card, bf16 + fp32 master, "
+              f"remat, {cfg.n_layers} layers {cfg.stages()}, batch "
+              f"{RECURRENT_TP_BATCH} x seq {RECURRENT_TP_SEQ}, "
+              f"tensor-parallel ({cut}): losses {losses}, equal on both "
+              f"ranks; step 0 {losses[0]!r} vs one device's {one!r} "
+              f"(relative {rel:.3g}, gate {TP_LOSS_RTOL}; one device's "
+              f"own loss row by row {by_row!r}, relative {spread:.3g}); "
+              f"launches a rank {ranks[0]['launches']}; {step_ms:.1f} ms a "
+              f"step (median of steps 1-{RECURRENT_TP_STEPS - 1}, rank 0), "
+              f"steps {step_list} ms, {tokens / step_ms * 1e3:.0f} tokens/s, "
+              f"peak memory "
+              + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f} "
+                          f"GiB" for r in ranks)
+              + f"; collectives on rank 0 {comm['calls']} calls, "
+              f"{comm['bytes']} bytes, {comm['seconds'] * 1e3:.1f} ms on "
+              f"the host's clock over the run; "
+              f"{len(ranks[0]['digests'])} unsharded leaves bit-equal on "
+              f"both ranks; {secs:.1f} s for the launch, {one_s:.1f} s for "
+              f"the one-device loss")
+        print_profile(f"{arch} train step rank 0 of 1x2", prof)
+    shutil.rmtree(RECURRENT_TP_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    full_width_backward_check(XLSTM_ARCH, RECURRENT_TP[XLSTM_ARCH],
+                              RECURRENT_TP_BATCH, RECURRENT_TP_SEQ)
+    print(f"check: the fp32 xlstm-1.3b witness took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"spmd: the hybrid and ssm launches took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3137,6 +3381,7 @@ def main() -> int:
     serve_launches = timed("3b", serving_phase)
     train_launches, train_metrics = timed("3c", training_phase)
     spmd_launches = timed("3d", spmd_phase, train_metrics)
+    recurrent_launches = timed("3j", recurrent_tp_phase)
     hybrid_launches = timed("3e", hybrid_phase)
     xlstm_launches = timed("3f", xlstm_phase)
     moe_launches = timed("3g", moe_phase)
@@ -3153,9 +3398,10 @@ def main() -> int:
     launches["xent"] = train_launches["xent"]
     launches.update(spmd_launches)
     for phase in (hybrid_launches, xlstm_launches, moe_launches,
-                  multimodal_launches, whisper_mesh_launches, halo_launches):
+                  multimodal_launches, whisper_mesh_launches,
+                  recurrent_launches, halo_launches):
         for name, count in phase.items():
-            launches[name] += count
+            launches[name] = launches.get(name, 0) + count
     print(f"main: launches {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -3309,6 +3555,82 @@ def main() -> int:
     cases["rmsnorm.prefill.pixtral"] = rms_case(
         (PREFILL_B * (1024 + VLM_PREFILL_S), 5120), torch.bfloat16, False,
         25)
+    def split_case(shape, dtype, sdtype, gated, seed, parts=2):
+        """The split norm's stats and apply passes on a tensor-parallel
+        rank's block of ``shape`` (one of ``parts`` ranks' column blocks
+        of a row), through the wrappers as ``api.launch`` calls them, the
+        apply pass with the whole row's width and the statistic of a whole
+        row (the block's, times ``parts``)."""
+        rows, d = shape
+        name = "rmsnorm.gated" if gated else "rmsnorm"
+        plan = api.plan_for(f"{name}.sumsq", shape, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x, z = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        s = (torch.randn(d, generator=gen, device="cuda") + 1).to(sdtype)
+        zz = z if gated else None
+        ss = parts * rms_kernel.plain_sumsq(x, d, zz)
+        brows = plan.block_rows
+        d_total = parts * d
+
+        def stats():
+            if gated:
+                return rms_kernel.gated_sumsq2d(x, z, d_logical=d,
+                                                brows=brows)
+            return rms_kernel.sumsq2d(x, d_logical=d, brows=brows)
+
+        def apply():
+            if gated:
+                return rms_kernel.gated_apply2d(x, z, s, ss, d_logical=d,
+                                                d_total=d_total, brows=brows)
+            return rms_kernel.apply2d(x, s, ss, d_logical=d, d_total=d_total,
+                                      brows=brows)
+
+        eb, n_in = dtype.itemsize, 2 if gated else 1
+        # the gated bf16 statistic: the kernel's fast silu may round a gate
+        # to the neighbouring bf16 value where the plain version's exact
+        # sigmoid does not, moving that square by 2^-7 of it (1.2e-5 of a
+        # row's sum at the largest, tests/test_torch_cuda.py); 1e-4 is
+        # eight times that and below one element's share of a 2048-wide
+        # row's sum (about 5e-4), so a dropped or doubled element fails
+        stats_tol = (1e-4 if gated and dtype == torch.bfloat16 else 1e-5,
+                     1e-6)
+        # stats: x (and z) read once, the fp32 statistic written once;
+        # apply: x (and z) read again, the scale and the statistic read,
+        # y written.  Squares and sums an element (and the gate's five
+        # operations); two scalings an element (and the gate's)
+        return {
+            f"{name}.sumsq": dict(
+                kernel=stats, plain=lambda: rms_kernel.plain_sumsq(x, d, zz),
+                exact=False, dtype=dtype, tol=stats_tol,
+                bytes=n_in * rows * d * eb + 4 * rows,
+                ops=(7 if gated else 2) * rows * d,
+                # an fp32 row's sum of squares is one call; nothing gates
+                library=(lambda: torch.linalg.vecdot(x, x, dim=-1))
+                if not gated and dtype == torch.float32 else None),
+            f"{name}.apply": dict(
+                kernel=apply, plain=lambda: rms_kernel.plain(
+                    x, s, d, 1e-6, zz, ss=ss, d_total=d_total),
+                exact=False, dtype=dtype,
+                bytes=(n_in + 1) * rows * d * eb + d * sdtype.itemsize
+                + 4 * rows,
+                ops=(7 if gated else 2) * rows * d, library=None)}
+
+    # the split passes at the (1, 2) ranks' blocks of phase 3j: a zamba2
+    # rank's (2048, 2048) bf16 half of a (2048, 4096) Mamba2 row (the JSON
+    # rows of B10's passes), an mLSTM rank's the same, and an sLSTM rank's
+    # (2048, 1024) fp32 half of a row of 2048 with the scale in fp32 (B9's);
+    # the one-pass norms of the whole rows are rmsnorm.gated and
+    # rmsnorm.prefill.xlstm.fp32
+    rank_rows = PREFILL_B * PREFILL_S
+    cases.update(split_case((rank_rows, 2048), torch.bfloat16,
+                            torch.bfloat16, True, 33))
+    cases.update({f"{k}.mlstm": v for k, v in split_case(
+        (rank_rows, 2048), torch.bfloat16, torch.bfloat16, True,
+        34).items()})
+    cases.update(split_case((rank_rows, 1024), torch.float32, torch.float32,
+                            False, 35))
+
     def xent_case(t, v, logical_v, dtype, seed, offset=0):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
         calls it: per-token NLL of (t, v) logits (3 x N(0, 1)) over the
@@ -3498,7 +3820,8 @@ def main() -> int:
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         }
         t = times[name]
-        base = name.removesuffix(".zamba2").removesuffix(".bf16")
+        base = name.removesuffix(".zamba2").removesuffix(".mlstm")
+        base = base.removesuffix(".bf16")
         base = base.removesuffix(".fp32").removesuffix(".slab")
         base = base.replace(".prefill", "")
         if base.startswith("xent.partial"):

@@ -10,7 +10,10 @@ CUDA card:
     python3 scripts/spmd_rehearsal.py
 
 It prints the phases' ``check:``, ``spmd:`` and ``profile:`` lines and
-their seconds (about 5 minutes on an H100)."""
+their seconds (about 5 minutes on an H100).  ``python3
+scripts/spmd_rehearsal.py 3j`` runs phase 3j alone instead
+(``recurrent_tp_phase``: zamba2-1.2b and xlstm-1.3b tensor-parallel on
+``1x2``, about 2 minutes)."""
 import sys
 import time
 
@@ -32,6 +35,11 @@ def main():
     t0 = time.perf_counter()
     _build.build()
     print(f"build {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["3j"]:
+        t0 = time.perf_counter()
+        cs.recurrent_tp_phase()
+        print(f"phase 3j {time.perf_counter() - t0:.1f} s")
+        return
 
     def forwards(arch, data, n):
         model = build_model(get_config(arch))

@@ -51,6 +51,21 @@
 // (padding masked by column index, as _rms does at kernel.py:21-26).  The
 // reduction order differs from the plain version's, so the two agree to a
 // tolerance, not bit for bit.
+//
+// Split mode, for a row whose columns are cut over the ranks of a mesh
+// (tensor parallelism of the Mamba2 and mLSTM d_inner, the sLSTM's d): the
+// same kernel in two passes, selected by the MODE template parameter, the
+// one-pass form (MODE 0) compiled as before.
+//   * stats (MODE 1): each row's fp32 sum of squares over the rank's
+//     logical columns -- the one-pass `total`, in the same order, the gate
+//     rounded to T before the square -- written to ss[row]; no output;
+//   * apply (MODE 2): y = x * rsqrt(ss[row] / d_total + eps) * scale over
+//     the rank's columns, ss[row] the ranks' sums summed by the caller and
+//     d_total the whole row's width; no reduction and no barrier.
+// Each pass reads the row once more (the apply pass reads x and z again):
+// on a rank's (2048, 2048) bf16 half of a zamba2 row that is 3 reads and a
+// write of the rank's bytes over the two passes, against the one-pass
+// form's 2 reads and a write.
 
 #include "common.cuh"
 
@@ -122,11 +137,13 @@ __device__ __forceinline__ float sum_squares(const float (&v)[N], float ss) {
 // V vectors of a row a thread holds in registers (the rest of a wider row
 // is read again for the scaling); MAXT the most threads a CTA, MINB the
 // CTAs an SM must hold (which caps the registers a thread).
-template <typename T, typename S, bool GATED, int V, int MAXT, int MINB>
+// MODE 0 the one-pass norm, 1 the stats pass, 2 the apply pass.
+template <typename T, typename S, bool GATED, int MODE, int V, int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB)
 rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ z,
-               const S* __restrict__ scale, T* __restrict__ out, int64_t rows,
-               int64_t width, int64_t brows, int64_t d_logical, float eps) {
+               const S* __restrict__ scale, float* __restrict__ ssum, T* __restrict__ out,
+               int64_t rows, int64_t width, int64_t brows, int64_t d_logical,
+               int64_t d_total, float eps) {
   constexpr int N = Vec<T>::N;
   __shared__ float partial[2][MAXT / 32];
   const int64_t nvec = width / N;
@@ -138,7 +155,7 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ z,
 
   // one vector a thread: its scale vector, loaded with the first row
   float sc[N];
-  if (V == 1 && tid < nvec) load_scale<S, N>(scale + tid * N, sc);
+  if (MODE != 1 && V == 1 && tid < nvec) load_scale<S, N>(scale + tid * N, sc);
 
   int buf = 0;
   for (int64_t r = r0; r < r1; ++r, buf ^= 1) {
@@ -152,10 +169,10 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ z,
       if (j < nvec) {
         load_vec<T, GATED>(xr, zr, j * N, held[k]);
         mask_vec<T>(j, d_logical, held[k]);
-        ss = sum_squares<N>(held[k], ss);
+        if (MODE != 2) ss = sum_squares<N>(held[k], ss);
       }
     }
-    if (V > 1) {
+    if (V > 1 && MODE != 2) {
       for (int64_t j = tid + static_cast<int64_t>(V) * nthreads; j < nvec; j += nthreads) {
         float v[N];
         load_vec<T, GATED>(xr, zr, j * N, v);
@@ -163,13 +180,23 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ z,
         ss = sum_squares<N>(v, ss);
       }
     }
+    float inv;
+    if constexpr (MODE == 2) {
+      // the ranks' summed statistic over the whole row's width
+      inv = rsqrtf(ssum[r] / static_cast<float>(d_total) + eps);
+    } else {
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    if (lane == 0) partial[buf][warp] = ss;
-    __syncthreads();   // the row's one barrier
-    float total = 0.f;
-    for (int w = 0; w < nwarps; ++w) total += partial[buf][w];
-    const float inv = rsqrtf(total / static_cast<float>(d_logical) + eps);
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      if (lane == 0) partial[buf][warp] = ss;
+      __syncthreads();   // the row's one barrier
+      float total = 0.f;
+      for (int w = 0; w < nwarps; ++w) total += partial[buf][w];
+      if constexpr (MODE == 1) {
+        if (tid == 0) ssum[r] = total;
+        continue;
+      }
+      inv = rsqrtf(total / static_cast<float>(d_logical) + eps);
+    }
     T* orow = out + r * width;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
@@ -197,15 +224,16 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ z,
   }
 }
 
-template <typename T, typename S, bool GATED>
-cudaError_t launch(const void* x, const void* z, const void* scale, void* out, int64_t rows,
-                   int64_t width, int64_t brows, int64_t d_logical, float eps,
-                   cudaStream_t stream) {
+template <typename T, typename S, bool GATED, int MODE>
+cudaError_t launch(const void* x, const void* z, const void* scale, float* ss, void* out,
+                   int64_t rows, int64_t width, int64_t brows, int64_t d_logical,
+                   int64_t d_total, float eps, cudaStream_t stream) {
   constexpr int N = Vec<T>::N;
   if (width % N) return cudaErrorInvalidValue;
-  if (!repro::aligned16(x) || !repro::aligned16(out) || !repro::aligned16(scale) ||
-      (GATED && !repro::aligned16(z)))
+  if (!repro::aligned16(x) || (GATED && !repro::aligned16(z))) return cudaErrorInvalidValue;
+  if (MODE != 1 && (!repro::aligned16(out) || !repro::aligned16(scale)))
     return cudaErrorInvalidValue;
+  if (MODE != 0 && ss == nullptr) return cudaErrorInvalidValue;
   const int64_t nvec = width / N;
   const int64_t grid = (rows + brows - 1) / brows;
   if (grid > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -214,28 +242,65 @@ cudaError_t launch(const void* x, const void* z, const void* scale, void* out, i
   const S* ps = static_cast<const S*>(scale);
   T* po = static_cast<T*>(out);
   if (nvec > kMaxThreads) {
-    rmsnorm_kernel<T, S, GATED, kWideVecs, kWideThreads, 1>
-        <<<static_cast<unsigned>(grid), kWideThreads, 0, stream>>>(px, pz, ps, po, rows, width,
-                                                                   brows, d_logical, eps);
+    rmsnorm_kernel<T, S, GATED, MODE, kWideVecs, kWideThreads, 1>
+        <<<static_cast<unsigned>(grid), kWideThreads, 0, stream>>>(
+            px, pz, ps, ss, po, rows, width, brows, d_logical, d_total, eps);
   } else {
     // two CTAs of 1024 threads an SM: 32 registers a thread, unless an fp32
     // scale beside bf16 rows needs more to hold (it would spill)
     constexpr int MINB = sizeof(S) > sizeof(T) ? 1 : 2;
     const int threads = static_cast<int>((nvec + 31) / 32 * 32);
-    rmsnorm_kernel<T, S, GATED, 1, kMaxThreads, MINB>
+    rmsnorm_kernel<T, S, GATED, MODE, 1, kMaxThreads, MINB>
         <<<static_cast<unsigned>(grid), static_cast<unsigned>(threads), 0, stream>>>(
-            px, pz, ps, po, rows, width, brows, d_logical, eps);
+            px, pz, ps, ss, po, rows, width, brows, d_logical, d_total, eps);
   }
   return cudaSuccess;
 }
 
 template <typename T, typename S>
-cudaError_t launch_gate(int gated, const void* x, const void* z, const void* scale, void* out,
-                        int64_t rows, int64_t width, int64_t brows, int64_t d_logical,
-                        float eps, cudaStream_t stream) {
-  if (gated)
-    return launch<T, S, true>(x, z, scale, out, rows, width, brows, d_logical, eps, stream);
-  return launch<T, S, false>(x, z, scale, out, rows, width, brows, d_logical, eps, stream);
+cudaError_t launch_mode(int gated, int mode, const void* x, const void* z, const void* scale,
+                        float* ss, void* out, int64_t rows, int64_t width, int64_t brows,
+                        int64_t d_logical, int64_t d_total, float eps, cudaStream_t stream) {
+#define REPRO_RMSNORM_LAUNCH(G, M)                                                        \
+  return launch<T, S, G, M>(x, z, scale, ss, out, rows, width, brows, d_logical, d_total, \
+                            eps, stream)
+  if (gated) {
+    if (mode == 0) REPRO_RMSNORM_LAUNCH(true, 0);
+    if (mode == 1) REPRO_RMSNORM_LAUNCH(true, 1);
+    if (mode == 2) REPRO_RMSNORM_LAUNCH(true, 2);
+  } else {
+    if (mode == 0) REPRO_RMSNORM_LAUNCH(false, 0);
+    if (mode == 1) REPRO_RMSNORM_LAUNCH(false, 1);
+    if (mode == 2) REPRO_RMSNORM_LAUNCH(false, 2);
+  }
+#undef REPRO_RMSNORM_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dispatch(int device, int dtype, int scale_dtype, int gated, int mode, const void* x,
+                     const void* z, const void* scale, float* ss, void* out, int64_t rows,
+                     int64_t width, int64_t brows, int64_t d_logical, int64_t d_total,
+                     float eps, void* stream) {
+  if (rows <= 0) return cudaSuccess;
+  if (width <= 0 || brows <= 0 || d_logical <= 0 || d_logical > width || d_total <= 0)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (dtype == repro::kFloat32 && scale_dtype == repro::kFloat32)
+    err = launch_mode<float, float>(gated, mode, x, z, scale, ss, out, rows, width, brows,
+                                    d_logical, d_total, eps, st);
+  else if (dtype == repro::kBFloat16 && scale_dtype == repro::kBFloat16)
+    err = launch_mode<bf16, bf16>(gated, mode, x, z, scale, ss, out, rows, width, brows,
+                                  d_logical, d_total, eps, st);
+  else if (dtype == repro::kBFloat16 && scale_dtype == repro::kFloat32)
+    err = launch_mode<bf16, float>(gated, mode, x, z, scale, ss, out, rows, width, brows,
+                                   d_logical, d_total, eps, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -250,24 +315,23 @@ extern "C" int rmsnorm_launch(int device, int dtype, int scale_dtype, int gated,
                               const void* z, const void* scale, void* out, int64_t rows,
                               int64_t width, int64_t brows, int64_t d_logical, float eps,
                               void* stream) {
-  if (rows <= 0) return cudaSuccess;
-  if (width <= 0 || brows <= 0 || d_logical <= 0 || d_logical > width)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  if (dtype == repro::kFloat32 && scale_dtype == repro::kFloat32)
-    err = launch_gate<float, float>(gated, x, z, scale, out, rows, width, brows, d_logical, eps,
-                                    st);
-  else if (dtype == repro::kBFloat16 && scale_dtype == repro::kBFloat16)
-    err = launch_gate<bf16, bf16>(gated, x, z, scale, out, rows, width, brows, d_logical, eps,
-                                  st);
-  else if (dtype == repro::kBFloat16 && scale_dtype == repro::kFloat32)
-    err = launch_gate<bf16, float>(gated, x, z, scale, out, rows, width, brows, d_logical, eps,
-                                   st);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch(device, dtype, scale_dtype, gated, 0, x, z, scale, nullptr,
+                                   out, rows, width, brows, d_logical, d_logical, eps, stream));
+}
+
+// The split norm's passes on a rank's (rows, width) block of a row cut over
+// the ranks, arguments as rmsnorm_launch's.  mode 1, stats: ss[row] = the
+// fp32 sum of squares of the row's first d_logical columns (of x * silu(z)
+// rounded to `dtype` when gated); `scale` and `out` are not read (may be
+// null).  mode 2, apply: out = x (or x * silu(z)) * rsqrt(ss[row] / d_total
+// + eps) * scale, ss the summed statistic of the whole row of d_total
+// columns.  `ss` is `rows` fp32 values.
+extern "C" int rmsnorm_split_launch(int device, int dtype, int scale_dtype, int gated, int mode,
+                                    const void* x, const void* z, const void* scale, float* ss,
+                                    void* out, int64_t rows, int64_t width, int64_t brows,
+                                    int64_t d_logical, int64_t d_total, float eps,
+                                    void* stream) {
+  if (mode != 1 && mode != 2) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(device, dtype, scale_dtype, gated, mode, x, z, scale, ss,
+                                   out, rows, width, brows, d_logical, d_total, eps, stream));
 }

@@ -1,4 +1,5 @@
-"""RMSNorm (plain + gated): registry entries, planner-derived padding.
+"""RMSNorm (plain + gated, one-pass and split): registry entries,
+planner-derived padding.
 
 Counterpart of ``repro.kernels.rmsnorm.ops`` (single device).  Leading dims
 flatten into rows; the planner pads the feature dim to its minor unit (one
@@ -6,8 +7,17 @@ warp of 16-B vectors) and leaves the rows as they are (row unit 1), so a
 model's (B, S, d) activation with d a whole number of vector spans reaches
 the kernel as a view, with no copy.  The statistics are taken over the
 logical columns only (the kernel masks the padding).
+
+The split norm's passes (``rmsnorm.sumsq``, ``rmsnorm.gated.sumsq``,
+``rmsnorm.apply``, ``rmsnorm.gated.apply``) run on a rank's block of a row
+whose columns the rules cut over "mlp": the stats pass returns each row's
+fp32 sum of squares over the block, shaped like x's leading dims; the apply
+pass normalises the block by ``rsqrt(ss / d_total + eps)``, ``ss`` the sum
+of the ranks' statistics (``models.blocks.rms_norm_split`` sums them).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -91,3 +101,83 @@ def _launch_gated(plan, x, z, scale, *, eps: float = 1e-6):
                                eps=eps, brows=plan.block_rows)
     return _unpad(y, x)
 
+
+def _plan_args_split(x, *_operands, **_scalars):
+    *lead, d = x.shape
+    return (math.prod(lead), d), x.dtype
+
+
+def _rows(ss: torch.Tensor, plan) -> torch.Tensor:
+    """ss (x's leading dims) as the plan's (rows,) fp32 vector."""
+    ss = ss.reshape(-1).to(torch.float32)
+    return F.pad(ss, (0, plan.padded_shape[0] - ss.shape[0])).contiguous()
+
+
+def _unrows(ss: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return ss[:x.numel() // x.shape[-1]].reshape(x.shape[:-1])
+
+
+# A rank's block of rows cut over "mlp": the statistic is per row of the
+# block, the scale the block's columns; the kernel never sees the cut.
+_SPLIT = ("batch", ..., "mlp")
+_SPLIT_ROWS = ("batch", ...)
+
+
+@register_kernel("rmsnorm.sumsq", signature=StreamSignature(n_read=1,
+                                                             n_write=0),
+                 ref=ref.sumsq,
+                 plan_args=_plan_args_split,
+                 partitioning=Partitioning(in_axes=(_SPLIT,),
+                                           out_axes=_SPLIT_ROWS))
+def _launch_sumsq(plan, x):
+    """The split norm's stats pass: sum(x^2) over the block's columns."""
+    ss = kernel.sumsq2d(_pad_rows(x, plan), d_logical=x.shape[-1],
+                        brows=plan.block_rows)
+    return _unrows(ss, x)
+
+
+@register_kernel("rmsnorm.gated.sumsq",
+                 signature=StreamSignature(n_read=2, n_write=0),
+                 ref=lambda x, z: ref.sumsq(ref.gate(x, z)),
+                 plan_args=_plan_args_split,
+                 partitioning=Partitioning(in_axes=(_SPLIT, _SPLIT),
+                                           out_axes=_SPLIT_ROWS))
+def _launch_gated_sumsq(plan, x, z):
+    """The stats pass on x * silu(z), the gate rounded to x's dtype."""
+    ss = kernel.gated_sumsq2d(_pad_rows(x, plan), _pad_rows(z, plan),
+                              d_logical=x.shape[-1], brows=plan.block_rows)
+    return _unrows(ss, x)
+
+
+@register_kernel("rmsnorm.apply", signature=StreamSignature(n_read=2,
+                                                             n_write=1),
+                 ref=lambda x, scale, ss, *, d_total, eps=1e-6:
+                     ref.apply(x, scale, ss, d_total, eps),
+                 plan_args=_plan_args_split,
+                 partitioning=Partitioning(
+                     in_axes=(_SPLIT, ("mlp",), _SPLIT_ROWS),
+                     out_axes=_SPLIT))
+def _launch_apply(plan, x, scale, ss, *, d_total: int, eps: float = 1e-6):
+    """The split norm's apply pass: x * rsqrt(ss / d_total + eps) * scale."""
+    y = kernel.apply2d(_pad_rows(x, plan), _pad_scale(scale, plan),
+                       _rows(ss, plan), d_logical=x.shape[-1],
+                       d_total=d_total, eps=eps, brows=plan.block_rows)
+    return _unpad(y, x)
+
+
+@register_kernel("rmsnorm.gated.apply",
+                 signature=StreamSignature(n_read=3, n_write=1),
+                 ref=lambda x, z, scale, ss, *, d_total, eps=1e-6:
+                     ref.apply(ref.gate(x, z), scale, ss, d_total, eps),
+                 plan_args=_plan_args_split,
+                 partitioning=Partitioning(
+                     in_axes=(_SPLIT, _SPLIT, ("mlp",), _SPLIT_ROWS),
+                     out_axes=_SPLIT))
+def _launch_gated_apply(plan, x, z, scale, ss, *, d_total: int,
+                        eps: float = 1e-6):
+    """The apply pass on x * silu(z), the gate rounded to x's dtype."""
+    y = kernel.gated_apply2d(_pad_rows(x, plan), _pad_rows(z, plan),
+                             _pad_scale(scale, plan), _rows(ss, plan),
+                             d_logical=x.shape[-1], d_total=d_total, eps=eps,
+                             brows=plan.block_rows)
+    return _unpad(y, x)

@@ -12,15 +12,14 @@ as the reference does; ``--mesh device`` runs the full configuration on the
 one card.  ``--mesh DxM`` spawns D x M ranks (``launch.mesh.spawn``), a
 (data, model) mesh over which the batch shards by data and the vocabulary
 by model (``models.transformer``'s vocab-parallel layout), and the heads,
-KV heads, MLP and experts by model too (tensor parallelism:
-``models.blocks``, ``models.moe``), under ``rules.launcher_rules(cfg)``: the
-reference's ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)`` less
-FSDP, and ``make_rules(tensor_parallel=False)`` for the hybrid and ssm
-families (ROADMAP A11.5).  It runs the
-full configuration on CUDA (every rank on card 0 when the ranks outnumber
-the cards, over gloo) and the reduced one on the CPU, and pads the
-configuration for the model axis (``padded_for_mesh``) unless
-``--baseline``:
+KV heads, MLP, experts and recurrent blocks' columns by model too (tensor
+parallelism: ``models.blocks``, ``models.moe``, ``models.mamba2``,
+``models.xlstm``), under ``rules.launcher_rules(cfg)``: the reference's
+``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)`` less FSDP (ROADMAP
+A11.5).  It runs the full configuration on CUDA (every rank on card 0
+when the ranks outnumber the cards, over gloo) and the reduced one on the
+CPU, and pads the configuration for the model axis (``padded_for_mesh``)
+unless ``--baseline``:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
         --mesh 2x1 --device cpu --steps 4
@@ -123,19 +122,24 @@ def _trainer(args, cfg, device, mesh=None):
 
 def _profile_step(trainer, step: int) -> dict:
     """Device time of one more train step by kernel (torch.profiler's CUDA
-    activity) beside its CUDA-event time on this rank."""
+    activity) beside its CUDA-event time on this rank, and the host
+    seconds the profile took, its post-processing included.  The host's
+    operators are not recorded: an sLSTM step launches 10^5 kernels, whose
+    operator events would take minutes to aggregate."""
+    import time
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.pipeline import make_batch
 
+    t0 = time.perf_counter()
     batch = make_batch(trainer.data_cfg, step, trainer.sharding,
                        device=trainer.device)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         trainer.step_fn(trainer.state, batch)
         end.record()
@@ -147,7 +151,8 @@ def _profile_step(trainer, step: int) -> dict:
             "busy_ms": sum(e.device_time_total for e in rows) / 1e3,
             "launches": sum(e.count for e in rows),
             "top": [(e.key[:48], e.device_time_total / 1e3, e.count)
-                    for e in rows[:8]]}
+                    for e in rows[:8]],
+            "seconds": time.perf_counter() - t0}
 
 
 def rank_main(mesh, args) -> dict:
@@ -183,7 +188,9 @@ def rank_main(mesh, args) -> dict:
         "metrics": metrics,
         "launches": {"xent.partial": xent_kernel.LAUNCHES["xent.partial"],
                      "xent": xent_kernel.LAUNCHES["xent"],
-                     "rmsnorm": rms_kernel.LAUNCHES["plain"]},
+                     "rmsnorm": rms_kernel.LAUNCHES["plain"],
+                     **{f"rmsnorm.{k}": v for k, v in
+                        rms_kernel.LAUNCHES.items() if k != "plain"}},
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
         "shapes": {"/".join(p): tuple(t.shape)
                    for p, t in leaves(trainer.state["params"])},

@@ -97,6 +97,26 @@ class SumGradOverRanks(torch.autograd.Function):
         return ctx.mesh.all_reduce(g.contiguous(), ctx.axes, "sum"), None, None
 
 
+def row_parallel(y: torch.Tensor, w: torch.Tensor, tp=(None, ())
+                 ) -> torch.Tensor:
+    """``y @ w`` in y's dtype; under tensor parallelism ``tp`` (``(mesh,
+    axes)``, y and w a rank's columns and rows) row-parallel (Megatron's
+    g) with each rank's partial product in fp32 (or wider), summed over
+    the ranks at that width and rounded once, as one device rounds the
+    whole product once.  The recurrent blocks' down projections take it: a
+    bf16 partial rounded before the sum (``_out_proj``'s rule) moves each
+    value by up to one more half ulp, which their recurrences amplify (a
+    (1, 2) xlstm-1.3b's step-0 loss 2.5e-4 from one device's on an NVIDIA
+    H100 80GB HBM3, against Qwen2-0.5B's 1.3e-5), at twice the bytes
+    through the sum."""
+    mesh, axes = tp
+    if not axes:
+        return torch.matmul(y, w)
+    acc = torch.promote_types(y.dtype, torch.float32)
+    part = torch.matmul(y.to(acc), w.to(acc))
+    return leave(part, mesh, axes).to(y.dtype)
+
+
 def model_parallel(name: str, size: int):
     """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes over
     which the rules cut the logical axis ``name`` of global ``size`` -- the
@@ -184,12 +204,22 @@ def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return rms_norm(x, p["scale"], cfg.norm_eps)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float) -> torch.Tensor:
+def _records(*tensors) -> bool:
+    """True when autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             tp=(None, ())) -> torch.Tensor:
     """RMSNorm of x times ``scale`` through the registered kernel, in x's
     dtype: ``RMSNormFn`` when autograd records, ``dispatch.launch`` when
-    it does not."""
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+    it does not.  Under tensor parallelism ``tp`` (``(mesh, axes)`` of the
+    columns, x and ``scale`` a rank's block of them) the split form,
+    ``rms_norm_split``."""
+    if tp[1]:
+        return rms_norm_split(x, None, scale, eps, tp)
+    if _records(x, scale):
         return RMSNormFn.apply(x, scale, eps)
     return dispatch.launch("rmsnorm", x, scale, eps=eps)
 
@@ -228,15 +258,123 @@ class GatedRMSNormFn(torch.autograd.Function):
 
 
 def apply_gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, tp=(None, ())) -> torch.Tensor:
     """RMSNorm of y * silu(z) times ``scale`` (the Mamba2 and mLSTM gate
     and norm) through the registered kernel: ``GatedRMSNormFn`` when
     autograd records, ``dispatch.launch("rmsnorm.gated")`` otherwise, as
-    ``rms_norm`` does for the plain norm."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (y, z, scale)):
+    ``rms_norm`` does for the plain norm; under tensor parallelism ``tp``
+    the split form, ``rms_norm_split``."""
+    if tp[1]:
+        return rms_norm_split(y, z, scale, cfg.norm_eps, tp)
+    if _records(y, z, scale):
         return GatedRMSNormFn.apply(y, z, scale, cfg.norm_eps)
     return dispatch.launch("rmsnorm.gated", y, z, scale, eps=cfg.norm_eps)
+
+
+def _gate_f32(x: torch.Tensor, z: torch.Tensor | None) -> torch.Tensor:
+    """x (or x * silu(z)) in fp32, the plain math of the split passes'
+    backward."""
+    xf = x.to(torch.float32)
+    if z is None:
+        return xf
+    zf = z.to(torch.float32)
+    return xf * (zf * torch.sigmoid(zf))
+
+
+def _f32_grads(fn, tensors, g):
+    """The gradient of ``fn`` of the fp32 copies of ``tensors`` (``None``
+    entries skipped) against ``g``, each cast to its tensor's dtype."""
+    with torch.enable_grad():
+        ins = [None if t is None else
+               t.detach().to(torch.float32).requires_grad_(True)
+               for t in tensors]
+        live = [t for t in ins if t is not None]
+        got = iter(torch.autograd.grad(fn(*ins), live, g.to(torch.float32)))
+    return tuple(None if t is None else next(got).to(t.dtype)
+                 for t in tensors)
+
+
+class SumSquaresFn(torch.autograd.Function):
+    """The split norm's statistic, differentiable: each row's fp32 sum of
+    squares of x (or of x * silu(z)) over a rank's columns.  The forward is
+    ``dispatch.launch("rmsnorm.sumsq")`` (``"rmsnorm.gated.sumsq"``), the
+    stats pass of B9 (B10) on the card, whose output carries no autograd
+    history; the backward the gradient of the plain fp32 math, as
+    ``RMSNormFn`` and ``GatedRMSNormFn`` take theirs."""
+
+    @staticmethod
+    def forward(ctx, x, z):
+        ctx.save_for_backward(x, z)
+        if z is None:
+            return dispatch.launch("rmsnorm.sumsq", x)
+        return dispatch.launch("rmsnorm.gated.sumsq", x, z)
+
+    @staticmethod
+    def backward(ctx, g):
+        def sumsq(x, z):
+            h = _gate_f32(x, z)
+            return (h * h).sum(-1)
+
+        return _f32_grads(sumsq, ctx.saved_tensors, g)
+
+
+class ApplyNormFn(torch.autograd.Function):
+    """The split norm's apply pass, differentiable: a rank's columns of x
+    (or of x * silu(z)) times ``rsqrt(ss / d_total + eps) * scale``.  The
+    forward is ``dispatch.launch("rmsnorm.apply")``
+    (``"rmsnorm.gated.apply"``), the apply pass of B9 (B10) on the card;
+    the backward the gradient of the plain fp32 math with respect to x, z,
+    the scale and the statistic."""
+
+    @staticmethod
+    def forward(ctx, x, z, scale, ss, d_total, eps):
+        ctx.save_for_backward(x, z, scale, ss)
+        ctx.d_total, ctx.eps = d_total, eps
+        if z is None:
+            return dispatch.launch("rmsnorm.apply", x, scale, ss,
+                                   d_total=d_total, eps=eps)
+        return dispatch.launch("rmsnorm.gated.apply", x, z, scale, ss,
+                               d_total=d_total, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        def apply(x, z, scale, ss):
+            inv = torch.rsqrt(ss[..., None] / ctx.d_total + ctx.eps)
+            return _gate_f32(x, z) * inv * scale
+
+        return (*_f32_grads(apply, ctx.saved_tensors, g), None, None)
+
+
+def rms_norm_split(x: torch.Tensor, z: torch.Tensor | None,
+                   scale: torch.Tensor, eps: float, tp) -> torch.Tensor:
+    """RMSNorm (gated when ``z`` is given) of rows whose columns are cut
+    over the ranks of ``tp`` (``(mesh, axes)``): x, z and ``scale`` are a
+    rank's block.  Each rank's sum of squares over its columns (the stats
+    pass) is summed over the ranks, then each rank normalises its columns
+    by the sum and the whole row's width (the apply pass).
+
+    The sum is ``enter(leave(ss))``: a sum forward and a sum backward.
+    Each rank normalises only its own columns with the summed statistic,
+    so the statistic's gradient is a different partial sum on each rank
+    (its share of ``sum dy * g * scale``); ``leave`` alone, whose backward
+    is the identity, would give each rank only its own share, and the
+    gradient of x would miss the other ranks' columns' term."""
+    mesh, axes = tp
+    if _records(x, z, scale):
+        ss = SumSquaresFn.apply(x, z)
+    elif z is None:
+        ss = dispatch.launch("rmsnorm.sumsq", x)
+    else:
+        ss = dispatch.launch("rmsnorm.gated.sumsq", x, z)
+    ss = enter(leave(ss, mesh, axes), mesh, axes)
+    d_total = x.shape[-1] * mesh.axis_size(axes)
+    if _records(x, z, scale, ss):
+        return ApplyNormFn.apply(x, z, scale, ss, d_total, eps)
+    if z is None:
+        return dispatch.launch("rmsnorm.apply", x, scale, ss,
+                               d_total=d_total, eps=eps)
+    return dispatch.launch("rmsnorm.gated.apply", x, z, scale, ss,
+                           d_total=d_total, eps=eps)
 
 
 def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
@@ -388,11 +526,14 @@ def _out_proj(ctx: torch.Tensor, wo: torch.Tensor,
     """(B, Sq, H, D) context times ``wo`` (H, D, d): under tensor
     parallelism ``tp`` the rank's heads' rows of ``wo`` and the partial
     products summed over the ranks (row-parallel).  No bias follows ``wo``.
-    The sum stays in the activation dtype: in bf16 each rank's product
-    rounds once in its GEMM and the sum once more, where one device's
-    product rounds once, so a value may move by one more half ulp.  Over
-    two ranks an fp32 sum of the pair, rounded once, gives the same bits
-    as the bf16 sum, at twice the bytes through the host's buffers."""
+    Unlike ``row_parallel``, the partials and their sum stay in the
+    activation dtype: in bf16 each rank's GEMM rounds its product once and
+    the sum rounds once more, where one device rounds the whole product
+    once, so a value may move by one more half ulp, which the attention
+    and the MLP (``apply_mlp`` takes the same rule) do not amplify as the
+    recurrences do.  ``row_parallel``'s fp32 partials here cost a
+    tensor-parallel step the collectives' doubled bytes and fp32 GEMMs
+    (``scripts/row_parallel_cost.py``)."""
     return leave(torch.einsum("bqhd,hdm->bqm", ctx, wo), *tp)
 
 

@@ -27,6 +27,20 @@ RMSNorm kernel (B10 on the card), where the reference computes them
 inline.  In fp32 the two differ by operation order; in bf16 by the
 kernel's single rounding of the gate (ROADMAP §C).
 
+On a mesh of ranks whose rules cut "mlp" (the ``d_inner`` columns) and
+"heads" (its ``d_inner / P`` heads) over the same axes, the block is
+tensor-parallel, Megatron's layout as ``models.blocks`` runs it for the
+attention and the MLP: ``wz``, ``wx`` and ``wdt`` are column-parallel (the
+input enters through ``blocks.enter``), the depthwise convs, ``A_log``,
+``D``, ``dt_bias`` and the SSD chunks are a rank's own heads (a rank's heads
+are its columns), the gated norm runs split (``blocks.rms_norm_split``:
+the sum of squares summed over the ranks) and ``wo`` is row-parallel
+(``blocks.row_parallel``: the partial products summed in fp32, rounded
+once).  ``wbc``, ``conv_bc`` and ``conv_bc_b`` (a single B/C
+group for every head) are whole on every rank, which uses them for its own
+heads only: they enter through ``blocks.enter``, so their gradient is the
+ranks' parts summed.
+
 ``mamba_decode_step`` writes the conv and SSM state of its layer in place;
 a row whose ``act`` is 0 writes back what it found, so a frozen row's state
 is bit-identical to not having stepped (``models.blocks``' rule for the KV
@@ -123,6 +137,11 @@ def mamba_forward(p: dict, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     pdim = cfg.ssm_head_dim
     l = min(CHUNK, s)
     pad = (-s) % l
+    tp = blocks.model_parallel("mlp", cfg.ssm_expand * cfg.d_model)
+    if tp[1]:   # column-parallel in, the B/C group whole on every rank
+        u = blocks.enter(u, *tp)
+        p = {**p, **{k: blocks.enter(p[k], *tp)
+                     for k in ("wbc", "conv_bc", "conv_bc_b")}}
     z, x, bc, dt_pre = _proj(p, u, cfg)
     x = F.silu(_causal_conv(x, p["conv_x"], p["conv_x_b"]))
     bc = F.silu(_causal_conv(bc, p["conv_bc"], p["conv_bc_b"]))
@@ -154,8 +173,8 @@ def mamba_forward(p: dict, u: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     y = y_sc + p["D"][None, None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(b, sp, -1)[:, :s, :].to(u.dtype)             # (B,S,d_inner)
-    y = blocks.apply_gated_norm(p["gnorm"], y, z, cfg)
-    return torch.matmul(y, p["wo"])
+    y = blocks.apply_gated_norm(p["gnorm"], y, z, cfg, tp)
+    return blocks.row_parallel(y, p["wo"], tp)
 
 
 # ---------------------------------------------------------------------------

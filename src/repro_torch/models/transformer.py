@@ -48,18 +48,23 @@ logits and the loss.  Three pieces carry it:
     ``xent_grad``.
 
 The layers between are *tensor-parallel* where the rules cut their heads,
-MLP and experts (``models.blocks``' attention and MLP, ``models.moe``);
-their activations stay whole on every rank of a model line.  Every family
-trains on a ``(data, model)`` mesh under ``rules.launcher_rules(cfg)``,
-computing the reference's function of the global batch: a rank holds its
-rows of the batch (the image embeddings of a vlm batch too), an MoE layer
-ranks capacity and averages its load-balance statistics over the global
-batch (``models.moe``), and the encoder-decoder shares this module's
+MLP and experts (``models.blocks``' attention and MLP, ``models.moe``)
+and the recurrent blocks' heads and ``d_inner`` columns (``models.mamba2``,
+``models.xlstm``, their norms split: ``blocks.rms_norm_split``); the
+activations between the layers stay whole on every rank of a model line,
+and zamba2's shared block, the dense attention and MLP, takes its
+``concat([x, h0]) @ win`` whole on every rank.  Every family trains on a
+``(data, model)`` mesh under ``rules.launcher_rules(cfg)``, computing the
+reference's function of the global batch: a rank holds its rows of the
+batch (the image embeddings of a vlm batch too), an MoE layer ranks
+capacity and averages its load-balance statistics over the global batch
+(``models.moe``), and the encoder-decoder shares this module's
 vocab-parallel lookup and head entry (``models.encdec``).  The model
-raises where the rules cut a parameter axis the port does not run for the
-family (``rules.require_ported``: FSDP's "embed", and the hybrid and ssm
-families' heads, MLP and experts, ROADMAP A11).  Decoding on a mesh
-(``decode_step``, and so serving) raises too, as does the masked loss.
+raises where the rules cut a parameter axis the port does not run
+(``rules.require_ported``: FSDP's "embed", and a model axis that divides a
+recurrent block's columns but not its heads, ROADMAP A11).  Decoding on a
+mesh (``decode_step``, and so serving) raises too, as does the masked
+loss.
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -256,8 +261,23 @@ def ported_mesh(cfg: ModelConfig):
     (``rules.require_ported``, ROADMAP A11)."""
     mesh = spmd_lib.spmd_mesh()
     if mesh is not None:
-        rules_lib.require_ported(cfg.family, mesh)
+        rules_lib.require_ported(cfg.family, mesh,
+                                 recurrent=recurrent_heads(cfg))
     return mesh
+
+
+def recurrent_heads(cfg: ModelConfig) -> tuple[tuple[int, int], ...]:
+    """``(heads, columns)`` of each recurrent block kind ``cfg`` runs: the
+    Mamba2's ``d_inner / ssm_head_dim`` heads over ``d_inner``, the
+    mLSTM's ``n_heads`` over ``2 d``, the sLSTM's over ``d``."""
+    if cfg.family not in ("hybrid", "ssm"):
+        return ()
+    kinds = {kind for kind, _ in cfg.stages()}
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return tuple(hw for kind, hw in (
+        ("mamba", (d_inner // cfg.ssm_head_dim, d_inner)),
+        ("mlstm", (cfg.n_heads, 2 * cfg.d_model)),
+        ("slstm", (cfg.n_heads, cfg.d_model))) if kind in kinds)
 
 
 def vocab_parallel(cfg: ModelConfig):

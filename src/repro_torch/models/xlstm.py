@@ -39,6 +39,21 @@ rounded once to the activation dtype.  The reference computes both inline
 and rounds more often in bf16; in fp32 they differ by operation order
 (ROADMAP §C).
 
+On a mesh of ranks whose rules cut "mlp" and "heads" over the same axes,
+both blocks are tensor-parallel (Megatron's layout, ``models.blocks``): a
+rank holds its heads and their columns.  The mLSTM's ``wup_x`` and
+``wup_z`` are column-parallel (the input enters through ``blocks.enter``),
+its conv and ``wq``/``wk``/``wv`` a rank's own; ``wi`` and ``wf``
+(``("mlp", "heads")``) hold a rank's rows for its columns and every head,
+so the gates' pre-activations are partial sums, summed over the ranks
+forward and backward (``enter(leave(...))``: each rank goes on with its
+own heads alone) before a rank adds its ``bi`` and ``bf``.  The sLSTM's
+``wx`` is column-parallel on its last dim, ``r`` and ``b`` a rank's own;
+its recurrence needs no collective, since each head's columns live on one
+rank.  Both norms run split (``blocks.rms_norm_split``) and both ``wo``
+are row-parallel (``blocks.row_parallel``: the partial products summed in
+fp32, rounded once).
+
 The decode steps write their layer's state in place, as
 ``mamba2.mamba_decode_step`` does; a row whose ``act`` is 0 keeps the state
 it had.  The mLSTM's matrix memory C -- (B, H, P, P) fp32, almost all of a
@@ -98,16 +113,30 @@ def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], nh, x.shape[-1] // nh)
 
 
-def _gates(p: dict, xc: torch.Tensor):
-    """(li, lf): the input gate's and the forget gate's log, fp32."""
+def _gates(p: dict, xc: torch.Tensor, tp=(None, ())):
+    """(li, lf): the input gate's and the forget gate's log, fp32, of a
+    rank's heads under tensor parallelism ``tp`` (its columns' partial
+    pre-activations of every head summed over the ranks)."""
     xf = xc.to(torch.float32)
-    li = torch.matmul(xf, p["wi"]) + p["bi"]
-    lf = F.logsigmoid(torch.matmul(xf, p["wf"]) + p["bf"])
+    pre_i = torch.matmul(xf, p["wi"])
+    pre_f = torch.matmul(xf, p["wf"])
+    mesh, axes = tp
+    if axes:
+        h = p["bi"].shape[0]
+        h0 = mesh.index(axes) * h
+        pre = torch.stack([pre_i, pre_f])
+        pre = blocks.enter(blocks.leave(pre, mesh, axes), mesh, axes)
+        pre_i, pre_f = pre[..., h0:h0 + h].unbind(0)
+    li = pre_i + p["bi"]
+    lf = F.logsigmoid(pre_f + p["bf"])
     return li, lf
 
 
-def _mlstm_qkvif(p: dict, xin: torch.Tensor, cfg: ModelConfig):
-    """The common pre-cell path. xin: (B, S, d_model)."""
+def _mlstm_qkvif(p: dict, xin: torch.Tensor, cfg: ModelConfig,
+                 tp=(None, ())):
+    """The common pre-cell path. xin: (B, S, d_model); under tensor
+    parallelism ``tp`` a rank's heads."""
+    xin = blocks.enter(xin, *tp)
     x = torch.matmul(xin, p["wup_x"])
     z = torch.matmul(xin, p["wup_z"])
     xc = F.silu(_causal_conv(x, p["conv"], p["conv_b"]))
@@ -116,18 +145,18 @@ def _mlstm_qkvif(p: dict, xin: torch.Tensor, cfg: ModelConfig):
     q = torch.einsum("bshp,hpq->bshq", xch, p["wq"])
     k = torch.einsum("bshp,hpq->bshq", xch, p["wk"])
     v = torch.einsum("bshp,hpq->bshq", xh, p["wv"])
-    li, lf = _gates(p, xc)
+    li, lf = _gates(p, xc, tp)
     return x, z, q, k, v, li, lf
 
 
 def _mlstm_out(p: dict, h: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
-               dtype: torch.dtype) -> torch.Tensor:
-    """h: (B, S, H, P) cell output; the gate and norm (B10), the down
-    projection."""
+               dtype: torch.dtype, tp=(None, ())) -> torch.Tensor:
+    """h: (B, S, H, P) cell output; the gate and norm (B10, split under
+    tensor parallelism ``tp``), the down projection (row-parallel)."""
     b, s = h.shape[:2]
     y = blocks.apply_gated_norm(p["gnorm"], h.reshape(b, s, -1).to(dtype), z,
-                                cfg)
-    return torch.matmul(y, p["wo"])
+                                cfg, tp)
+    return blocks.row_parallel(y, p["wo"], tp)
 
 
 def _chunk(c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor,
@@ -170,8 +199,10 @@ def mlstm_forward(p: dict, xin: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence chunkwise mLSTM. xin: (B, S, d_model)."""
     b, s, _ = xin.shape
-    _, nh, pd = _dims(cfg)
-    _, z, q, k, v, li, lf = _mlstm_qkvif(p, xin, cfg)
+    dinner, _, pd = _dims(cfg)
+    nh = p["wq"].shape[0]                   # a rank's heads under tp
+    tp = blocks.model_parallel("mlp", dinner)
+    _, z, q, k, v, li, lf = _mlstm_qkvif(p, xin, cfg, tp)
     l = min(CHUNK, s)
     pad = (-s) % l
     if pad:   # the padded tail: no input (li = -1e30), no forgetting
@@ -201,7 +232,7 @@ def mlstm_forward(p: dict, xin: torch.Tensor,
             c, n, m, h = _chunk(*args)
         hs.append(h)
     h = torch.stack(hs, dim=1).reshape(b, s + pad, nh, pd)[:, :s]
-    return _mlstm_out(p, h, z, cfg, xin.dtype)
+    return _mlstm_out(p, h, z, cfg, xin.dtype, tp)
 
 
 def mlstm_cache_defs(cfg: ModelConfig, batch: int, n_stack: int) -> dict:
@@ -305,17 +336,21 @@ def _slstm_cell(p: dict, carry, gx: torch.Tensor, nh: int, pd: int):
 
 
 def _slstm_out(p: dict, h: torch.Tensor, cfg: ModelConfig,
-               dtype: torch.dtype) -> torch.Tensor:
-    """The output norm of the fp32 cell output through B9, the scale in
-    fp32, rounded once to ``dtype``; the down projection."""
-    hn = blocks.rms_norm(h, p["gnorm"].to(torch.float32), cfg.norm_eps)
-    return torch.matmul(hn.to(dtype), p["wo"])
+               dtype: torch.dtype, tp=(None, ())) -> torch.Tensor:
+    """The output norm of the fp32 cell output through B9 (split under
+    tensor parallelism ``tp``), the scale in fp32, rounded once to
+    ``dtype``; the down projection (row-parallel)."""
+    hn = blocks.rms_norm(h, p["gnorm"].to(torch.float32), cfg.norm_eps, tp)
+    return blocks.row_parallel(hn.to(dtype), p["wo"], tp)
 
 
 def slstm_forward(p: dict, xin: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
-    b, s, d = xin.shape
-    nh = cfg.n_heads
+    b, s, _ = xin.shape
+    # a rank's columns and heads under tensor parallelism
+    d, nh = p["wx"].shape[-1], p["r"].shape[1]
+    tp = blocks.model_parallel("mlp", cfg.d_model)
+    xin = blocks.enter(xin, *tp)
     gx = torch.einsum("bsd,dgi->bsgi", xin.to(torch.float32), p["wx"])
     f32 = dict(dtype=torch.float32, device=xin.device)
     carry = (torch.zeros((b, d), **f32), torch.zeros((b, d), **f32),
@@ -325,7 +360,7 @@ def slstm_forward(p: dict, xin: torch.Tensor,
     for t in range(s):
         carry = _slstm_cell(p, carry, gx[:, t], nh, d // nh)
         hs.append(carry[3])
-    return _slstm_out(p, torch.stack(hs, dim=1), cfg, xin.dtype)
+    return _slstm_out(p, torch.stack(hs, dim=1), cfg, xin.dtype, tp)
 
 
 def slstm_cache_defs(cfg: ModelConfig, batch: int, n_stack: int) -> dict:

@@ -55,11 +55,13 @@ PARAMETER_AXES = ("embed", "vocab", "heads", "kv_heads", "head_dim", "mlp",
 # ``expert_tp``, each expert's MLP).
 TENSOR_PARALLEL_AXES = ("heads", "kv_heads", "mlp", "expert", "expert_mlp")
 
-# The families whose layers run tensor-parallel (ROADMAP A11.5).  The hybrid
-# and ssm families' gated norm spans the whole ``d_inner`` row, which
-# carries the "mlp" axis, so theirs needs a sum of squares across the ranks
-# in front of the norm kernel: not ported yet.
-TENSOR_PARALLEL_FAMILIES = ("dense", "vlm", "moe", "encdec")
+# The families whose layers run tensor-parallel (ROADMAP A11.5): every
+# one.  The hybrid and ssm families' gated norm (and the sLSTM's output
+# norm) spans the whole ``d_inner`` (or ``d``) row, which carries the "mlp"
+# axis, so on a cut row it runs split: each rank's sum of squares over its
+# columns, summed over the ranks, then each rank's columns normalised
+# (``models.blocks.rms_norm_split``).
+TENSOR_PARALLEL_FAMILIES = ("dense", "vlm", "moe", "encdec", "hybrid", "ssm")
 
 _active: contextvars.ContextVar[Mapping[str, AxisTarget] | None] = (
     contextvars.ContextVar("repro_torch_sharding_rules", default=None)
@@ -156,13 +158,9 @@ def make_rules(
     fsdp: bool = False,
     expert_tp: bool = False,
     shard_cache_seq: bool = False,
-    tensor_parallel: bool = True,
     overrides: Mapping[str, AxisTarget] | None = None,
 ) -> dict[str, AxisTarget]:
-    """Build a rules table for a mesh/arch/shape combination.
-    ``tensor_parallel=False`` maps ``TENSOR_PARALLEL_AXES`` to None (only
-    the batch and the vocab shard: the launchers' rules for the hybrid and
-    ssm families, ``launcher_rules``)."""
+    """Build a rules table for a mesh/arch/shape combination."""
     rules = dict(DEFAULT_RULES)
     rules["batch"] = ("pod", "data") if multi_pod else ("data",)
     if multi_pod:
@@ -176,37 +174,37 @@ def make_rules(
         rules["expert_mlp"] = ("model",)
     if shard_cache_seq:
         rules["cache_seq"] = ("data",)
-    if not tensor_parallel:
-        for ax in TENSOR_PARALLEL_AXES:
-            rules[ax] = None
     if overrides:
         rules.update(overrides)
     return rules
 
 
 def launcher_rules(cfg) -> dict[str, AxisTarget]:
-    """The rules a launcher trains model config ``cfg`` under on a mesh.
-
-    For the dense, vlm, moe and encdec families the reference's
-    ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``
-    (``repro.launch.train``) less ``fsdp``: heads, KV heads, the MLP and
-    the experts (each expert's MLP under ``expert_tp``) shard over "model".
-    FSDP ("embed" over "data") is not ported, a stated gap (ROADMAP A11.5),
-    so ``fsdp`` is not passed.  The hybrid and ssm families train under
-    ``make_rules(tensor_parallel=False)`` until their slice."""
-    if cfg.family in TENSOR_PARALLEL_FAMILIES:
-        return make_rules(expert_tp=cfg.expert_tp)
-    return make_rules(tensor_parallel=False)
+    """The rules a launcher trains model config ``cfg`` under on a mesh:
+    the reference's ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``
+    (``repro.launch.train``) less ``fsdp``, for every family.  Heads, KV
+    heads, the MLP (and the hybrid and ssm families' ``d_inner`` columns,
+    which carry the "mlp" axis) and the experts (each expert's MLP under
+    ``expert_tp``) shard over "model".  FSDP ("embed" over "data") is not
+    ported, a stated gap (ROADMAP A11.5), so ``fsdp`` is not passed."""
+    return make_rules(expert_tp=cfg.expert_tp)
 
 
 def require_ported(family: str, mesh,
-                   rules: Mapping[str, AxisTarget] | None = None) -> None:
+                   rules: Mapping[str, AxisTarget] | None = None,
+                   recurrent: tuple[tuple[int, int], ...] = ()) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A11 where ``rules``
     (else the ambient rules) cut a parameter axis the port does not run for
     ``family`` over a mesh axis of more than one rank: "embed" (FSDP) for
-    every family; heads, KV heads, the MLP and the experts for the hybrid
-    and ssm families.  Tensor parallelism must also keep off the batch's
-    mesh axes, and the KV heads on the heads' axes."""
+    every family.  Tensor parallelism must also keep off the batch's mesh
+    axes, and the KV heads on the heads' axes.  ``recurrent`` lists each
+    recurrent block's ``(heads, columns)``: the Mamba2's ``d_inner /
+    ssm_head_dim`` heads over its ``d_inner`` columns, the mLSTM's and the
+    sLSTM's ``n_heads`` over their ``2 d`` and ``d``.  A rank's columns
+    must be its heads' columns, so the heads must be cut over the same mesh
+    axes as the columns, and where the columns divide, so must the heads
+    (``spec`` would cut the one and keep the other whole, splitting a
+    recurrent head across ranks)."""
     table = mesh_table(mesh, rules)
     sizes = axis_sizes_of(mesh)
 
@@ -238,6 +236,17 @@ def require_ported(family: str, mesh,
             f"the rules shard 'kv_heads' over {cut('kv_heads')} and 'heads' "
             f"over {cut('heads')}: tensor parallelism with the KV heads off "
             f"their query heads' axes is not ported (ROADMAP A11)")
+    cols = cut("mlp")
+    n = spec_size(cols, sizes)
+    for heads, width in recurrent:
+        if n > 1 and width % n == 0 and (cut("heads") != cols
+                                         or heads % n):
+            raise NotImplementedError(
+                f"the rules cut the {family} family's {width} recurrent "
+                f"columns over {cols} (x{n}) but its {heads} recurrent "
+                f"heads over {cut('heads')}: tensor parallelism that splits "
+                f"a recurrent head across ranks is not ported (ROADMAP "
+                f"A11)")
 
 
 def spec(*axes: str | None, rules: Mapping[str, AxisTarget] | None = None,

@@ -47,7 +47,9 @@ def test_families_resolve_lazily():
     assert all(m.startswith("repro_torch.kernels.")
                for m in registry.FAMILY_MODULES.values())
     assert api.list_kernels() == ["jacobi", "lbm.ivjk", "lbm.soa",
-                                  "rmsnorm", "rmsnorm.gated",
+                                  "rmsnorm", "rmsnorm.apply", "rmsnorm.gated",
+                                  "rmsnorm.gated.apply",
+                                  "rmsnorm.gated.sumsq", "rmsnorm.sumsq",
                                   "stream.add", "stream.copy", "stream.scale",
                                   "stream.triad", "triad", "xent"]
     with pytest.raises(KeyError):

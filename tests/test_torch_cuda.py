@@ -464,6 +464,84 @@ def test_rmsnorm_row_bits_do_not_depend_on_the_launch(width, dtype, gated):
         exact(norm(slice(r, r + 1), 1), whole[r:r + 1])
 
 
+# the split norm's passes at the mesh ranks' shapes (rows, width of a
+# rank's block, dtype, the scale's dtype, gated): a zamba2-1.2b rank's
+# (2048, 2048) bf16 half of a (2048, 4096) Mamba2 row, an xlstm-1.3b mLSTM
+# rank's the same, an sLSTM rank's (2048, 1024) fp32 with the scale in
+# fp32; a block with padding past d_logical, and one past 1024 vectors
+SPLIT_CASES = [(2048, 2048, 2048, torch.bfloat16, torch.bfloat16, True),
+               (2048, 1024, 1024, torch.float32, torch.float32, False),
+               (7, 896, 800, torch.bfloat16, torch.float32, True),
+               (9, 40_064, 40_000, torch.float32, torch.float32, False)]
+
+
+@pytest.mark.parametrize("rows,width,d_logical,dtype,sdtype,gated",
+                         SPLIT_CASES)
+@pytest.mark.parametrize("brows", [1, 3, 8])
+def test_rmsnorm_split_passes_match_plain(rows, width, d_logical, dtype,
+                                          sdtype, gated, brows):
+    """The stats pass against ``plain_sumsq`` (fp32 rtol 1e-5; the gated
+    bf16 statistic rtol 1e-4: the kernel's fast silu may round a gate to
+    the neighbouring bf16 value where the plain version's exact sigmoid
+    does not, which moves that element's square by 2^-7 of it, 1.2e-5 of
+    a row's sum at the largest on an NVIDIA H100 80GB HBM3; 1e-4 is below
+    one element's share of a row's sum, so a dropped or doubled element
+    fails), the apply
+    pass against ``plain(..., ss=, d_total=)`` at the dtype's tolerance,
+    ``d_total`` twice the block's width (the whole row of two ranks); each
+    pass counted once under its own key."""
+    x, z, scale = _rms_inputs(rows, width, d_logical, dtype, sdtype, width)
+    zz = z if gated else None
+    variant = "gated" if gated else "plain"
+    before = dict(rkernel.LAUNCHES)
+    if gated:
+        ss = rkernel.gated_sumsq2d(x, z, d_logical=d_logical, brows=brows)
+    else:
+        ss = rkernel.sumsq2d(x, d_logical=d_logical, brows=brows)
+    rtol = 1e-4 if gated and dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(ss, rkernel.plain_sumsq(x, d_logical, zz),
+                               rtol=rtol, atol=1e-6)
+    total = ss * 2
+    if gated:
+        got = rkernel.gated_apply2d(x, z, scale, total, d_logical=d_logical,
+                                    d_total=2 * d_logical, brows=brows)
+    else:
+        got = rkernel.apply2d(x, scale, total, d_logical=d_logical,
+                              d_total=2 * d_logical, brows=brows)
+    want = rkernel.plain(x, scale, d_logical, 1e-6, zz, ss=total,
+                         d_total=2 * d_logical)
+    torch.testing.assert_close(got, want, **tol(dtype))
+    after = {k: v - before[k] for k, v in rkernel.LAUNCHES.items()}
+    assert after == {k: int(k in (f"{variant}.sumsq", f"{variant}.apply"))
+                     for k in after}
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_rmsnorm_split_over_two_blocks_is_the_one_pass_norm(gated):
+    """A (2048, 4096) bf16 row cut into two column blocks, their stats
+    summed and each block applied with the whole width: the one-pass
+    kernel's norm of the whole row, to the bf16 tolerance."""
+    x, z, scale = _rms_inputs(2048, 4096, 4096, torch.bfloat16,
+                              torch.bfloat16, 4096)
+    halves = [slice(0, 2048), slice(2048, 4096)]
+    xs = [x[:, h].contiguous() for h in halves]
+    zs = [z[:, h].contiguous() for h in halves]
+    if gated:
+        ss = sum(rkernel.gated_sumsq2d(a, b, d_logical=2048)
+                 for a, b in zip(xs, zs))
+        got = torch.cat([rkernel.gated_apply2d(
+            a, b, scale[h], ss, d_logical=2048, d_total=4096)
+            for a, b, h in zip(xs, zs, halves)], dim=1)
+        want = rkernel.gated_rmsnorm2d(x, z, scale, d_logical=4096)
+    else:
+        ss = sum(rkernel.sumsq2d(a, d_logical=2048) for a in xs)
+        got = torch.cat([rkernel.apply2d(a, scale[h], ss, d_logical=2048,
+                                         d_total=4096)
+                         for a, h in zip(xs, halves)], dim=1)
+        want = rkernel.rmsnorm2d(x, scale, d_logical=4096)
+    torch.testing.assert_close(got, want, **tol(torch.bfloat16))
+
+
 def test_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(4, 256, device="cuda")
     s = torch.ones(256, device="cuda")

@@ -104,8 +104,7 @@ def jobs(inputs):
     for s in JACOBI + [RAGGED]:
         out.append((f"jacobi {key(s)}", ("jacobi", dict(
             grid=inputs["grids"][key(s)], sweeps=SWEEPS))))
-    two_axes = rules.make_rules(tensor_parallel=False,
-                                overrides={"batch": ("data", "model")})
+    two_axes = rules.make_rules(overrides={"batch": ("data", "model")})
     out.append(("jacobi multi-axis", ("jacobi", dict(
         grid=inputs["grids"][key(JACOBI[0])], sweeps=SWEEPS,
         rules=two_axes))))
@@ -129,7 +128,6 @@ def jobs(inputs):
     # the vocab cut over the data axis, so the combine's collectives run
     out.append(("xent", ("overlap", dict(
         logits=x, labels=labels, rules=rules.make_rules(
-            tensor_parallel=False,
             overrides={"batch": None, "vocab": ("data",)})))))
     return out
 

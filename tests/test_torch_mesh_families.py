@@ -13,9 +13,9 @@ with remat on) and 2.
 Meshes: (2, 1) and (1, 2) over gloo, each spawned once for the module with
 every family as a job (``launch.mesh_checks``; a rank imports nothing of
 JAX), the MoE at ``moe_groups`` 2 on (2, 1) only.  Each family runs under
-its launchers' rules (``rules.launcher_rules``): on (1, 2) the moe, vlm and
-encdec layers are tensor-parallel (heads, MLP and experts cut by rank),
-the hybrid and ssm families vocab-parallel only.  On each mesh the step-0
+its launchers' rules (``rules.launcher_rules``): on (1, 2) every family's
+layers are tensor-parallel (heads, MLP, experts and the recurrent blocks'
+columns and heads cut by rank).  On each mesh the step-0
 loss and every gradient leaf, put back together from the ranks' blocks,
 against the reference's ``jax.value_and_grad(model.loss)``; the global
 norm; the loss after one AdamW update against the port's one-device step;
@@ -51,6 +51,8 @@ from repro_torch.models import build_model, moe
 from repro_torch.models.params import leaves, map_leaves
 from repro_torch.optim import adamw, schedules
 from repro_torch.parallel import rules, specs, steps
+
+from _torch_mesh import CUT
 
 AXES = ("data", "model")
 LR = 1e-3
@@ -239,14 +241,11 @@ def test_unsharded_leaves_are_bit_equal_on_every_rank(mesh_run, family):
     sizes = dict(zip(AXES, shape))
     sharded = {"/".join(p) for p in specs.sharded_paths(ranks[0]["specs"],
                                                         sizes)}
-    # on a model axis the embedding (and an untied head), and in the
-    # tensor-parallel families every attention, MLP and expert weight and
-    # bias, shard, with their moments and master copies
-    names = ("embed", "lm_head") + (
-        ("wq", "wk", "wv", "wo", "bq", "bk", "bv", "wi", "wg")
-        if family not in ("hybrid", "ssm") else ())
+    # on a model axis the embedding (and an untied head), every attention,
+    # MLP and expert weight and bias, and the recurrent blocks' columns and
+    # heads shard, with their moments and master copies
     cut = {"/".join(p) for p, _ in leaves(ranks[0]["state"]["params"])
-           if p[-1] in names}
+           if p[-1] in CUT}
     assert sharded == ({f"{part}/{p}" for p in cut for part in (
         "params", "opt/m", "opt/v", "opt/master")} if shape[1] > 1
         else set())

@@ -151,8 +151,20 @@ class TestDeclarations:
                               api.Partitioning), name
 
     def test_declarations_equal_the_reference(self):
+        """Every kernel the reference registers declares its partitioning;
+        the split norm's passes, which the reference has no counterpart of
+        (its norm's row is never cut over ranks), declare a rank's block of
+        rows cut over "mlp"."""
+        split = {"rmsnorm.sumsq", "rmsnorm.gated.sumsq", "rmsnorm.apply",
+                 "rmsnorm.gated.apply"}
+        assert split <= set(api.list_kernels())
         for name in api.list_kernels():
             got = api.resolve(name).partitioning
+            if name in split:
+                with pytest.raises(KeyError):
+                    japi.get_kernel(name)
+                assert got.in_axes[0] == ("batch", ..., "mlp"), name
+                continue
             want = japi.get_kernel(name).partitioning
             assert got.in_axes == want.in_axes, name
             assert got.out_axes == want.out_axes, name
@@ -276,11 +288,17 @@ class TestRules:
     def test_make_rules_equal_the_reference(self, kw):
         assert rules.make_rules(**kw) == jrules.make_rules(**kw)
 
-    def test_no_tensor_parallel_rules(self):
-        table = rules.make_rules(tensor_parallel=False)
-        for ax in rules.TENSOR_PARALLEL_AXES:
-            assert table[ax] is None
-        assert table["vocab"] == ("model",) and table["batch"] == ("data",)
+    def test_make_rules_takes_the_references_arguments_alone(self):
+        """``make_rules`` takes the reference's keyword arguments and no
+        others (the port's own ``tensor_parallel`` option is gone)."""
+        import inspect
+        got = inspect.signature(rules.make_rules).parameters
+        want = inspect.signature(jrules.make_rules).parameters
+        assert list(got) == list(want)
+        assert all(p.kind is inspect.Parameter.KEYWORD_ONLY
+                   for p in got.values())
+        with pytest.raises(TypeError):
+            rules.make_rules(tensor_parallel=False)
 
     @pytest.mark.parametrize("sizes", [{"data": 2, "model": 4},
                                        {"data": 1, "model": 2},
@@ -863,24 +881,22 @@ def test_reference_sharded_batch_is_not_its_global_batch(reference_spmd):
 
 
 def test_model_refuses_tensor_parallel_rules():
-    """The tensor-parallel rules on a model axis: the dense family runs
-    them; the hybrid and ssm families raise naming ROADMAP A11 (their
-    gated norm spans the rank-cut ``d_inner`` row) and run vocab-parallel
-    under their launchers' rules."""
+    """The tensor-parallel rules on a model axis of two: every family runs
+    them, the hybrid and ssm families too since their norms run split
+    (``blocks.rms_norm_split``), vocab-parallel under them and under their
+    launchers' rules; FSDP's "embed" on the model axis raises naming
+    ROADMAP A11 for every family."""
     from repro_torch.models import transformer
 
-    dense = reduce_for_smoke(get_config("qwen2-0.5b"))
-    with rules.use_rules(rules.DEFAULT_RULES, _TwoRanks()):
-        assert transformer.vocab_parallel(dense)[1] == ("model",)
-    for arch in ("zamba2-1.2b", "xlstm-1.3b"):
+    for arch in ("qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b"):
         cfg = reduce_for_smoke(get_config(arch))
-        with rules.use_rules(rules.DEFAULT_RULES, _TwoRanks()):
-            with pytest.raises(NotImplementedError,
-                               match="tensor parallelism .* A11"):
+        for table in (rules.DEFAULT_RULES, rules.launcher_rules(cfg)):
+            with rules.use_rules(table, _TwoRanks()):
+                assert transformer.vocab_parallel(cfg)[1] == ("model",)
+        with rules.use_rules(rules.make_rules(overrides={
+                "embed": ("model",)}), _TwoRanks()):
+            with pytest.raises(NotImplementedError, match="FSDP .* A11"):
                 transformer.vocab_parallel(cfg)
-        with rules.use_rules(rules.launcher_rules(cfg), _TwoRanks()):
-            mesh, axes = transformer.vocab_parallel(cfg)
-            assert axes == ("model",)
 
 
 def test_launcher_parses_meshes():
