@@ -31,7 +31,8 @@ Phases, each fatal on failure:
      ``make_prefill_step`` forward at B = 4, S = 512 (rmsnorm on 2048 x
      2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``
      runs at (2048, 4096);
-  3c. training at full Qwen2-0.5B width (24 layers, d_model 896, 14/2
+  3c. training at full Qwen2-0.5B width, its depth cut to 8 of 24 layers
+     to make room for phase 3k (``TRAIN_LAYERS``; d_model 896, 14/2
      heads, d_ff 4864, vocab 151936, tied embeddings, QKV bias; bf16 with
      an fp32 master, remat on, seeded weights, one card): first the
      reduced fp32 model's loss and every gradient leaf on the card against
@@ -43,7 +44,8 @@ Phases, each fatal on failure:
      a batch the run never trains on (batch 8) is lower at the trained
      weights than at the initial ones, the cross-entropy kernel ran once a
      step and RMSNorm
-     at least 49 times; a fresh ``Trainer`` restores step 4, whose state
+     at least 17 times (2 x 8 layers + the final norm) a step; a fresh
+     ``Trainer`` restores step 4, whose state
      must equal the one saved bit for bit, and replays steps 4-7: step 4's
      loss must equal the uninterrupted run's bit for bit, later ones to a
      stated tolerance.  The checkpoints are deleted at the end;
@@ -67,15 +69,19 @@ Phases, each fatal on failure:
      bit-equal on every rank, B12 and no B11 in each job, B9 where the
      model has it, the split passes of B10 (and of B9 for the sLSTM) and
      no one-pass B10 in the hybrid and ssm jobs
-     (``mesh_backward_checks``); then the
-     full-width Qwen2-0.5B backward in fp32 from ``model.init`` on one
+     (``mesh_backward_checks``), and the reduced qwen3-14b, qwen3-moe and
+     grok-1-314b under FSDP's rules (``FSDP_CHECKS``: "embed" over "data"
+     as well, a rank's embedding block (V/2, d/2)); then the
+     full-width Qwen2-0.5B backward (``TRAIN_LAYERS``) in fp32 from
+     ``model.init`` on one
      device against a (1, 2) mesh of two ranks on the card, the loss, the
      norm and every gradient leaf (``full_width_backward_check``, whose
      docstring argues the tolerances); then
      ``python -m repro_torch.launch.train --mesh 1x2``
      (``launch.train.main``) spawns two ranks on the one card (gloo, its
      collectives staged through pinned host buffers) that train Qwen2-0.5B
-     at full width from seed 0 for 3 steps of the training phase's batches
+     at full width (``TRAIN_LAYERS``) from seed 0 for 3 steps of the
+     training phase's batches
      (``--baseline``: the unpadded vocab, so the weights are the training
      phase's), tensor-parallel: a rank holds 7 of the 14 heads, 1 of the 2
      KV heads, 2,432 of the 4,864 MLP columns and half the vocab, a
@@ -112,8 +118,9 @@ Phases, each fatal on failure:
   3j. right after 3d (``recurrent_tp_phase``): the hybrid and ssm
      families tensor-parallel at full width through ``launch.train
      --mesh 1x2 --baseline`` on two ranks of the one card, bf16 + fp32
-     master, remat, no checkpoints, 3 steps of 2 x 1024 tokens and one
-     profiled: zamba2-1.2b at 6 layers (six Mamba2 layers, then its
+     master, remat, no checkpoints, 2 steps of 2 x 1024 tokens and one
+     profiled for zamba2 (xlstm's profile is not taken, for 3k's seconds):
+     zamba2-1.2b at 6 layers (six Mamba2 layers, then its
      shared block: a rank holds 32 of the 64 SSM heads and 2,048 of the
      4,096 ``d_inner`` columns, 16 of the shared block's 32 heads and
      4,096 of its 8,192 MLP columns) and xlstm-1.3b at 8 (seven mLSTM
@@ -128,6 +135,24 @@ Phases, each fatal on failure:
      recomputation one more) and no one-pass B10, and the unsharded
      leaves hold the same bits on both ranks; ``spmd:`` and ``profile:``
      lines give ms a step, tokens/s, busy share, collectives and peaks;
+  3k. right after 3j (``fsdp_phase``): FSDP, qwen3-14b at full width
+     (d_model 5120, 40 heads over 8 KV heads, d_ff 17408, vocab 151936),
+     its depth cut to 2 of 40 layers, through ``launch.train --mesh 2x1``
+     under its launchers' rules (``fsdp`` on: every "embed" dim cut over
+     "data"), bf16 + fp32 master, remat, 2 steps of 4 x 1024 tokens and one
+     profiled, the final save gathered leaf by leaf and written by rank 0
+     (deleted after); fatal unless each rank's blocks of the parameters,
+     moments and master copy hold half of every "embed" dim, every loss is
+     finite and equal on both ranks, the losses and gradient norms are
+     within ``TP_LOSS_RTOL`` and ``FSDP_NORM_RTOL`` of one-device bf16
+     train steps of the same seed's state, step 1's update in the final
+     save's master copy within ``FSDP_UPDATE_RTOL`` of one device's, the
+     unsharded leaves hold the same bits on both ranks, B11
+     ran once a rank a step and B12 never, and each rank's peak memory is
+     below the replicated train state's bytes; ``spmd:`` and ``profile:``
+     lines give ms a step, tokens/s, busy share, peaks beside the FSDP
+     and replicated states, the collectives a step, and the save's seconds,
+     bytes and the disk's free space;
   3e. the hybrid at full zamba2-1.2b width, its depth cut to 12 of its 38
      Mamba2 layers to make room for the later phases (d_model 2048,
      d_inner 4096, 64 SSM heads of 64, state 64; one shared attention
@@ -323,16 +348,18 @@ SERVE_ARCH = "qwen3-4b"
 # 20-minute limit on a slow host; every width is the config's
 SERVE_LAYERS = 2
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 16
-# prompts and new tokens a request: 1,308 and 381 over the 16 requests,
-# 455 decode steps a run (from (32, 256) and (16, 64): 2,452, 704 and
-# 1,048 steps, cut for phase 3j's seconds; a request still crosses up to
-# 8 prefill chunks and 10 pages of 16 positions)
-SERVE_PROMPT, SERVE_GEN = (32, 128), (16, 32)
+# prompts and new tokens a request (from (32, 256) and (16, 64): 2,452,
+# 704 and 1,048 steps; then (16, 32), 455 steps; new tokens halved again
+# for phase 3k's seconds; a request still crosses up to 8 prefill chunks
+# and 9 pages of 16 positions)
+SERVE_PROMPT, SERVE_GEN = (32, 128), (8, 16)
 PREFILL_B, PREFILL_S = 4, 512
 GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
 SEED = 0
-# training at full Qwen2-0.5B width
-TRAIN_ARCH = "qwen2-0.5b"
+# training at full Qwen2-0.5B width, depth cut to TRAIN_LAYERS of its 24
+# layers for phase 3k's seconds (a run's five saves, and the (1, 2)
+# launch's and its replay's gathered saves, shrink with the layers)
+TRAIN_ARCH, TRAIN_LAYERS = "qwen2-0.5b", 8
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_CKPT_EVERY = 512, 8, 8, 4
 TRAIN_PEAK, TRAIN_WARMUP = 3e-4, 2
 # phase 3e: serving at full zamba2-1.2b width (the dense phase's slots,
@@ -366,7 +393,7 @@ XLSTM_TRAIN_SEQ = 300
 # that the script stays near 13 minutes
 MOE_ARCH = "qwen3-moe-30b-a3b"
 MOE_PARAMS = 30_532_122_624
-MOE_SERVE_LAYERS = 16
+MOE_SERVE_LAYERS = 8       # 16 before, cut for phase 3k's seconds
 # isolated re-runs at a capacity factor >= E / k (128 / 8): cap >= T, so
 # nothing drops and a request alone must give its batched tokens; the
 # first MOE_ISOLATED requests batched, then each alone
@@ -457,8 +484,47 @@ MESH_FAMILY_SEQ = 64
 # blocks of seven mLSTM and one sLSTM; 1,024 tokens a row cross the SSD's
 # and the mLSTM's 256-token chunks
 RECURRENT_TP = {HYBRID_ARCH: 6, XLSTM_ARCH: 8}
-RECURRENT_TP_STEPS, RECURRENT_TP_BATCH, RECURRENT_TP_SEQ = 3, 2, 1024
+# 2 steps (not 3), for phase 3k's seconds
+RECURRENT_TP_STEPS, RECURRENT_TP_BATCH, RECURRENT_TP_SEQ = 2, 2, 1024
 RECURRENT_TP_DIR = ROOT / "build" / "chip_smoke_recurrent_tp"
+# phase 3k: FSDP (ROADMAP A11.5), qwen3-14b at full width through the
+# launcher on a (2, 1) mesh of the card under its launchers' rules
+# (``fsdp`` on: "embed" cut over "data"), depth cut to 2 of 40 layers, bf16
+# with an fp32 master copy, remat on; each rank holds half of every "embed"
+# dim of the parameters, the moments and the master copy.  Its steps are
+# held to one-device bf16 train steps of the same seed's state on the same
+# batches at TP_LOSS_RTOL: steps 0 and 1 forward the initial weights
+# (warmup gives step 0 a rate of 0).  A rank computes its own 2 of the 4
+# rows with the whole weights, gathered, so only the GEMMs' other M can
+# move a bf16 rounding (whisper-tiny's (2, 1) steps 0-1 are bit-equal,
+# phase 3d).  Step 1's update, from the ranks' bf16 gradients
+# reduce-scattered over "data" (the FSDP leaves' only sum) and written
+# into the donated state, is in the final save
+FSDP_ARCH, FSDP_LAYERS, FSDP_STEPS = "qwen3-14b", 2, 2
+# step 1's update moves a third step's loss by less than TP_LOSS_RTOL
+# (5.06e-5 of it on an H100 80GB HBM3 at 700 W), so the update itself is
+# held: the final checkpoint's fp32 master copy of these leaves (two cut by
+# FSDP, two whole) less the initial weights, against one device's, as the
+# norm of the difference over the norm of one device's (FSDP_UPDATE_RTOL).  Each
+# element's gradient differs from one device's by bf16 roundings (2^-8 of
+# it) and Adam's m / sqrt(v) is smooth in it, so a few 2^-8 is expected; a
+# block's update from another block's gradient, or none, is off by about 1.
+# Each step's global gradient norm is held at FSDP_NORM_RTOL, one bf16
+# rounding of every element: a leaf summed twice over "data", or not at
+# all, moves it by far more
+FSDP_UPDATE_LEAVES = ("s00_dense/attn/wq", "s00_dense/mlp/wi",
+                      "s00_dense/ln1/scale", "final_norm/scale")
+FSDP_UPDATE_RTOL, FSDP_NORM_RTOL = 5e-2, 2.0 ** -8
+FSDP_SEQ, FSDP_BATCH = 1024, 4
+FSDP_DIR = ROOT / "build" / "chip_smoke_fsdp"
+# the reduced fp32 models of the (2, 2) check trained under FSDP's rules,
+# make_rules(fsdp=True, expert_tp=cfg.expert_tp): name -> arch, changes
+FSDP_CHECKS = {
+    "fsdp-dense": (FSDP_ARCH, {}),
+    "fsdp-moe": (MOE_ARCH, dict(top_k=2, capacity_factor=MOE_TRAIN_CF,
+                                moe_groups=1, remat=True)),
+    "fsdp-grok": ("grok-1-314b", {}),
+}
 # phase 3d's second part, after phase 3h: whisper-tiny at full width trained
 # through the launcher on a (2, 1) mesh of the card (--baseline: B11 on
 # each rank's 4 of the 8 rows x 448) and on a (1, 2) one (the vocab padded
@@ -2085,7 +2151,7 @@ def training_phase() -> tuple[dict[str, int], list[float]]:
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
 
     # the reduced fp32 model: the card (B9/B11 under their autograd
     # Functions, remat on) against the CPU (their plain versions), the same
@@ -2358,8 +2424,10 @@ def mesh_backward_checks() -> None:
     and the other families' reduced fp32 models (``MESH_FAMILIES``), each
     under its launchers' rules (``rules.launcher_rules``: tensor-parallel
     over the model axis, the hybrid and ssm norms split; grok-1-314b's
-    experts under ``expert_tp``): each model's step-0 loss, global
-    gradient norm and every gradient leaf,
+    experts under ``expert_tp``); and the reduced qwen3-14b, qwen3-moe and
+    grok-1-314b under FSDP's rules (``FSDP_CHECKS``, ``make_rules(fsdp=True,
+    expert_tp=cfg.expert_tp)``: every "embed" dim cut over "data" as well):
+    each model's step-0 loss, global gradient norm and every gradient leaf,
     then two AdamW steps, against the one-device port on the card from the
     same numpy inputs.  Tolerances as ``tests/test_torch_spmd.py`` holds
     the mesh to the reference: the loss rtol 1e-5, the cross-entropy
@@ -2387,19 +2455,23 @@ def mesh_backward_checks() -> None:
     from repro_torch.models.params import leaves, map_leaves
     from repro_torch.optim import adamw
     from repro_torch.optim.schedules import make_schedule
+    from repro_torch.parallel import rules as rules_lib
     from repro_torch.parallel import specs, steps
 
     d, m = MESH_CHECK
     sizes = {"data": d, "model": m}
     schedule = ("cosine", MESH_CHECK_LR, 0, 10)
 
-    def train_job(cfg, tree, data):
+    job_rules = {}
+
+    def train_job(name, cfg, tree, data):
         host = interop.params_from_jax(tree, cfg, device="cpu")
         state = map_leaves(interop.to_numpy, {
             "params": host,
             "opt": adamw.init_state(host, adamw.AdamWConfig())})
         return ("train", dict(cfg=cfg, state=state, data_cfg=data,
-                              steps_run=2, schedule=schedule))
+                              steps_run=2, schedule=schedule,
+                              rules=job_rules.get(name)))
 
     cfg, _ = dataclasses.replace(
         reduce_for_smoke(get_config(TRAIN_ARCH)),
@@ -2408,9 +2480,13 @@ def mesh_backward_checks() -> None:
                                              SEED),
                            DataConfig(vocab_size=cfg.vocab_logical,
                                       seq_len=64, global_batch=4))}
-    for fam, (arch, changes) in MESH_FAMILIES.items():
+    for fam, (arch, changes) in (*MESH_FAMILIES.items(),
+                                 *FSDP_CHECKS.items()):
         c = dataclasses.replace(reduce_for_smoke(get_config(arch)),
                                 **changes)
+        if fam in FSDP_CHECKS:
+            job_rules[fam] = rules_lib.make_rules(fsdp=True,
+                                                  expert_tp=c.expert_tp)
         models[fam] = (c, numpy_params(build_model(c).param_defs(), SEED,
                                        true_fan_in=True, cfg=c),
                        DataConfig(vocab_size=c.vocab_size,
@@ -2427,7 +2503,7 @@ def mesh_backward_checks() -> None:
     ranks = mesh_lib.spawn(
         mesh_checks.run, MESH_CHECK, device="cuda",
         args=([("xent", dict(logits=x, labels=labels, logical_v=lv))]
-              + [train_job(*models[name]) for name in models],))
+              + [train_job(name, *models[name]) for name in models],))
     secs = time.perf_counter() - t0
 
     xc, lc = torch.from_numpy(x).cuda(), torch.from_numpy(labels).cuda()
@@ -2488,6 +2564,11 @@ def mesh_backward_checks() -> None:
                             b.cpu(), 1e-5 if i == 0 else 2e-3, 0.0)
             if tr["digests"] != got[0]["digests"]:
                 fail(f"{where}: unsharded leaves differ from rank 0's")
+            emb = tuple(tr["state"]["params"]["embed"].shape)
+            want_emb = (cfg.vocab_size // m,
+                        cfg.d_model // (d if name in job_rules else 1))
+            if emb != want_emb:
+                fail(f"{where}: embed block {emb}, want {want_emb}")
             launched = tr["launches"]
             need_rms = cfg.norm == "rmsnorm"
             # the recurrent blocks' norms, split on the model axis: B10's
@@ -2504,7 +2585,10 @@ def mesh_backward_checks() -> None:
                      + (", B9" if need_rms else "")
                      + (f", {sorted(split)}, no one-pass B10" if split
                         else "") + ")")
-        return (f"{name} ({cfg.family}) loss {got[0]['loss0']!r} vs "
+        return (f"{name} ({cfg.family}{', FSDP' if name in job_rules else ''}"
+                f", embed block "
+                f"{tuple(got[0]['state']['params']['embed'].shape)}) loss "
+                f"{got[0]['loss0']!r} vs "
                 f"{float(loss)!r}, norm {got[0]['gnorm0']!r} vs "
                 f"{float(gnorm)!r}, {n_leaves} leaves (worst "
                 f"{worst:.3g} of scale), losses {got[0]['losses']} vs "
@@ -2520,7 +2604,8 @@ def mesh_backward_checks() -> None:
           f"with vocab {cfg.vocab_logical} padded to {cfg.vocab_size} and "
           f"the reduced fp32 {', '.join(MESH_FAMILIES)} models under their "
           f"launchers' rules (tensor-parallel, the hybrid and ssm norms "
-          f"split), each "
+          f"split) and the {', '.join(FSDP_CHECKS)} models under FSDP's "
+          f"(\"embed\" over \"data\" too), each "
           f"model's loss within rtol 1e-5, gradient norm within rtol 5e-3, "
           f"every gradient leaf within rtol 1e-4 / atol 1e-2 of its scale, "
           f"the loss after an update within rtol 2e-3 of the one-device "
@@ -2537,11 +2622,13 @@ def pick(tree: dict, path: tuple):
     return tree
 
 
-def full_width_backward_check(arch: str = TRAIN_ARCH, layers: int = 0,
+def full_width_backward_check(arch: str = TRAIN_ARCH,
+                              layers: int = TRAIN_LAYERS,
                               batch: int = TRAIN_BATCH,
                               seq: int = TRAIN_SEQ) -> None:
     """The vocab-parallel backward at full width, fatal: Qwen2-0.5B in fp32
-    (every dimension of the config, remat on, the weights ``model.init``
+    (every width of the config, ``TRAIN_LAYERS`` of its layers, remat on,
+    the weights ``model.init``
     draws from ``SEED``: the port's init, at the true attention fan-ins,
     ROADMAP §C) on one seeded batch of ``TRAIN_BATCH`` x ``TRAIN_SEQ``
     tokens -- or ``arch`` cut to ``layers`` on ``batch`` x ``seq`` tokens,
@@ -2816,7 +2903,7 @@ def tp_cut(ranks: list[dict], cfg, where: str, stage: str) -> str:
     dim = {f"{stage}/attn/wq": 2, f"{stage}/attn/wk": 2,
            f"{stage}/mlp/wi": 2, "embed": 0}
     for r in ranks:
-        got = {k: r["shapes"][k][d] for k, d in dim.items()}
+        got = {k: r["state_shapes"][f"params/{k}"][d] for k, d in dim.items()}
         if got != want:
             fail(f"{where}: rank {r['rank']}'s blocks {got} are not its "
                  f"shares {want} of {cfg.name}")
@@ -2860,7 +2947,8 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
     full_width_backward_check()
     shutil.rmtree(SPMD_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    argv = ["--arch", TRAIN_ARCH, "--mesh", SPMD_MESH, "--baseline",
+    argv = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
+            "--mesh", SPMD_MESH, "--baseline",
             "--steps", str(SPMD_STEPS), "--seq-len", str(TRAIN_SEQ),
             "--global-batch", str(TRAIN_BATCH), "--ckpt-every",
             str(SPMD_CKPT_EVERY), "--seed", str(SEED)]
@@ -3058,7 +3146,8 @@ def recurrent_cut(ranks: list[dict], cfg, where: str) -> str:
                  "sLSTM columns")
     want["embed"] = (0, cfg.vocab_size // m, cfg.vocab_size)
     for r in ranks:
-        got = {k: r["shapes"][k][dim] for k, (dim, _, _) in want.items()}
+        got = {k: r["state_shapes"][f"params/{k}"][dim]
+               for k, (dim, _, _) in want.items()}
         if got != {k: n for k, (_, n, _) in want.items()}:
             fail(f"{where}: rank {r['rank']}'s blocks {got} are not its "
                  f"shares {want} of {cfg.name}")
@@ -3133,7 +3222,10 @@ def recurrent_tp_phase() -> dict[str, int]:
             "--baseline", "--steps", str(RECURRENT_TP_STEPS), "--seq-len",
             str(RECURRENT_TP_SEQ), "--global-batch", str(RECURRENT_TP_BATCH),
             "--ckpt-every", str(RECURRENT_TP_STEPS + 1), "--seed", str(SEED),
-            "--ckpt-dir", str(ckpt), "--profile"])
+            "--ckpt-dir", str(ckpt)]
+            # xlstm's profiled step is not taken, for phase 3k's seconds:
+            # post-processing its 116,267 launches took about 30 s
+            + (["--profile"] if arch == HYBRID_ARCH else []))
         secs = time.perf_counter() - t0
         shutil.rmtree(ckpt, ignore_errors=True)
         losses = check_launch_ranks(ranks, where, RECURRENT_TP_STEPS,
@@ -3166,7 +3258,7 @@ def recurrent_tp_phase() -> dict[str, int]:
         step_ms = statistics.median(m["step_s"] for m in
                                     ranks[0]["metrics"][1:]) * 1e3
         step_list = [round(m["step_s"] * 1e3, 1) for m in ranks[0]["metrics"]]
-        prof, comm = ranks[0]["profile"], ranks[0]["comm"]
+        prof, comm = ranks[0].get("profile"), ranks[0]["comm"]
         print(f"{where} (data 1, model 2) on one card, bf16 + fp32 master, "
               f"remat, {cfg.n_layers} layers {cfg.stages()}, batch "
               f"{RECURRENT_TP_BATCH} x seq {RECURRENT_TP_SEQ}, "
@@ -3186,7 +3278,8 @@ def recurrent_tp_phase() -> dict[str, int]:
               f"{len(ranks[0]['digests'])} unsharded leaves bit-equal on "
               f"both ranks; {secs:.1f} s for the launch, {one_s:.1f} s for "
               f"the one-device loss")
-        print_profile(f"{arch} train step rank 0 of 1x2", prof)
+        if prof is not None:
+            print_profile(f"{arch} train step rank 0 of 1x2", prof)
     shutil.rmtree(RECURRENT_TP_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     full_width_backward_check(XLSTM_ARCH, RECURRENT_TP[XLSTM_ARCH],
@@ -3196,6 +3289,186 @@ def recurrent_tp_phase() -> dict[str, int]:
     print(f"spmd: the hybrid and ssm launches took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def fsdp_phase() -> dict[str, int]:
+    """Phase 3k: FSDP (ROADMAP A11.5).  qwen3-14b at full width, its depth
+    cut to ``FSDP_LAYERS``, through ``launch.train --mesh 2x1`` on two
+    ranks of the one card under its launchers' rules (``fsdp`` on), bf16
+    with an fp32 master copy, remat on, ``FSDP_STEPS`` steps of
+    ``FSDP_BATCH`` x ``FSDP_SEQ`` tokens and one more profiled on rank 0,
+    the final save written by rank 0.  Gates: each rank's blocks of the
+    parameters, the moments and the master copy hold half of every
+    "embed" dim (the vocab whole); every loss finite and equal on both
+    ranks; every step's loss within ``TP_LOSS_RTOL`` and every step's
+    gradient norm within ``FSDP_NORM_RTOL`` of one-device bf16 train steps
+    of the same seed's state and schedule on the same batches, run here
+    once the ranks have exited, and step 1's update, which the final
+    checkpoint's master copy holds, within ``FSDP_UPDATE_RTOL`` of one
+    device's; the unsharded leaves (the norms' and the qk-norms' scales,
+    the step) bit-equal on both ranks; B11 once a rank a
+    step and no B12 (each rank's counters, zeroed just before its run and
+    read just after); each rank's peak device memory below the replicated
+    train state's bytes.  Returns the launches summed over the ranks."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import build_model
+    from repro_torch.models.params import leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.steps import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(FSDP_ARCH), n_layers=FSDP_LAYERS)
+    if not cfg.fsdp:
+        fail(f"fsdp: {FSDP_ARCH}'s config does not set fsdp")
+    where = f"spmd: {FSDP_ARCH} mesh 2x1 FSDP"
+    defs = build_model(cfg).param_defs()
+    n_params = sum(math.prod(dfn.shape) for _, dfn in leaves(defs))
+    # bf16 weights, and the fp32 master copy and two moments AdamW keeps
+    replicated = n_params * (2 + 4 + 4 + 4)
+    shutil.rmtree(FSDP_DIR, ignore_errors=True)
+    FSDP_DIR.mkdir(parents=True)
+    free_before = shutil.disk_usage(FSDP_DIR).free
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    argv = ["--arch", FSDP_ARCH, "--mesh", "2x1", "--layers",
+            str(FSDP_LAYERS), "--steps", str(FSDP_STEPS), "--seq-len",
+            str(FSDP_SEQ), "--global-batch", str(FSDP_BATCH), "--ckpt-every",
+            str(FSDP_STEPS + 1), "--seed", str(SEED), "--ckpt-dir",
+            str(FSDP_DIR), "--profile"]
+    ranks = train_launcher.main(argv)
+    secs = time.perf_counter() - t0
+    written = sum(f.stat().st_size for f in FSDP_DIR.rglob("*")
+                  if f.is_file())
+    free_after = shutil.disk_usage(FSDP_DIR).free
+    # the saved master copy of FSDP_UPDATE_LEAVES (the one-device layout)
+    import numpy as np
+
+    with np.load(FSDP_DIR / f"step_{FSDP_STEPS:08d}" / "shard_0.npz") as z:
+        saved = {k: z[f"opt/master/{k}"] for k in FSDP_UPDATE_LEAVES}
+    shutil.rmtree(FSDP_DIR)
+    losses = check_launch_ranks(ranks, where, FSDP_STEPS, "xent",
+                                "xent.partial")
+    d, v, f = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    hd = cfg.hd
+    want = {"embed": (v, d // 2), "lm_head": (d // 2, v),
+            "s00_dense/attn/wq": (FSDP_LAYERS, d // 2, cfg.n_heads, hd),
+            "s00_dense/attn/wk": (FSDP_LAYERS, d // 2, cfg.n_kv_heads, hd),
+            "s00_dense/attn/wo": (FSDP_LAYERS, cfg.n_heads, hd, d // 2),
+            "s00_dense/mlp/wi": (FSDP_LAYERS, d // 2, f),
+            "s00_dense/mlp/wg": (FSDP_LAYERS, d // 2, f),
+            "s00_dense/mlp/wo": (FSDP_LAYERS, f, d // 2),
+            "s00_dense/ln1/scale": (FSDP_LAYERS, d),
+            "final_norm/scale": (d,)}
+    for r in ranks:
+        for part in ("params", "opt/m", "opt/v", "opt/master"):
+            got = {k: r["state_shapes"][f"{part}/{k}"] for k in want}
+            if got != want:
+                fail(f"{where}: rank {r['rank']}'s {part} blocks {got}, "
+                     f"want {want}")
+        if not r["peak_bytes"] < replicated:
+            fail(f"{where}: rank {r['rank']}'s peak device memory "
+                 f"{r['peak_bytes']} B is not below the replicated train "
+                 f"state's {replicated} B: the state is not sharded")
+
+    # one device: the same seed's 2-layer state and the launcher's
+    # schedule, the same steps, donated (one 31 GB state beside the step's
+    # gradients)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig()
+    state = init_train_state(model, opt_cfg, SEED)
+    step_fn = make_train_step(model, opt_cfg,
+                              train_launcher.schedule(
+                                  train_launcher.parse_args(argv)),
+                              donate=True)
+    data = DataConfig(vocab_size=v, seq_len=FSDP_SEQ, global_batch=FSDP_BATCH,
+                      d_model=d)
+    master = {k: pick(state["opt"]["master"], k.split("/"))
+              for k in FSDP_UPDATE_LEAVES}
+    initial = {k: t.clone() for k, t in master.items()}
+    one, one_norms = [], []
+    for i in range(FSDP_STEPS):
+        state, metrics = step_fn(state, make_batch(data, i))
+        one.append(float(metrics["loss"]))
+        one_norms.append(float(metrics["grad_norm"]))
+    update = {}
+    for k, w0 in initial.items():
+        mine = master[k] - w0
+        theirs = torch.from_numpy(saved[k]).to(w0.device) - w0
+        size = float(torch.linalg.vector_norm(mine))
+        update[k] = (float(torch.linalg.vector_norm(theirs - mine)) / size
+                     if size > 0 else math.inf, size)
+    del model, state, metrics, master, initial, saved
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one)]
+    if not max(rel) <= TP_LOSS_RTOL:
+        fail(f"{where}: losses {losses} vs one device's {one}: relative "
+             f"{rel} > {TP_LOSS_RTOL}")
+    norms = [m["grad_norm"] for m in ranks[0]["metrics"]]
+    norm_rel = [abs(a - b) / abs(b) for a, b in zip(norms, one_norms)]
+    if not max(norm_rel) <= FSDP_NORM_RTOL:
+        fail(f"{where}: gradient norms {norms} vs one device's {one_norms}: "
+             f"relative {norm_rel} > {FSDP_NORM_RTOL}")
+    if not max(r for r, _ in update.values()) <= FSDP_UPDATE_RTOL:
+        fail(f"{where}: the saved master copy's update (relative difference"
+             f", one device's norm) {update} is not one device's within "
+             f"{FSDP_UPDATE_RTOL}")
+    step_ms = statistics.median(m["step_s"] for m in
+                                ranks[0]["metrics"][1:]) * 1e3
+    tokens = FSDP_SEQ * FSDP_BATCH
+    prof, comm = ranks[0]["profile"], ranks[0]["comm"]
+    save = ranks[0]["saves"][-1]
+    print(f"{where} (data 2, model 1) on one card, bf16 + fp32 master, "
+          f"remat, {FSDP_LAYERS} of 40 layers, batch {FSDP_BATCH} x seq "
+          f"{FSDP_SEQ}, backend {ranks[0]['backend']}, collective transport "
+          f"{ranks[0]['transport']}, a reduce-scatter as "
+          f"{ranks[0]['reduce_scatter_transport']}: a rank holds "
+          f"{want['embed']} of the embedding, {want['lm_head']} of the "
+          f"head, {want['s00_dense/attn/wq']} of wq, "
+          f"{want['s00_dense/mlp/wi']} of wi and wg, "
+          f"{want['s00_dense/mlp/wo']} of wo, and so of the moments and the "
+          f"master copy; losses {losses}, equal on both ranks; vs one "
+          f"device's train steps {one}: relative "
+          f"{[f'{x:.3g}' for x in rel]} (gate {TP_LOSS_RTOL}); gradient "
+          f"norms {norms} vs {one_norms}: relative "
+          f"{[f'{x:.3g}' for x in norm_rel]} (gate {FSDP_NORM_RTOL:.3g}); "
+          f"the saved master copy's update after {FSDP_STEPS} steps vs one "
+          f"device's, relative difference (norm of one device's): "
+          + ", ".join(f"{k} {r:.3g} ({n:.3g})" for k, (r, n) in update.items())
+          + f" (gate {FSDP_UPDATE_RTOL}); launches a rank "
+          f"{ranks[0]['launches']}; {len(ranks[0]['digests'])} unsharded "
+          f"leaves bit-equal on both ranks")
+    print(f"spmd: {FSDP_ARCH} FSDP {step_ms:.1f} ms a step (median of steps "
+          f"1-{FSDP_STEPS - 1}, rank 0), {tokens / step_ms * 1e3:.0f} "
+          f"tokens/s, steps "
+          f"{[round(m['step_s'] * 1e3, 1) for m in ranks[0]['metrics']]} ms, "
+          f"busy {prof['busy_ms'] / prof['wall_ms']:.1%} of the profiled "
+          f"step; peak memory "
+          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 1e9:.2f} GB"
+                      for r in ranks)
+          + f" (a rank's FSDP state {replicated / 2 / 1e9:.2f} GB, the "
+          f"replicated state {replicated / 1e9:.2f} GB, gate); collectives "
+          f"a step (the profiled one) {prof['comm']['calls']} calls, "
+          f"{prof['comm']['bytes'] / 1e9:.3f} GB, "
+          f"{prof['comm']['seconds']:.1f} s on the host's clock; over the "
+          f"run {comm['calls']} calls, {comm['bytes'] / 1e9:.3f} GB, "
+          f"{comm['seconds']:.1f} s (the final save's gathers included); "
+          f"the final save {save['seconds']:.1f} s, {written / 1e9:.2f} GB "
+          f"written by rank 0, disk free {free_before / 1e9:.1f} GB before, "
+          f"{free_after / 1e9:.1f} GB with it (deleted); {secs:.1f} s for "
+          f"the launch, {one_s:.1f} s for the one-device steps")
+    print_profile(f"{FSDP_ARCH} FSDP train step rank 0 of 2x1", prof)
+    print(f"spmd: phase 3k took {time.perf_counter() - t_phase:.1f} s")
+    return {k: sum(r["launches"][k] for r in ranks)
+            for k in ("xent", "rmsnorm")}
 
 
 def main() -> int:
@@ -3382,6 +3655,7 @@ def main() -> int:
     train_launches, train_metrics = timed("3c", training_phase)
     spmd_launches = timed("3d", spmd_phase, train_metrics)
     recurrent_launches = timed("3j", recurrent_tp_phase)
+    fsdp_launches = timed("3k", fsdp_phase)
     hybrid_launches = timed("3e", hybrid_phase)
     xlstm_launches = timed("3f", xlstm_phase)
     moe_launches = timed("3g", moe_phase)
@@ -3399,7 +3673,7 @@ def main() -> int:
     launches.update(spmd_launches)
     for phase in (hybrid_launches, xlstm_launches, moe_launches,
                   multimodal_launches, whisper_mesh_launches,
-                  recurrent_launches, halo_launches):
+                  recurrent_launches, fsdp_launches, halo_launches):
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count
     print(f"main: launches {launches}")

@@ -13,7 +13,10 @@ It prints the phases' ``check:``, ``spmd:`` and ``profile:`` lines and
 their seconds (about 5 minutes on an H100).  ``python3
 scripts/spmd_rehearsal.py 3j`` runs phase 3j alone instead
 (``recurrent_tp_phase``: zamba2-1.2b and xlstm-1.3b tensor-parallel on
-``1x2``, about 2 minutes)."""
+``1x2``, about 2 minutes); ``python3 scripts/spmd_rehearsal.py 3k`` runs
+the (2, 2) backward checks (``mesh_backward_checks``, the FSDP jobs among
+them) and phase 3k (``fsdp_phase``: qwen3-14b under FSDP on ``2x1``)."""
+import dataclasses
 import sys
 import time
 
@@ -35,14 +38,24 @@ def main():
     t0 = time.perf_counter()
     _build.build()
     print(f"build {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["3k"]:
+        t0 = time.perf_counter()
+        cs.mesh_backward_checks()
+        print(f"the (2, 2) backward checks {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cs.fsdp_phase()
+        print(f"phase 3k {time.perf_counter() - t0:.1f} s")
+        return
     if sys.argv[1:] == ["3j"]:
         t0 = time.perf_counter()
         cs.recurrent_tp_phase()
         print(f"phase 3j {time.perf_counter() - t0:.1f} s")
         return
 
-    def forwards(arch, data, n):
-        model = build_model(get_config(arch))
+    def forwards(arch, data, n, layers=0):
+        cfg = get_config(arch)
+        model = build_model(dataclasses.replace(cfg, n_layers=layers)
+                            if layers else cfg)
         params = model.init(cs.SEED)
         with torch.no_grad():
             out = [{"loss": float(model.loss(params, make_batch(data, i))),
@@ -54,7 +67,7 @@ def main():
     q = get_config(cs.TRAIN_ARCH)
     train = forwards(cs.TRAIN_ARCH, DataConfig(
         vocab_size=q.vocab_size, seq_len=cs.TRAIN_SEQ,
-        global_batch=cs.TRAIN_BATCH), cs.SPMD_STEPS)
+        global_batch=cs.TRAIN_BATCH), cs.SPMD_STEPS, cs.TRAIN_LAYERS)
     w = get_config(cs.ENCDEC_ARCH)
     whisper = forwards(cs.ENCDEC_ARCH, DataConfig(
         vocab_size=w.vocab_size, seq_len=cs.ENCDEC_TRAIN_SEQ,

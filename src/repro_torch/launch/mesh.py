@@ -13,7 +13,10 @@ shards, and ``Mesh`` is this rank's view of the grid of ranks:
     collective over ("model",) on a (2, 2) mesh therefore runs on this
     rank's row, never on the world;
   * ``all_reduce``/``all_gather`` over a set of axes, the collectives the
-    shard bodies call (``api.spmd.ShardContext``), and ``ppermute``, the
+    shard bodies call (``api.spmd.ShardContext``), ``reduce_scatter``, the
+    backward of FSDP's gather (NCCL's ``reduce_scatter_tensor``; gloo has
+    none, so there it is an ``all_reduce`` and this rank's block of the
+    sum, ``reduce_scatter_transport``), and ``ppermute``, the
     asynchronous point-to-point shift of the halo bodies: it returns a
     ``Transfer`` at once, and the rank sweeps its interior before it calls
     ``wait()`` for what its neighbour sent.
@@ -183,6 +186,9 @@ class Mesh:
         self.staged = self.backend == "gloo" and self.device.type == "cuda"
         self.transport = ("gloo via pinned host buffers" if self.staged
                           else self.backend)
+        self.reduce_scatter_transport = (
+            "reduce_scatter_tensor" if self.backend == "nccl"
+            else "all_reduce, then this rank's block")
         self._pinned: dict[torch.dtype, torch.Tensor] = {}
         self._stream = None
         self._shifts = 0
@@ -345,6 +351,47 @@ class Mesh:
         out = torch.cat([parts[order.index(i)] for i in range(n)], dim=dim)
         out = out.to(x.device) if self.staged else out
         self._count(x, "all_gather", axes, t0)
+        return out
+
+    def reduce_scatter(self, x: torch.Tensor, axes, dim: int
+                       ) -> torch.Tensor:
+        """This rank's block (``index(axes)``, of ``x.shape[dim] / n``
+        along ``dim``) of ``x`` summed over the ranks along ``axes``: the
+        backward of ``all_gather``.  NCCL reduces and scatters in one call;
+        gloo has no reduce-scatter, so it sums the whole of ``x`` and keeps
+        this rank's block.  Counted in ``comm`` as one call of ``x``'s
+        bytes, which both send."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        n = self.axis_size(axes) if axes else 1
+        if n <= 1:
+            return x.clone()
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"over the {n} ranks of {axes}")
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        step = x.shape[dim] // n
+        me = self.index(axes)
+        if self.backend == "nccl":
+            src = x.movedim(dim, 0).contiguous()
+            out = torch.empty((step, *src.shape[1:]), dtype=x.dtype,
+                              device=x.device)
+            # the group's rank order is the global one: put this rank's
+            # block where its place in the group takes it
+            ranks = sorted(self._line_ranks(axes))
+            order = [self._index_of(r, axes) for r in ranks]
+            src = torch.cat([src[i * step:(i + 1) * step] for i in order])
+            dist.reduce_scatter_tensor(out, src, group=self.group(axes))
+            out = out.movedim(0, dim).contiguous()
+        else:
+            buf = (self._stage(x) if self.staged
+                   else x.clone(memory_format=torch.contiguous_format))
+            dist.all_reduce(buf, group=self.group(axes))
+            mine = buf.narrow(dim, me * step, step)
+            out = torch.empty(mine.shape, dtype=x.dtype,
+                              device=x.device).copy_(mine)
+        self._count(x, "reduce_scatter", axes, t0)
         return out
 
     def _line_ranks(self, axes) -> list[int]:

@@ -3,7 +3,9 @@
 Each takes the ``launch.mesh.Mesh`` a spawned rank was given and global
 numpy inputs, cuts this rank's shards by the specs of the launchers' rules
 (``rules.launcher_rules`` for a model, ``make_rules()`` for a kernel
-alone), runs the port's SPMD path on
+alone) or of the ``rules`` a job is given (FSDP's, ``make_rules(fsdp=True,
+...)``, for a reduced config, whose ``fsdp`` is off), runs the port's SPMD
+path on
 them and returns what the rank computed on its shards, for the caller to
 put back together and hold against a single-device run.  They live in the
 package so that a spawned rank imports nothing but the port.  ``run``
@@ -18,8 +20,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import itertools
 import logging
 import math
+import threading
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from repro_torch.kernels.lbm import ref as lbm_ref
 from repro_torch.kernels.xent import kernel as xent_kernel
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import build_model
-from repro_torch.models.params import leaves
+from repro_torch.models.params import leaves, map_leaves
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.parallel import rules as rules_lib
@@ -232,17 +236,19 @@ def xent(mesh, logits: np.ndarray, labels: np.ndarray, g: float = 1.0,
 
 
 def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
-          opt_cfg: AdamWConfig = AdamWConfig(), schedule: tuple = ()) -> dict:
+          opt_cfg: AdamWConfig = AdamWConfig(), schedule: tuple = (),
+          rules: dict | None = None) -> dict:
     """From a reference train state (numpy), this rank's loss, gradients
     and global norm at step 0, then ``steps_run`` train steps: the losses,
     the rank's final state, the digests of its replicated leaves and the
     kernel launches of the whole job (the card's counters; 0 on the CPU).
-    ``schedule`` is ``make_schedule``'s ``(kind, peak, warmup, total)``."""
+    ``schedule`` is ``make_schedule``'s ``(kind, peak, warmup, total)``;
+    ``rules`` replaces the launchers' rules."""
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 
     before = {**xent_kernel.LAUNCHES,
               **{f"rmsnorm.{k}": v for k, v in rms_kernel.LAUNCHES.items()}}
-    rules = mesh_rules(mesh, cfg=cfg)
+    rules = mesh_rules(mesh, rules, cfg)
     sizes = mesh.axis_sizes
     st = interop.train_state_from_jax(state, cfg, device=mesh.device,
                                       mesh=mesh, rules=rules)
@@ -270,6 +276,27 @@ def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
             "losses": losses, "state": st, "specs": specs,
             "digests": digests(st, specs, sizes),
             "launches": {k: after[k] - before[k] for k in before}}
+
+
+def reduce_scatter(mesh, xs: np.ndarray) -> dict:
+    """``Mesh.reduce_scatter`` of this rank's ``xs[rank]`` over every set
+    of mesh axes each of more than one rank, along every dim their ranks
+    divide: ``{"cases": {(axes, dim): (block, bytes counted)},
+    "transport"}``."""
+    x = torch.from_numpy(xs[mesh.rank]).to(mesh.device)
+    cases = {}
+    for k in range(1, len(mesh.axis_names) + 1):
+        for axes in itertools.combinations(mesh.axis_names, k):
+            if any(mesh.axis_size(a) <= 1 for a in axes):
+                continue
+            n = mesh.axis_size(axes)
+            for dim in range(x.ndim):
+                if x.shape[dim] % n:
+                    continue
+                before = mesh.comm["bytes"]
+                cases[axes, dim] = (mesh.reduce_scatter(x, axes, dim),
+                                    mesh.comm["bytes"] - before)
+    return {"cases": cases, "transport": mesh.reduce_scatter_transport}
 
 
 def moe_layer(mesh, cfg, tree: dict, x: np.ndarray) -> dict:
@@ -300,13 +327,15 @@ def moe_layer(mesh, cfg, tree: dict, x: np.ndarray) -> dict:
             "aux": float(aux.detach()), "router_grad": grad}
 
 
-def seeded_grads(mesh, cfg, seed: int, data_cfg) -> dict:
+def seeded_grads(mesh, cfg, seed: int, data_cfg,
+                 rules: dict | None = None) -> dict:
     """This rank's loss, gradient blocks and global norm at step 0 of the
     weights ``model.init(seed)`` draws on the rank's device (the weights of
     every rank and of one device on that device type), on batch 0 of
     ``data_cfg``, with the parameter specs.  No numpy state crosses the
-    spawn, so it serves full-width models."""
-    rules = mesh_rules(mesh, cfg=cfg)
+    spawn, so it serves full-width models.  ``rules`` replaces the
+    launchers' rules."""
+    rules = mesh_rules(mesh, rules, cfg)
     sizes = mesh.axis_sizes
     model = build_model(cfg)
     specs = specs_lib.param_specs(model.param_defs(), rules, sizes)
@@ -322,29 +351,75 @@ def seeded_grads(mesh, cfg, seed: int, data_cfg) -> dict:
 
 
 def trainer(mesh, cfg, data_cfg, restore_dir: str, save_dir: str,
-            steps_run: int, seed: int = 0, schedule: tuple = ()) -> dict:
+            steps_run: int, seed: int = 0, schedule: tuple = (),
+            rules: dict | None = None) -> dict:
     """A ``Trainer`` on the mesh restoring the latest checkpoint of
     ``restore_dir`` (returns the rank's restored state), then one training
     ``steps_run`` steps from ``seed`` into ``save_dir`` (returns its
-    metrics and final local state)."""
+    metrics and final local state).  ``rules`` replaces the launchers'
+    rules, as the rules a ``Trainer`` is built under."""
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     model = build_model(cfg)
     kind, peak, warmup, total = schedule
+    table = mesh_rules(mesh, rules, cfg)
 
     def make(directory, n):
-        return Trainer(model, data_cfg, AdamWConfig(),
-                       make_schedule(kind, peak=peak, warmup=warmup,
-                                     total=total),
-                       TrainerConfig(n_steps=n, ckpt_every=max(n, 1),
-                                     ckpt_dir=directory, keep=1),
-                       mesh=mesh)
+        with rules_lib.use_rules(table):
+            return Trainer(model, data_cfg, AdamWConfig(),
+                           make_schedule(kind, peak=peak, warmup=warmup,
+                                         total=total),
+                           TrainerConfig(n_steps=n, ckpt_every=max(n, 1),
+                                         ckpt_dir=directory, keep=1),
+                           mesh=mesh)
 
     step, restored = make(restore_dir, 0).init_or_restore(seed)
     run_ = make(save_dir, steps_run)
     metrics = run_.train(seed)
     return {"restored_step": step, "restored": restored, "metrics": metrics,
             "final": run_.state}
+
+
+def mid_run_save(mesh, cfg, data_cfg, save_dir: str, seed: int = 0,
+                 schedule: tuple = (), rules: dict | None = None) -> dict:
+    """A ``Trainer`` on the mesh taking two steps from ``seed`` into
+    ``save_dir`` with a checkpoint after each, the file write of the first
+    held until the second save begins: the second step, donated, writes
+    into the state while that write is pending, the worst order the async
+    writer allows.  Returns this rank's state at step 1 (copied before the
+    second step) and its final state.  ``rules`` as for ``trainer``."""
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+
+    kind, peak, warmup, total = schedule
+    with rules_lib.use_rules(mesh_rules(mesh, rules, cfg)):
+        run_ = Trainer(build_model(cfg), data_cfg, AdamWConfig(),
+                       make_schedule(kind, peak=peak, warmup=warmup,
+                                     total=total),
+                       TrainerConfig(n_steps=2, ckpt_every=1,
+                                     ckpt_dir=save_dir, keep=2),
+                       mesh=mesh)
+    second = threading.Event()
+    write, save = run_.ckpt._write, run_.ckpt.save
+
+    def held_write(step, flat, meta):
+        if step == 1:
+            second.wait()
+        write(step, flat, meta)
+
+    def releasing_save(step, state, **kw):
+        if step == 2:
+            second.set()
+        save(step, state, **kw)
+
+    run_.ckpt._write, run_.ckpt.save = held_write, releasing_save
+    at = {}
+
+    def snapshot(step):
+        if step == 1:
+            at[step] = map_leaves(lambda t: t.detach().clone(), run_.state)
+
+    run_.train(seed, fail_injector=snapshot)
+    return {"step1": at[1], "final": run_.state}
 
 
 def _card_ms(fn, reps: int) -> float:

@@ -15,11 +15,21 @@ by model (``models.transformer``'s vocab-parallel layout), and the heads,
 KV heads, MLP, experts and recurrent blocks' columns by model too (tensor
 parallelism: ``models.blocks``, ``models.moe``, ``models.mamba2``,
 ``models.xlstm``), under ``rules.launcher_rules(cfg)``: the reference's
-``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)`` less FSDP (ROADMAP
-A11.5).  It runs the full configuration on CUDA (every rank on card 0
+``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``.  Under a config's
+``fsdp`` (qwen3-14b, pixtral-12b, qwen3-moe-30b-a3b, grok-1-314b) every
+"embed" dim of the parameters, the moments and the master copy is cut over
+"data" too (FSDP, ROADMAP A11.5): a rank draws each leaf whole and keeps
+its block, a layer gathers its weights whole in its forward (and again in
+remat's recomputation), and the gathers' backward reduce-scatters the
+gradients.  The reduced configurations have ``fsdp`` off, as the
+reference's.  It runs the full configuration on CUDA (every rank on card 0
 when the ranks outnumber the cards, over gloo) and the reduced one on the
 CPU, and pads the configuration for the model axis (``padded_for_mesh``)
 unless ``--baseline``:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
+        --mesh 2x1 --layers 2 --steps 2 --seq-len 1024 --global-batch 4
+
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
         --mesh 2x1 --device cpu --steps 4
@@ -96,12 +106,20 @@ def _config(args, on_cuda: bool):
     return cfg
 
 
-def _trainer(args, cfg, device, mesh=None):
+def schedule(args):
+    """The run's learning rate by step: the arch's schedule, peak 3e-4,
+    10 warmup steps, over ``--steps``."""
     from repro_torch.configs import get_schedule
+    from repro_torch.optim.schedules import make_schedule
+
+    return make_schedule(get_schedule(args.arch), peak=3e-4, warmup=10,
+                         total=args.steps)
+
+
+def _trainer(args, cfg, device, mesh=None):
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import build_model
     from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.optim.schedules import make_schedule
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
 
     # the vlm's image embeddings and the encdec's frames, seeded stubs
@@ -111,9 +129,7 @@ def _trainer(args, cfg, device, mesh=None):
                       n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
                       d_model=cfg.d_model)
     return Trainer(
-        build_model(cfg), data, AdamWConfig(),
-        make_schedule(get_schedule(args.arch), peak=3e-4, warmup=10,
-                      total=args.steps),
+        build_model(cfg), data, AdamWConfig(), schedule(args),
         TrainerConfig(n_steps=args.steps,
                       ckpt_every=args.ckpt_every or max(args.steps // 4, 1),
                       ckpt_dir=args.ckpt_dir, log_every=5),
@@ -158,10 +174,11 @@ def _profile_step(trainer, step: int) -> dict:
 def rank_main(mesh, args) -> dict:
     """One rank of a ``--mesh DxM`` run: its ``Trainer`` on the mesh, then
     what the rank saw -- its metrics, kernel launches, collectives
-    (``Mesh.comm``, checkpoint gathers included), peak device memory,
-    the shapes of its parameter blocks, the digests of the leaves every
-    rank must hold bit for bit, and with ``--profile`` one more step
-    profiled on rank 0, with its collectives."""
+    (``Mesh.comm``, checkpoint gathers included; the reduce-scatter's
+    transport), peak device memory, the shapes of its blocks of the
+    state (``"params/..."``, ``"opt/m/..."``, ...), its saves' seconds, the digests of the leaves
+    every rank must hold bit for bit, and with ``--profile`` one more step
+    profiled on rank 0 (the state donated to it), with its collectives."""
     import torch
 
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
@@ -185,6 +202,7 @@ def rank_main(mesh, args) -> dict:
     out = {
         "rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
         "transport": mesh.transport, "comm": dict(mesh.comm),
+        "reduce_scatter_transport": mesh.reduce_scatter_transport,
         "metrics": metrics,
         "launches": {"xent.partial": xent_kernel.LAUNCHES["xent.partial"],
                      "xent": xent_kernel.LAUNCHES["xent"],
@@ -192,8 +210,9 @@ def rank_main(mesh, args) -> dict:
                      **{f"rmsnorm.{k}": v for k, v in
                         rms_kernel.LAUNCHES.items() if k != "plain"}},
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
-        "shapes": {"/".join(p): tuple(t.shape)
-                   for p, t in leaves(trainer.state["params"])},
+        "state_shapes": {"/".join(p): tuple(t.shape)
+                         for p, t in leaves(trainer.state)},
+        "saves": trainer.saves,
         "digests": digests(trainer.state, trainer.specs, mesh.axis_sizes),
     }
     if args.profile and cuda:
@@ -247,7 +266,8 @@ def _main_mesh(args, device):
     for r in results:
         print(f"spmd: rank {r['rank']} at {r['coords']} of mesh "
               f"{dict(zip(('data', 'model'), shape))}: backend {r['backend']}"
-              f", collective transport {r['transport']}, launches "
+              f", collective transport {r['transport']} (a reduce-scatter "
+              f"as {r['reduce_scatter_transport']}), launches "
               f"{r['launches']}")
     _report(results[0]["metrics"], args)
     return results

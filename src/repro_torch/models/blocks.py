@@ -20,7 +20,10 @@ layers stay whole on every rank.  Two autograd functions carry it:
 ``SumGradOverRanks`` (Megatron's *f*) where a tensor whole on every rank
 enters a rank's own part of the work, ``SumOverRanks`` (*g*) where the
 ranks' parts are summed.  Outside a mesh, or where an axis maps to no
-mesh axis of more than one rank, the same code runs whole.
+mesh axis of more than one rank, the same code runs whole.  Under FSDP
+(the rules cut "embed" over "data") a layer gathers its weights whole
+first (``gather_params``, ``GatherOverRanks``: an all-gather forward, a
+reduce-scatter backward) and then runs as above.
 
 Two decisions of the port, for its bit-exact serving contracts:
 
@@ -95,6 +98,104 @@ class SumGradOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g.contiguous(), ctx.axes, "sum"), None, None
+
+
+class GatherOverRanks(torch.autograd.Function):
+    """Forward: each of a rank's ``blocks`` (one dtype) gathered whole over
+    the ranks of a mesh's ``axes`` along its dim of ``dims``, in one
+    all-gather of the blocks flattened into one buffer (FSDP's flat
+    parameter); backward: each gradient summed over the same ranks and cut
+    back to this rank's block, in one reduce-scatter of the gradients laid
+    out the same way.  The port's counterpart of the collectives GSPMD
+    inserts for the reference where the rules cut "embed" over "data":
+    each rank's backward gives the gradient through its own rows of the
+    batch, so the sum is the data-axis sum ``parallel.steps`` takes for the
+    leaves no rule cuts, and such a leaf's gradient needs no other."""
+
+    @staticmethod
+    def forward(ctx, mesh, axes, dims, *blocks):
+        n = mesh.axis_size(axes)
+        ctx.mesh, ctx.axes, ctx.dims, ctx.n = mesh, axes, dims, n
+        ctx.shapes = [tuple(b.shape) for b in blocks]
+        flat = torch.cat([b.reshape(-1) for b in blocks])
+        rows = mesh.all_gather(flat, axes, 0).view(n, -1)
+        out, off = [], 0
+        for b, d in zip(blocks, dims):
+            part = rows[:, off:off + b.numel()].reshape(n, *b.shape)
+            off += b.numel()
+            shape = list(b.shape)
+            shape[d] *= n
+            out.append(part.movedim(0, d).reshape(shape))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # an output the loss does not reach has a zero gradient here
+        # (autograd materialises it)
+        n, parts = ctx.n, []
+        for g, shape, d in zip(grads, ctx.shapes, ctx.dims):
+            g = g.reshape(*shape[:d], n, shape[d], *shape[d + 1:])
+            parts.append(g.movedim(d, 0).reshape(n, -1))
+        flat = torch.cat(parts, dim=1).reshape(-1)
+        mine = ctx.mesh.reduce_scatter(flat, ctx.axes, 0)
+        sizes = [math.prod(shape) for shape in ctx.shapes]
+        out = [t.view(shape).clone() for t, shape in
+               zip(torch.split(mine, sizes), ctx.shapes)]
+        return (None, None, None, *out)
+
+
+def gather_params(p: dict, defs: dict) -> dict:
+    """``p``, a rank's blocks of the parameters ``defs`` declares (a
+    subtree of ``ParamDef``s; a leaf ``defs`` lacks passes through), with
+    every leaf the ambient rules cut over the batch's mesh axes (FSDP's
+    "embed") gathered whole over them by ``GatherOverRanks``, one
+    all-gather a dtype.  A leaf's other cuts (tensor parallelism) stay
+    this rank's.  Outside a mesh, or without FSDP, ``p`` itself.  A layer
+    calls it first thing in its body, inside ``transformer.apply_layer``'s
+    checkpoint, so the recomputation gathers again and no layer's whole
+    weights outlive its forward (ZeRO-3)."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is None:
+        return p
+    table = rules_lib.mesh_table(mesh)
+    data = {a for a in rules_lib.mesh_axes("embed", mesh, table)
+            if mesh.axis_size(a) > 1}
+    if not data:
+        return p
+    groups: dict[tuple, list] = {}
+
+    def walk(tree, dtree, path):
+        for k, v in tree.items():
+            d = dtree.get(k) if isinstance(dtree, dict) else None
+            if isinstance(v, dict):
+                walk(v, d, path + (k,))
+            elif isinstance(d, ParamDef):
+                s = rules_lib.spec(*d.axes, rules=table, shape=d.shape,
+                                   axis_sizes=mesh.axis_sizes)
+                for dim, axes in enumerate(rules_lib.dim_axes(s, v.ndim)):
+                    if not set(axes) & data:
+                        continue
+                    n = mesh.axis_size(axes)
+                    if v.shape[dim] * n != d.shape[dim]:
+                        raise ValueError(
+                            f"{'/'.join(path + (k,))} has {tuple(v.shape)}: "
+                            f"not this rank's block of {d.shape} under "
+                            f"spec {s}")
+                    groups.setdefault((axes, v.dtype), []).append(
+                        (path + (k,), v, dim))
+
+    walk(p, defs, ())
+    whole = {}
+    for (axes, _), items in groups.items():
+        got = GatherOverRanks.apply(mesh, axes, tuple(d for *_, d in items),
+                                    *(v for _, v, _ in items))
+        whole.update(zip((path for path, *_ in items), got))
+
+    def rebuild(tree, path):
+        return {k: rebuild(v, path + (k,)) if isinstance(v, dict)
+                else whole.get(path + (k,), v) for k, v in tree.items()}
+
+    return rebuild(p, ()) if whole else p
 
 
 def row_parallel(y: torch.Tensor, w: torch.Tensor, tp=(None, ())

@@ -31,9 +31,12 @@ and the decoder's attention (self and cross) and MLPs are tensor-parallel
 where the rules cut their heads and MLP (``models.blocks``); the cross
 attention's K and V come from the encoder's output, whole on every rank
 of a model line, as the activations between the layers are.  A rank
-holds its rows of the batch's frames.  The lookup's ``embed_scale`` is
-whisper's 1.0, so its product is exact and the sum with the sinusoid
-rounds as the reference's.
+holds its rows of the batch's frames.  Under FSDP each encoder and decoder
+layer gathers its weights whole first (``blocks.gather_params``; the self
+and cross attention's and the MLP's "embed" dims), and the lookup and the
+tied head gather the embedding (``transformer.whole_leaf``).  The
+lookup's ``embed_scale`` is whisper's 1.0, so its product is exact and the
+sum with the sinusoid rounds as the reference's.
 
 Serving is a static batch (``launch.serve``'s encdec path): ``prefill_cross``
 runs the encoder once and gives every decoder layer's cross K/V, which the
@@ -57,12 +60,15 @@ from repro_torch.models.params import (
 )
 from repro_torch.models.transformer import (
     apply_layer,
+    embed_def,
     embed_tokens,
     enter_vocab_parallel,
+    head_def,
     layers,
     lm_loss,
     ported_mesh,
     refuse_mesh,
+    whole_leaf,
 )
 
 
@@ -102,16 +108,14 @@ def _dec_block_defs(cfg: ModelConfig) -> Tree:
 
 def param_defs(cfg: ModelConfig) -> Tree:
     tree: Tree = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
-                          init="embed", dtype=cfg.adtype),
+        "embed": embed_def(cfg),
         "enc": stack_defs(_enc_block_defs(cfg), cfg.n_enc_layers),
         "enc_norm": blocks.norm_defs(cfg),
         "dec": stack_defs(_dec_block_defs(cfg), cfg.n_layers),
         "final_norm": blocks.norm_defs(cfg),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
-                                   ("embed", "vocab"), dtype=cfg.adtype)
+        tree["lm_head"] = head_def(cfg)
     return tree
 
 
@@ -121,6 +125,7 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def _enc_layer(lp: Tree, h: torch.Tensor, pos: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
+    lp = blocks.gather_params(lp, _enc_block_defs(cfg))
     a = blocks.apply_norm(lp["ln1"], h, cfg)
     h = h + blocks.attention(lp["attn"], a, cfg, positions=pos, causal=False,
                              use_rope=False)
@@ -144,6 +149,7 @@ def encode(params: Tree, frames: torch.Tensor,
 def _dec_layer(lp: Tree, h: torch.Tensor, pos: torch.Tensor,
                enc_out: torch.Tensor, epos: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
+    lp = blocks.gather_params(lp, _dec_block_defs(cfg))
     a = blocks.apply_norm(lp["ln1"], h, cfg)
     h = h + blocks.attention(lp["attn"], a, cfg, positions=pos, causal=True,
                              use_rope=False)
@@ -160,7 +166,8 @@ def _head(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     rank's vocab shard of them under a vocab-parallel mesh)."""
     x = enter_vocab_parallel(
         blocks.apply_norm(params["final_norm"], x, cfg), cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = (whole_leaf(params, "embed", cfg).T if cfg.tie_embeddings
+            else whole_leaf(params, "lm_head", cfg))
     return torch.matmul(x, head).to(torch.float32)
 
 
@@ -275,9 +282,10 @@ class EncDecLM(torch.nn.Module):
     def param_defs(self) -> Tree:
         return param_defs(self.cfg)
 
-    def init(self, seed: int = 0, *, device=None) -> Tree:
-        """Seeded parameters on ``device`` (CUDA unless named)."""
-        return init_params(seed, self.param_defs(), device=device)
+    def init(self, seed: int = 0, *, device=None, cut=None) -> Tree:
+        """Seeded parameters on ``device`` (CUDA unless named), each leaf
+        through ``cut(path, leaf)`` as it is drawn when given."""
+        return init_params(seed, self.param_defs(), device=device, cut=cut)
 
     def abstract_params(self) -> Tree:
         return abstract_params(self.param_defs())

@@ -111,9 +111,12 @@ def path_seed(seed: int, path: tuple[str, ...]) -> int:
         & 0x7FFF_FFFF_FFFF_FFFF
 
 
-def init_params(seed: int, tree: Tree, *, device=None) -> Tree:
+def init_params(seed: int, tree: Tree, *, device=None, cut=None) -> Tree:
     """Materialize every ParamDef on ``device`` (CUDA unless named), each
-    leaf from a generator seeded by ``path_seed(seed, path)``."""
+    leaf from a generator seeded by ``path_seed(seed, path)``.  With
+    ``cut``, each leaf is drawn whole and handed to ``cut(path, leaf)``
+    before the next is drawn, and the tree holds what it returns (a mesh
+    rank's block), so the whole tree is never on the device at once."""
     dev = resolve_device(device)
 
     def rec(t: Tree, path: tuple[str, ...]) -> Tree:
@@ -122,7 +125,9 @@ def init_params(seed: int, tree: Tree, *, device=None) -> Tree:
             p = path + (k,)
             if is_def(v):
                 gen = torch.Generator(device=dev).manual_seed(path_seed(seed, p))
-                out[k] = v.materialize(gen, dev)
+                leaf = v.materialize(gen, dev)
+                out[k] = leaf if cut is None else cut(p, leaf)
+                del leaf
             else:
                 out[k] = rec(v, p)
         return out

@@ -59,9 +59,16 @@ reference's function of the global batch: a rank holds its rows of the
 batch (the image embeddings of a vlm batch too), an MoE layer ranks
 capacity and averages its load-balance statistics over the global batch
 (``models.moe``), and the encoder-decoder shares this module's
-vocab-parallel lookup and head entry (``models.encdec``).  The model
-raises where the rules cut a parameter axis the port does not run
-(``rules.require_ported``: FSDP's "embed", and a model axis that divides a
+vocab-parallel lookup and head entry (``models.encdec``).  Under FSDP
+(``cfg.fsdp``: "embed" cut over "data") a rank holds its half of every
+"embed" dim: each layer gathers its weights whole at the start of its body
+(``blocks.gather_params``, inside the remat checkpoint, so the
+recomputation gathers again), the lookup and the head gather theirs where
+they are used (``whole_leaf``), and the gathers' backward sums each
+gradient over the data ranks and cuts it back (a reduce-scatter).  The
+vlm's image prefix has no weights to gather.  The model raises where the
+rules cut a parameter axis the port does not run (``rules.require_ported``:
+"embed" off the batch's mesh axes, and a model axis that divides a
 recurrent block's columns but not its heads, ROADMAP A11).  Decoding on a
 mesh (``decode_step``, and so serving) raises too, as does the masked
 loss.
@@ -135,15 +142,25 @@ def stage_name(i: int, kind: str) -> str:
     return f"s{i:02d}_{kind}"
 
 
+def embed_def(cfg: ModelConfig) -> ParamDef:
+    """The token embedding (V, d), the tied head's too."""
+    return ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                    init="embed", dtype=cfg.adtype)
+
+
+def head_def(cfg: ModelConfig) -> ParamDef:
+    """The untied head (d, V)."""
+    return ParamDef((cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                    dtype=cfg.adtype)
+
+
 def param_defs(cfg: ModelConfig) -> Tree:
     tree: Tree = {
-        "embed": ParamDef((cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
-                          init="embed", dtype=cfg.adtype),
+        "embed": embed_def(cfg),
         "final_norm": blocks.norm_defs(cfg),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ParamDef((cfg.d_model, cfg.vocab_size),
-                                   ("embed", "vocab"), dtype=cfg.adtype)
+        tree["lm_head"] = head_def(cfg)
     stages = cfg.stages()
     for i, (kind, count) in enumerate(stages):
         if kind != "shared_attn":   # one shared subtree, added below
@@ -154,8 +171,10 @@ def param_defs(cfg: ModelConfig) -> Tree:
     return tree
 
 
-def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> Tree:
-    params = init_params(seed, param_defs(cfg), device=device)
+def init(cfg: ModelConfig, seed: int = 0, *, device=None, cut=None) -> Tree:
+    """Seeded parameters; ``cut(path, leaf)`` takes each leaf as it is drawn
+    (``params.init_params``: a mesh rank's block)."""
+    params = init_params(seed, param_defs(cfg), device=device, cut=cut)
     # the skew permutations are structural, not random
     for i, (kind, count) in enumerate(cfg.stages()):
         if kind == "moe":
@@ -234,8 +253,10 @@ def _apply_block(kind: str, p: Tree, x: torch.Tensor, cfg: ModelConfig,
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One layer: dense, moe, a recurrent block (mamba, mlstm, slstm), or
     the shared attention block (whose input projection takes ``concat([x,
-    h0])``).  Returns ``(x, aux)``: aux the MoE layer's load-balance loss,
-    ``None`` for the other kinds."""
+    h0])``), its FSDP-cut weights gathered first (``blocks.gather_params``).
+    Returns ``(x, aux)``: aux the MoE layer's load-balance loss, ``None``
+    for the other kinds."""
+    p = blocks.gather_params(p, block_defs(cfg, kind))
     rs = _scalar(cfg.residual_scale, x.dtype)
     if kind in _RECURRENT:
         h = blocks.apply_norm(p["ln1"], x, cfg)
@@ -305,9 +326,17 @@ def refuse_mesh() -> None:
             f"A11): decode and serve on one device")
 
 
+def whole_leaf(params: Tree, name: str, cfg: ModelConfig) -> torch.Tensor:
+    """``params[name]``, the embedding or the untied head, gathered whole
+    over the data ranks under FSDP (``blocks.gather_params``; its vocab
+    cut stays this rank's)."""
+    d = (embed_def if name == "embed" else head_def)(cfg)
+    return blocks.gather_params({name: params[name]}, {name: d})[name]
+
+
 def embed_tokens(params: Tree, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    emb = params["embed"]
+    emb = whole_leaf(params, "embed", cfg)
     tok = tokens.to(torch.int64)
     mesh, axes = vocab_parallel(cfg)
     if axes:
@@ -337,7 +366,8 @@ def unembed(params: Tree, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     vocab-parallel mesh."""
     x = enter_vocab_parallel(
         blocks.apply_norm(params["final_norm"], x, cfg), cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = (whole_leaf(params, "embed", cfg).T if cfg.tie_embeddings
+            else whole_leaf(params, "lm_head", cfg))
     logits = torch.matmul(x, head) * _scalar(cfg.logit_scale, x.dtype)
     logits = logits.to(torch.float32)
     if cfg.logit_softcap:
@@ -585,9 +615,10 @@ class LM(torch.nn.Module):
     def param_defs(self) -> Tree:
         return param_defs(self.cfg)
 
-    def init(self, seed: int = 0, *, device=None) -> Tree:
-        """Seeded parameters on ``device`` (CUDA unless named)."""
-        return init(self.cfg, seed, device=device)
+    def init(self, seed: int = 0, *, device=None, cut=None) -> Tree:
+        """Seeded parameters on ``device`` (CUDA unless named), each leaf
+        through ``cut(path, leaf)`` as it is drawn when given."""
+        return init(self.cfg, seed, device=device, cut=cut)
 
     def abstract_params(self) -> Tree:
         return abstract_params(self.param_defs())

@@ -72,15 +72,26 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+# elements a donated update works on at once (``apply_updates``)
+DONATE_CHUNK = 1 << 26
+
+
 def apply_updates(params: dict, grads: dict, state: dict, lr,
-                  cfg: AdamWConfig, *, gnorm: torch.Tensor | None = None):
+                  cfg: AdamWConfig, *, gnorm: torch.Tensor | None = None,
+                  donate: bool = False):
     """One AdamW step.  Integer/perm leaves pass through untouched.
 
     Returns ``(params, state, {"grad_norm": ...})``.  ``lr`` is a float or
     a 0-d tensor (a schedule's value at the state's step).  ``gnorm`` is the
     global gradient norm when the caller has it: on a mesh the leaves are
     this rank's shards, and the norm sums every shard's squares once
-    (``parallel.steps``)."""
+    (``parallel.steps``).
+
+    ``donate`` (the counterpart of the reference's ``donate_argnums``)
+    writes the new parameters, moments and master copy into the input
+    state's tensors, ``DONATE_CHUNK`` elements at a time, so a step holds
+    one state and a chunk's temporaries instead of two states: the same
+    arithmetic element by element, so the same bits."""
     step = state["step"] + 1
     if gnorm is None:
         gnorm = global_norm(grads)
@@ -93,9 +104,7 @@ def apply_updates(params: dict, grads: dict, state: dict, lr,
     lr = torch.as_tensor(lr, dtype=torch.float32, device=stepf.device)
     master = state.get("master", params)
 
-    def one(path, p, g, m, v, w):
-        if not _trainable(path, p):
-            return p, m, v, w
+    def update(p, g, m, v, w):
         gf = g.to(torch.float32) * scale
         m1 = cfg.b1 * m + (1 - cfg.b1) * gf
         v1 = cfg.b2 * v + (1 - cfg.b2) * gf * gf
@@ -103,6 +112,22 @@ def apply_updates(params: dict, grads: dict, state: dict, lr,
         wf = w.to(torch.float32)
         base = wf - lr * (upd + cfg.weight_decay * wf)
         return base.to(p.dtype), m1, v1, base
+
+    def one(path, p, g, m, v, w):
+        if not _trainable(path, p):
+            return p, m, v, w
+        if not donate:
+            return update(p, g, m, v, w)
+        flat = [t.view(-1) for t in (p, m, v, w)]
+        gflat = g.reshape(-1)
+        for i in range(0, p.numel(), DONATE_CHUNK):
+            part = [t[i:i + DONATE_CHUNK] for t in flat]
+            got = update(part[0], gflat[i:i + DONATE_CHUNK], *part[1:])
+            for dst, src in zip(part[:3], got[:3]):
+                dst.copy_(src)
+            if w is not p:
+                part[3].copy_(got[3])
+        return p, m, v, w
 
     fused = _map_with_path(one, params, grads, state["m"], state["v"], master)
     # unzip the 4-tuples

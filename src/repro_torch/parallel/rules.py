@@ -13,7 +13,10 @@ port is multi-controller: each rank is a process that holds only its own
 shards, and nothing moves data between ranks unless the code says so.  So
 ``shard`` has no counterpart here; the model calls the explicit
 collectives of ``launch.mesh.Mesh`` (through ``api.spmd.ShardContext``)
-where the reference relied on a constraint.
+where the reference relied on a constraint.  So do FSDP's all-gathers of
+the weights and reduce-scatters of their gradients, which GSPMD inserts
+for the reference where "embed" is cut over "data"
+(``models.blocks.gather_params``).
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ DEFAULT_RULES: dict[str, AxisTarget] = {
 
 # The logical axes of the models' parameters.  A rule that cuts one of them
 # over a mesh axis of more than one rank is tensor parallelism or FSDP, which
-# the port runs only where ``require_ported`` lets it.
+# the port runs only where ``require_ported`` lets it: FSDP ("embed") over
+# the batch's mesh axes, tensor parallelism off them.
 PARAMETER_AXES = ("embed", "vocab", "heads", "kv_heads", "head_dim", "mlp",
                   "expert", "expert_mlp", "layers", "conv")
 
@@ -182,12 +186,13 @@ def make_rules(
 def launcher_rules(cfg) -> dict[str, AxisTarget]:
     """The rules a launcher trains model config ``cfg`` under on a mesh:
     the reference's ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``
-    (``repro.launch.train``) less ``fsdp``, for every family.  Heads, KV
-    heads, the MLP (and the hybrid and ssm families' ``d_inner`` columns,
-    which carry the "mlp" axis) and the experts (each expert's MLP under
-    ``expert_tp``) shard over "model".  FSDP ("embed" over "data") is not
-    ported, a stated gap (ROADMAP A11.5), so ``fsdp`` is not passed."""
-    return make_rules(expert_tp=cfg.expert_tp)
+    (``repro.launch.train``), for every family.  Heads, KV heads, the MLP
+    (and the hybrid and ssm families' ``d_inner`` columns, which carry the
+    "mlp" axis) and the experts (each expert's MLP under ``expert_tp``)
+    shard over "model"; under ``cfg.fsdp`` every "embed" dim of the
+    parameters and their optimizer state shards over "data" (FSDP: the
+    layers gather their weights whole, ``models.blocks.gather_params``)."""
+    return make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)
 
 
 def require_ported(family: str, mesh,
@@ -195,16 +200,16 @@ def require_ported(family: str, mesh,
                    recurrent: tuple[tuple[int, int], ...] = ()) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A11 where ``rules``
     (else the ambient rules) cut a parameter axis the port does not run for
-    ``family`` over a mesh axis of more than one rank: "embed" (FSDP) for
-    every family.  Tensor parallelism must also keep off the batch's mesh
-    axes, and the KV heads on the heads' axes.  ``recurrent`` lists each
-    recurrent block's ``(heads, columns)``: the Mamba2's ``d_inner /
-    ssm_head_dim`` heads over its ``d_inner`` columns, the mLSTM's and the
-    sLSTM's ``n_heads`` over their ``2 d`` and ``d``.  A rank's columns
-    must be its heads' columns, so the heads must be cut over the same mesh
-    axes as the columns, and where the columns divide, so must the heads
-    (``spec`` would cut the one and keep the other whole, splitting a
-    recurrent head across ranks)."""
+    ``family`` over a mesh axis of more than one rank.  "embed" (FSDP) runs
+    over the batch's mesh axes only, in every family.  Tensor parallelism
+    must keep off the batch's mesh axes, and the KV heads on the heads'
+    axes.  ``recurrent`` lists each recurrent block's ``(heads,
+    columns)``: the Mamba2's ``d_inner / ssm_head_dim`` heads over its
+    ``d_inner`` columns, the mLSTM's and the sLSTM's ``n_heads`` over their
+    ``2 d`` and ``d``.  A rank's columns must be its heads' columns, so the
+    heads must be cut over the same mesh axes as the columns, and where the
+    columns divide, so must the heads (``spec`` would cut the one and keep
+    the other whole, splitting a recurrent head across ranks)."""
     table = mesh_table(mesh, rules)
     sizes = axis_sizes_of(mesh)
 
@@ -212,20 +217,24 @@ def require_ported(family: str, mesh,
         return tuple(a for a in target_axes(table.get(ax))
                      if sizes.get(a, 1) > 1)
 
-    ok = ("vocab",) + (TENSOR_PARALLEL_AXES
-                       if family in TENSOR_PARALLEL_FAMILIES else ())
+    ok = ("vocab", "embed") + (TENSOR_PARALLEL_AXES
+                               if family in TENSOR_PARALLEL_FAMILIES else ())
     for ax in PARAMETER_AXES:
         axes = cut(ax)
         if not axes:
             continue
-        what = ("FSDP" if ax == "embed" else
-                "tensor parallelism" if ax in TENSOR_PARALLEL_AXES else
+        what = ("tensor parallelism" if ax in TENSOR_PARALLEL_AXES else
                 "sharding")
         if ax not in ok:
             raise NotImplementedError(
                 f"the rules shard {ax!r} over mesh axes {axes}: {what} of "
                 f"the {family} family is not ported (ROADMAP A11); train "
                 f"it under rules.launcher_rules(cfg)")
+        if ax == "embed" and not set(axes) <= set(cut("batch")):
+            raise NotImplementedError(
+                f"the rules shard 'embed' over mesh axes {axes}, off the "
+                f"batch's {cut('batch')}: FSDP over other than the batch's "
+                f"mesh axes is not ported (ROADMAP A11)")
         if ax in TENSOR_PARALLEL_AXES and set(axes) & set(cut("batch")):
             raise NotImplementedError(
                 f"the rules shard {ax!r} over the batch's mesh axes {axes}: "

@@ -16,7 +16,10 @@ ranks of each rank's own-token gradient, which the reference's ``jit`` gets
 from its global arrays.  Under tensor parallelism a rank's gradient of a
 leaf the rules cut is already its block's whole gradient (the layers sum
 over the model ranks where a replicated tensor enters a rank's part,
-``models.blocks``), so the model axis adds no sum.  The replicated leaves
+``models.blocks``), so the model axis adds no sum.  Under FSDP a leaf
+cut over the data axes is summed over them by its gather's backward (a
+reduce-scatter, ``blocks.GatherOverRanks``), so the data axes add no sum
+to it either.  The replicated leaves
 then hold the same bits on every rank; the sharded ones (the embedding,
 and the heads', MLP's and experts' weights) keep their own blocks.  The
 clipping norm sums each leaf's squares once: over the mesh axes that cut
@@ -66,12 +69,17 @@ def value_and_grad(model, params: dict, batch: dict):
 
 def _mesh_grads(grads: dict, mesh, data_axes, shard_axes: dict):
     """``(grads, global norm)`` of one rank's gradients on a mesh: every
-    leaf summed over ``data_axes``; the norm's squares of a leaf sharded
-    over mesh axes (``shard_axes``: path -> axes) summed over those axes,
-    one collective an axis set."""
+    leaf summed over ``data_axes`` but those ``shard_axes`` (path -> axes)
+    cuts over one of them (FSDP's: ``blocks.GatherOverRanks``' backward
+    summed them over the data ranks already, and a second sum would
+    double them); the norm's squares of a leaf sharded over mesh axes
+    summed over those axes, one collective an axis set."""
     if data_axes and mesh.axis_size(data_axes) > 1:
-        grads = map_leaves(lambda g: None if g is None
-                           else mesh.all_reduce(g, data_axes, "sum"), grads)
+        summed = set(data_axes)
+        grads = _tree(
+            (path, g if g is None or summed & set(shard_axes.get(path, ()))
+             else mesh.all_reduce(g, data_axes, "sum"))
+            for path, g in leaves(grads))
     sq, by_axes = [], {}
     for path, g in leaves(grads):
         if g is None or not g.is_floating_point():
@@ -150,13 +158,16 @@ def make_grad_fn(model, *, microbatches: int = 1, mesh=None,
 
 
 def make_train_step(model, opt_cfg: adamw.AdamWConfig, schedule: Callable, *,
-                    microbatches: int = 1, mesh=None, rules=None) -> Callable:
+                    microbatches: int = 1, mesh=None, rules=None,
+                    donate: bool = False) -> Callable:
     """Train step with optional gradient accumulation (``make_grad_fn``).
 
     ``train_step(state, batch) -> (state, metrics)`` with ``state`` =
     ``{"params", "opt"}`` and metrics ``loss``, ``lr`` and ``grad_norm`` as
-    0-d tensors; the input state is left as it was.  With a ``mesh`` of
-    more than one rank the state and the batch are this rank's shards."""
+    0-d tensors; the input state is left as it was, unless ``donate``
+    (``adamw.apply_updates``: the update written into its tensors, so a
+    step holds one state).  With a ``mesh`` of more than one rank the state
+    and the batch are this rank's shards."""
     grad_fn = make_grad_fn(model, microbatches=microbatches, mesh=mesh,
                            rules=rules)
 
@@ -166,7 +177,8 @@ def make_train_step(model, opt_cfg: adamw.AdamWConfig, schedule: Callable, *,
         lr = schedule(state["opt"]["step"])
         with torch.no_grad():
             params, opt, metrics = adamw.apply_updates(
-                params, grads, state["opt"], lr, opt_cfg, gnorm=gnorm)
+                params, grads, state["opt"], lr, opt_cfg, gnorm=gnorm,
+                donate=donate)
         return {"params": params, "opt": opt}, {"loss": loss, "lr": lr,
                                                 **metrics}
 
@@ -182,8 +194,13 @@ def make_eval_step(model) -> Callable:
 
 
 def init_train_state(model, opt_cfg: adamw.AdamWConfig, seed: int = 0, *,
-                     device=None) -> dict:
-    params = model.init(seed, device=device)
+                     device=None, cut=None) -> dict:
+    """The seeded parameters and a fresh AdamW state.  With ``cut(path,
+    leaf)`` each parameter is cut as it is drawn (``params.init_params``,
+    a mesh rank's block), and the moments and the master copy are made from
+    the blocks: the same blocks, bit for bit, as cutting the whole state,
+    whose specs are the parameters' own."""
+    params = model.init(seed, device=device, cut=cut)
     return {"params": params, "opt": adamw.init_state(params, opt_cfg)}
 
 

@@ -21,14 +21,18 @@ each step).
 state (cut by ``parallel.specs`` under the ambient rules, or
 ``rules.launcher_rules(cfg)``) and on its rows of each batch
 (``sharding``, by default the rules' batch spec).  A fresh state is the
-single-device init from the seed, cut to this rank's blocks, so a mesh run
-starts from the same weights as a one-device run.  A save gathers the
-shards on the host into the single-device layout and rank 0 writes it; a
-restore cuts the saved arrays to the rank's blocks, so a checkpoint moves
-between a mesh and one device either way.  On a mesh a failed step is not
-retried: every rank would have to fail and restore together, which waits
-for the elastic runtime (ROADMAP A12); it raises, and the launcher stops
-every rank.
+single-device init from the seed, each leaf drawn whole and cut to this
+rank's block before the next is drawn, so a mesh run starts from the same
+weights as a one-device run and never holds the whole state (under FSDP a
+rank's share of it).  A save gathers the shards leaf by leaf into the
+single-device layout (on the host where the collectives run there); rank
+0 keeps each gathered leaf and writes them, the other ranks drop each at
+once.  A restore cuts the saved arrays to the rank's blocks, so a
+checkpoint moves between a mesh and one device either way.  On a mesh a
+step donates its state (``make_train_step(donate=True)``, the update
+written in place), and a failed step is not retried: every rank would have
+to fail and restore together, which waits for the elastic runtime (ROADMAP
+A12); it raises, and the launcher stops every rank.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch import api
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.util import resolve_device
+from repro_torch.models.params import leaves
 from repro_torch.optim import adamw
 from repro_torch.parallel import rules as rules_lib
 from repro_torch.parallel import specs as specs_lib
@@ -92,6 +97,13 @@ class Trainer:
             self.specs = specs_lib.state_specs(
                 model.param_defs(), self.rules, master=opt_cfg.master,
                 axis_sizes=sizes)
+            # a cut a dim does not divide leaves it whole: logged, not silent
+            for path, d in leaves(model.param_defs()):
+                _, fallbacks = rules_lib.spec_report(
+                    *d.axes, rules=self.rules, shape=d.shape,
+                    axis_sizes=sizes)
+                for reason in fallbacks:
+                    log.info("spec of %s: %s", "/".join(path), reason)
             if sharding is None:
                 self.sharding = specs_lib.NamedSharding(
                     self.mesh, rules_lib.spec(
@@ -100,8 +112,11 @@ class Trainer:
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self.step_fn = steps_lib.make_train_step(
             model, opt_cfg, schedule, microbatches=microbatches,
-            mesh=self.mesh, rules=self.rules)
+            mesh=self.mesh, rules=self.rules, donate=self.mesh is not None)
         self.metrics: list[dict] = []
+        # each save's step and host seconds (the gathers and the
+        # device-to-host copy; the final one's write waited for too)
+        self.saves: list[dict] = []
         self.kernel_plans: dict[str, object] = {}
         self.state: dict | None = None
 
@@ -132,15 +147,16 @@ class Trainer:
         return node
 
     def init_or_restore(self, seed: int = 0) -> tuple[int, dict]:
-        state = steps_lib.init_train_state(self.model, self.opt_cfg, seed,
-                                           device=self.device)
-        cut = None
+        cut = init_cut = None
         if self.mesh is not None:
-            state = specs_lib.shard_tree(state, self.specs, self.mesh)
-
             def cut(path, arr):
                 return specs_lib.shard_leaf(arr, self._leaf_spec(path),
                                             self.mesh)
+
+            def init_cut(path, leaf):
+                return cut(("params",) + path, leaf)
+        state = steps_lib.init_train_state(self.model, self.opt_cfg, seed,
+                                           device=self.device, cut=init_cut)
         restored = self.ckpt.restore_latest(state, cut=cut)
         if restored is not None:
             step, state = restored
@@ -150,25 +166,37 @@ class Trainer:
 
     def _save(self, step: int, state: dict, meta: dict) -> None:
         """Save ``state``; on a mesh every rank gathers the blocks of the
-        sharded leaves into the single-device layout (on the host where the
-        collectives run there) and rank 0 writes them with its own copy of
-        the other leaves."""
+        sharded leaves into the single-device layout leaf by leaf (on the
+        host where the collectives run there).  Rank 0 keeps each gathered
+        leaf on the host and writes them with a host copy of each leaf no
+        rule cuts, taken here, as the donated step after it writes into
+        the state while the writer thread may still run; the other ranks
+        drop each gathered leaf at once, so none but rank 0 ever holds the
+        whole state."""
+        t0 = time.perf_counter()
         if self.mesh is None:
             self.ckpt.save(step, state, meta=meta)
+            self.saves.append({"step": step,
+                               "seconds": time.perf_counter() - t0})
             return
         sizes = self.mesh.axis_sizes
         host = self.mesh.backend == "gloo"
+        keep = self.mesh.rank == 0
 
         def whole(t, spec):
             if not any(rules_lib.spec_size(axes, sizes) > 1
                        for axes in rules_lib.dim_axes(spec, t.ndim)):
-                return t
-            return specs_lib.gather_leaf(t.to("cpu") if host else t, spec,
+                # a copy: the next step, donated, writes into ``t`` while
+                # the async writer may still read what is kept
+                return t.detach().to("cpu", copy=True) if keep else None
+            full = specs_lib.gather_leaf(t.to("cpu") if host else t, spec,
                                          self.mesh)
+            return full.to("cpu") if keep else None
 
         full = specs_lib.map_with_specs(whole, state, self.specs)
-        if self.mesh.rank == 0:
+        if keep:
             self.ckpt.save(step, full, meta=meta)
+        self.saves.append({"step": step, "seconds": time.perf_counter() - t0})
 
     def _note_straggler(self, step: int, step_s: float, ema: float | None,
                         n_hist: int) -> None:
@@ -238,6 +266,8 @@ class Trainer:
                     step, self.state = restored
                 # else: replay from the current state (failure before the
                 # first checkpoint)
+        t0 = time.perf_counter()
         self._save(step, self.state, {"final": True})
         self.ckpt.wait()
+        self.saves[-1]["seconds"] = time.perf_counter() - t0
         return self.metrics

@@ -72,6 +72,12 @@ with a mask and over several steps), and B7 and B8 give every site of the
 same propagated lattice the same bits, which lets the LBM body collide an
 ivjk lattice's boundary planes with B7.
 
+``Mesh.reduce_scatter`` over NCCL, on a mesh of one card a rank, equals
+the gloo form on the CPU (an all-reduce, then this rank's block) on the
+same inputs, every block at rtol 1e-6 / atol 1e-6 (sums of 2 or 4 fp32
+terms in another order); it skips where the cards are fewer than the
+ranks.
+
 The STREAM kernels write every element of pitched and contiguous tiles
 once, bit-exact (both dtypes: one rounding of the same fp32 operations),
 and leave the row padding alone.  A row normed by the RMSNorm kernel has
@@ -80,6 +86,7 @@ the same bits whatever rows and blocks it is launched with.
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -1192,3 +1199,34 @@ def test_halo_bodies_on_two_ranks_of_the_card():
         assert r[0]["launches"] > 0                  # B6
         assert r[len(grids)]["launches"] > 0         # B7 (soa)
         assert r[len(grids) + 1]["launches"] > 0     # B8 and B7 (ivjk)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+def test_reduce_scatter_on_nccl_equals_the_gloo_form(shape):
+    """NCCL's ``reduce_scatter_tensor`` takes its input's blocks in the
+    group's rank order; ``Mesh.reduce_scatter`` puts them there from the
+    order of the index along the axes.  Each rank's block, over every set
+    of axes and along every dim that splits, equals the gloo form's on the
+    CPU, and both count the same bytes."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import mesh_checks
+
+    n = math.prod(shape)
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards, one a rank")
+    xs = np.random.default_rng(7).standard_normal((n, 4, 6, 2)).astype(
+        np.float32)
+    jobs = ([("reduce_scatter", dict(xs=xs))],)
+    got = mesh_lib.spawn(mesh_checks.run, shape, device="cuda",
+                         backend="nccl", args=jobs)
+    want = mesh_lib.spawn(mesh_checks.run, shape, device="cpu",
+                          backend="gloo", args=jobs)
+    for (g,), (w,) in zip(got, want):
+        assert g["transport"] == "reduce_scatter_tensor"
+        assert w["transport"] == "all_reduce, then this rank's block"
+        assert g["cases"].keys() == w["cases"].keys()
+        assert len(g["cases"]) == (3 if shape == (2, 1) else 7)
+        for key, (block, nbytes) in g["cases"].items():
+            torch.testing.assert_close(block, w["cases"][key][0],
+                                       rtol=1e-6, atol=1e-6)
+            assert nbytes == w["cases"][key][1]

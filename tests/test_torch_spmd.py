@@ -884,8 +884,8 @@ def test_model_refuses_tensor_parallel_rules():
     """The tensor-parallel rules on a model axis of two: every family runs
     them, the hybrid and ssm families too since their norms run split
     (``blocks.rms_norm_split``), vocab-parallel under them and under their
-    launchers' rules; FSDP's "embed" on the model axis raises naming
-    ROADMAP A11 for every family."""
+    launchers' rules; "embed" on the model axis, off the batch's axes,
+    raises naming FSDP and ROADMAP A11 for every family."""
     from repro_torch.models import transformer
 
     for arch in ("qwen2-0.5b", "zamba2-1.2b", "xlstm-1.3b"):

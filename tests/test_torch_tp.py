@@ -36,9 +36,10 @@ JAX).
 The ROADMAP §C regressions: the reduced grok-1-314b under
 ``make_rules(expert_tp=True)`` (each expert's MLP cut by rank) gives one
 device's loss on (1, 2), where it gave 6.866222 and 6.870471 before the
-guard was repaired; FSDP's rules, and for the hybrid and ssm families a
-model axis that divides their columns but not their recurrent heads, raise
-``NotImplementedError`` naming A11.
+guard was repaired; for the hybrid and ssm families a model axis that
+divides their columns but not their recurrent heads raises
+``NotImplementedError`` naming A11.  FSDP is held in
+``tests/test_torch_fsdp.py``.
 """
 import concurrent.futures
 import dataclasses
@@ -417,33 +418,23 @@ def _loss_under(arch, table, shape):
         return model.loss(model.init(0, device="cpu"), batch)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "pixtral-12b", "whisper-tiny",
-                                  "qwen3-moe-30b-a3b", "zamba2-1.2b"])
-def test_fsdp_rules_raise_naming_a11(arch):
-    """``make_rules(fsdp=True)`` on (2, 1) cuts every "embed" axis over the
-    data ranks; it raised a plain ``ValueError`` or ``RuntimeError`` before
-    the guard (ROADMAP §C)."""
-    with pytest.raises(NotImplementedError, match="FSDP .* A11"):
-        _loss_under(arch, rules.make_rules(fsdp=True), (2, 1))
-
-
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
 def test_hybrid_and_ssm_refuse_tensor_parallel_rules(arch):
     """The hybrid and ssm families run the tensor-parallel rules (their
-    launchers' rules, ``make_rules(expert_tp=...)``) on (1, 2) and (2, 2);
-    they still refuse FSDP, and a model axis that divides their recurrent
-    columns but not their recurrent heads (the reduced zamba2's 8 Mamba2
-    heads of 256 columns on 16 ranks, the reduced xlstm's 4 heads of 256
-    and 128 columns on 8), which would split a head across ranks."""
+    launchers' rules, ``make_rules(fsdp=cfg.fsdp, expert_tp=...)``) on
+    (1, 2) and (2, 2), and FSDP's since it is ported
+    (``tests/test_torch_fsdp.py``); they still refuse a model axis that
+    divides their recurrent columns but not their recurrent heads (the
+    reduced zamba2's 8 Mamba2 heads of 256 columns on 16 ranks, the reduced
+    xlstm's 4 heads of 256 and 128 columns on 8), which would split a head
+    across ranks."""
     cfg = reduce_for_smoke(get_config(arch))
     assert rules.launcher_rules(cfg) == rules.make_rules(
-        expert_tp=cfg.expert_tp)
+        fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)
     for shape in ((1, 2), (2, 2)):
         rules.require_ported(cfg.family, Ranks(shape),
                              rules.launcher_rules(cfg),
                              recurrent=transformer.recurrent_heads(cfg))
-    with pytest.raises(NotImplementedError, match="FSDP .* A11"):
-        _loss_under(arch, rules.make_rules(fsdp=True), (2, 1))
     wide = (1, 16) if cfg.family == "hybrid" else (1, 8)
     with pytest.raises(NotImplementedError,
                        match="recurrent heads .* A11"):
@@ -464,15 +455,15 @@ def test_the_guard_refuses_tensor_parallelism_off_its_axes():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_launcher_rules_are_the_references_less_fsdp(arch):
+def test_launcher_rules_are_the_references(arch):
     """The launchers' rules: the reference launcher's
-    ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)`` without FSDP,
-    for every family."""
+    ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``, FSDP's "embed"
+    over "data" included, for every family."""
     cfg = get_config(arch)
     got = rules.launcher_rules(cfg)
-    assert got == jrules.make_rules(expert_tp=cfg.expert_tp)
+    assert got == jrules.make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)
     assert got["heads"] == got["kv_heads"] == got["mlp"] == ("model",)
     assert got["expert_mlp" if cfg.expert_tp else "expert"] == ("model",)
-    assert got["embed"] is None
+    assert got["embed"] == (("data",) if cfg.fsdp else None)
     rules.require_ported(cfg.family, Ranks((2, 2)), got,
                          recurrent=transformer.recurrent_heads(cfg))

@@ -228,9 +228,9 @@ def test_train_launcher_runs_pixtral_on_the_cpu(tmp_path):
 
 
 def test_vlm_on_a_mesh_raises(tmp_path):
-    """The vlm on a mesh: FSDP, decoding and the masked loss raise
-    (ROADMAP A11); training runs, a rank on its rows of the image
-    embeddings, tensor-parallel on a model axis
-    (tests/test_torch_mesh_families.py holds it to the reference)."""
+    """The vlm on a mesh: decoding and the masked loss raise (ROADMAP
+    A11); training runs, a rank on its rows of the image embeddings,
+    tensor-parallel on a model axis (tests/test_torch_mesh_families.py
+    holds it to the reference), and under FSDP (tests/test_torch_fsdp.py)."""
     assert_mesh_refusals(reduce_for_smoke(get_config(ARCH)))
     assert_launcher_trains_on_a_mesh(ARCH, "2x1", tmp_path)
