@@ -22,7 +22,7 @@ Phases, each fatal on failure:
   3b. serving at full Qwen3-4B width, its depth cut to 2 of 36 layers
      to make room for the later phases (bf16, seeded weights, one card):
      ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
-     serves 16 seeded requests (prompts 32-128 tokens, 16-32 new tokens)
+     serves 12 seeded requests (prompts 32-64 tokens, 8-16 new tokens)
      with the paged KV cache and again with the dense one; fatal unless
      every request completes, paged tokens equal dense tokens, two requests
      re-run alone in the same slot geometry give the same tokens, and the
@@ -31,6 +31,27 @@ Phases, each fatal on failure:
      ``make_prefill_step`` forward at B = 4, S = 512 (rmsnorm on 2048 x
      2560 rows) must give finite logits; ``api.launch("rmsnorm.gated")``
      runs at (2048, 4096);
+  3l. right after 3b (``serve_mesh_phase``): 3b's requests served at the
+     same width and depth on a (2, 2) mesh of four ranks of the one card
+     through ``launch.serve --mesh 2x2 --kv-cache both`` (gloo, its
+     collectives staged through pinned host buffers; every rank draws its
+     block of the seed-0 weights leaf by leaf and serves under
+     ``rules.decode_rules``: 4 of the 8 slots, 16 of 32 heads, 4 of 8 KV
+     heads, half the MLP and 75,968 of the 151,936 vocabulary columns a
+     rank), paged and dense, then a teacher-forced replay of the first 32
+     tokens of 3b's first 8 one-device streams and one profiled decode
+     tick; fatal unless every request completes on every rank, paged
+     tokens equal dense tokens on every rank and the ranks agree, each
+     rank launched B9 at least 5 times a decode step, each replayed
+     step's logits (gathered over the vocab ranks) lie within
+     ``REPLAY_ULPS`` (8) bf16 ulps of the step's largest one-device
+     |logit| of 3b's, the greedy tokens equal 3b's wherever 3b's top-2
+     gap exceeds that bound, and each free-running stream that is not
+     3b's leaves it first at a token where 3b's top-2 gap (its stream
+     teacher-forced on one device) is below the same bound; prints how
+     many free-running streams equal 3b's, ms a decode step, collectives
+     a step and their host ms, the tick's busy share and each rank's peak
+     memory;
   3c. training at full Qwen2-0.5B width, its depth cut to 8 of 24 layers
      to make room for phase 3k (``TRAIN_LAYERS``; d_model 896, 14/2
      heads, d_ff 4864, vocab 151936, tied embeddings, QKV bias; bf16 with
@@ -71,7 +92,14 @@ Phases, each fatal on failure:
      no one-pass B10 in the hybrid and ssm jobs
      (``mesh_backward_checks``), and the reduced qwen3-14b, qwen3-moe and
      grok-1-314b under FSDP's rules (``FSDP_CHECKS``: "embed" over "data"
-     as well, a rank's embedding block (V/2, d/2)); then the
+     as well, a rank's embedding block (V/2, d/2)), and in the same spawn
+     each reduced family (and qwen3-14b under FSDP's rules) served on the
+     mesh under ``rules.decode_rules`` (``SERVE_FAMILIES``,
+     ``mesh_checks.serve``: a replay's logits within rtol 1e-5 / atol 1e-5
+     of their scale of the one-device port on the card, the ranks' paged
+     streams equal to each other and to one device's up to any near-tie);
+     then
+     the
      full-width Qwen2-0.5B backward (``TRAIN_LAYERS``) in fp32 from
      ``model.init`` on one
      device against a (1, 2) mesh of two ranks on the card, the loss, the
@@ -160,7 +188,7 @@ Phases, each fatal on failure:
      cache; vocab 32000), bf16, seeded
      weights,
      one card: ``ContinuousBatcher`` with 3b's slots, max_len, prefill
-     chunk and 16 requests, paged and dense; fatal unless every request
+     chunk and 12 requests, paged and dense; fatal unless every request
      completes, paged tokens equal dense tokens, requests 0 and 1 re-run
      alone in the same slot geometry give the batched tokens (a reused
      slot's SSM state is reset), and the counters, zeroed just before and
@@ -207,7 +235,7 @@ Phases, each fatal on failure:
      ``make_prefill_step`` forwards at B = 4, S = 512 through all 48
      layers with finite logits and exactly 97 B9 launches each, both timed
      (the first includes warm-up); ``ContinuousBatcher``
-     with 3b's slots, max_len, prefill chunk and 16 requests over the
+     with 3b's slots, max_len, prefill chunk and 12 requests over the
      first ``MOE_SERVE_LAYERS`` layers (views of the same stacked tensors),
      paged and dense, fatal unless every request completes, paged tokens
      equal dense tokens at the config's capacity factor and the counter,
@@ -232,7 +260,7 @@ Phases, each fatal on failure:
      seeded image embeddings and 512 text tokens, fatal unless the logits
      are finite of shape (4, 512, 131072) and B9 ran exactly 81 times
      each; ``ContinuousBatcher`` serving text with 3b's slots, max_len,
-     prefill chunk and 16 requests through the first ``VLM_SERVE_LAYERS``
+     prefill chunk and 12 requests through the first ``VLM_SERVE_LAYERS``
      layers (views of the same tensors), paged and dense, fatal unless
      every request completes, paged tokens equal dense tokens and B9 ran
      at least 2 x layers + 1 times a decode step, over the runs and in one
@@ -347,13 +375,30 @@ SERVE_ARCH = "qwen3-4b"
 # whisper-tiny on two meshes stays near 14 minutes, far enough from its
 # 20-minute limit on a slow host; every width is the config's
 SERVE_LAYERS = 2
-SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 16
+# 12 requests (16 before, cut for phase 3l's seconds): 4 still reuse a slot
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 12
 # prompts and new tokens a request (from (32, 256) and (16, 64): 2,452,
 # 704 and 1,048 steps; then (16, 32), 455 steps; new tokens halved again
-# for phase 3k's seconds; a request still crosses up to 8 prefill chunks
-# and 9 pages of 16 positions)
-SERVE_PROMPT, SERVE_GEN = (32, 128), (8, 16)
+# for phase 3k's seconds, 374 steps; prompts from (32, 128) to (32, 64) and
+# 12 requests for phase 3l's seconds, 176 steps; a request still crosses up
+# to 4 prefill chunks and 5 pages of 16 positions)
+SERVE_PROMPT, SERVE_GEN = (32, 64), (8, 16)
 PREFILL_B, PREFILL_S = 4, 512
+# phase 3l: phase 3b's serving on a (2, 2) mesh of four ranks of the card
+# through ``launch.serve --mesh 2x2`` (the slots' rows over "data", the
+# heads, KV heads, MLP and vocabulary over "model"), paged and dense, and
+# a teacher-forced replay of REPLAY_STEPS decode steps of phase 3b's
+# one-device token streams (its first SERVE_SLOTS requests).  Each step's
+# logits, gathered over the vocab ranks, are held to one device's within
+# REPLAY_ULPS bf16 ulps of that step's largest |logit|, and the greedy
+# tokens to one device's wherever one device's top-1/top-2 gap exceeds that
+# bound.  The bound lies between two readings of scripts/replay_bound.py
+# on an H100 (PERF.md): one device with its row-parallel partials rounded
+# twice, as the mesh's sums round them, moves a step by 1.6 ulps at most;
+# one model rank's fault in one layer (a dropped partial, the wrong
+# KV-head shard) by 74 ulps or more at its largest step
+SERVE_MESH, REPLAY_STEPS, REPLAY_ULPS = "2x2", 32, 8
+SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_serve_mesh"
 GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
 SEED = 0
 # training at full Qwen2-0.5B width, depth cut to TRAIN_LAYERS of its 24
@@ -525,6 +570,15 @@ FSDP_CHECKS = {
                                 moe_groups=1, remat=True)),
     "fsdp-grok": ("grok-1-314b", {}),
 }
+# the (2, 2) check's serving jobs (ROADMAP A11.5): each reduced family
+# under rules.decode_rules (the moe with real routing), the reduced
+# qwen3-14b under FSDP's rules; each serves SERVE_CHECK's requests (count,
+# slots, max_len, prefill chunk, replay steps, a static batch's new tokens)
+# through the paged cache (phase 3l and the CPU tests hold paged to dense)
+SERVE_FAMILIES = {"dense": (TRAIN_ARCH, {}),
+                  **{k: v for k, v in MESH_FAMILIES.items() if k != "grok"},
+                  "fsdp-dense": (FSDP_ARCH, {})}
+SERVE_CHECK = (3, 2, 32, 4, 4, 4)
 # phase 3d's second part, after phase 3h: whisper-tiny at full width trained
 # through the launcher on a (2, 1) mesh of the card (--baseline: B11 on
 # each rank's 4 of the 8 rows x 448) and on a (1, 2) one (the vocab padded
@@ -775,20 +829,24 @@ def tol(dtype) -> tuple[float, float]:
     return (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-6)
 
 
-def serving_phase() -> dict[str, int]:
+def serving_phase() -> tuple[dict[str, int], dict]:
     """Phase 3b: continuous-batching serving at full Qwen3-4B width
     (``SERVE_LAYERS`` of its 36 layers), a
     prefill forward, and the gated norm's launch path.  Each rmsnorm
     counter is zeroed just before a run and read just after; returns the
-    launches of each kernel over the phase."""
+    launches of each kernel over the phase, and for phase 3l the paged
+    run's streams, the first ``SERVE_SLOTS`` requests' first
+    ``REPLAY_STEPS`` tokens and their teacher-forced logits on one
+    device, and every request's ``decisions``."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
-    from repro_torch.launch.serve import make_requests
+    from repro_torch.launch.serve import make_requests, teacher_forced_logits
     from repro_torch.models import build_model
     from repro_torch.parallel.steps import make_prefill_step
     from repro_torch.serving import ContinuousBatcher, Request
@@ -861,6 +919,13 @@ def serving_phase() -> dict[str, int]:
     device_profile(f"decode tick {SERVE_ARCH} ({cfg.n_layers} layers) "
                    f"{SERVE_SLOTS} slots paged "
                    f"max_len {SERVE_MAX_LEN}", tick, top=8)
+    # phase 3l's replay input and its one-device logits
+    streams = np.array([(r.prompt + runs["paged"][1][r.rid])[:REPLAY_STEPS]
+                        for r in reqs[:SERVE_SLOTS]], dtype=np.int32)
+    one = {"completed": runs["paged"][1], "streams": streams,
+           "replay": teacher_forced_logits(
+               model, params, torch.from_numpy(streams).cuda()).cpu(),
+           "decisions": decisions(model, params, reqs, runs["paged"][1])}
     del runs, batcher
 
     prefill = make_prefill_step(model)
@@ -902,7 +967,184 @@ def serving_phase() -> dict[str, int]:
     print(f"main: rmsnorm.gated {GATED_SHAPE} bf16 through api.launch vs "
           f"its oracle: max abs err {err:.3g}: ok")
     torch.cuda.empty_cache()
-    return counts
+    return counts, one
+
+
+def decisions(model, params, reqs, completed: dict) -> dict:
+    """One device's greedy decisions along each request's served stream:
+    per request, the top-1/top-2 gap and the largest |logit| at each of
+    its new tokens, from its prompt and tokens teacher-forced
+    (``teacher_forced_logits``, every request a row, the shorter streams
+    padded at their end, which no earlier position reads)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import teacher_forced_logits
+
+    seqs = [r.prompt + completed[r.rid][:-1] for r in reqs]
+    streams = np.zeros((len(seqs), max(map(len, seqs))), np.int32)
+    for i, seq in enumerate(seqs):
+        streams[i, :len(seq)] = seq
+    logits = teacher_forced_logits(model, params,
+                                   torch.from_numpy(streams).cuda())
+    top = torch.topk(logits, 2, dim=-1).values
+    gap = (top[..., 0] - top[..., 1]).cpu()              # (T, B)
+    peak = logits.abs().amax(-1).cpu()
+    del logits, top
+    out = {}
+    for i, r in enumerate(reqs):
+        at = slice(len(r.prompt) - 1, len(seqs[i]))
+        out[r.rid] = (gap[at, i], peak[at, i])
+    return out
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def serve_mesh_phase(one: dict) -> dict[str, int]:
+    """Phase 3l: phase 3b's requests served at full Qwen3-4B width
+    (``SERVE_LAYERS`` layers, bf16, seed-0 weights) on a (2, 2) mesh of
+    four ranks of the one card through ``launch.serve --mesh 2x2
+    --kv-cache both`` (gloo, its collectives staged through pinned host
+    buffers): a rank holds 4 of the 8 slots, 16 of 32 heads, 4 of 8 KV
+    heads, half the MLP and half the vocabulary.  Each rank zeroes its
+    counters just before each run and reads them just after.  Fatal unless
+    every request completes on every rank, paged tokens equal dense tokens
+    on every rank and the ranks agree, each rank launched B9 at least
+    2 x layers + 1 times a decode step, and the teacher-forced replay of
+    phase 3b's streams (``one``) holds each step's logits within
+    ``REPLAY_ULPS`` bf16 ulps of the step's largest one-device |logit| and
+    the greedy tokens equal wherever one device's top-2 gap exceeds that
+    bound, and each free-running stream that is not phase 3b's leaves it
+    first where one device's top-2 gap (``one["decisions"]``) is below the
+    same bound.  Prints how many free-running streams equal phase 3b's, ms a
+    decode step, collectives a step and their host ms, a profiled tick's
+    busy share and each rank's peak memory; returns the launches summed
+    over the ranks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launcher
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    SERVE_MESH_DIR.mkdir(parents=True, exist_ok=True)
+    path = SERVE_MESH_DIR / "replay.npy"
+    np.save(path, one["streams"])
+    argv = ["--arch", SERVE_ARCH, "--mesh", SERVE_MESH, "--layers",
+            str(SERVE_LAYERS), "--slots", str(SERVE_SLOTS), "--max-len",
+            str(SERVE_MAX_LEN), "--requests", str(SERVE_REQUESTS),
+            "--prompt-len", *map(str, SERVE_PROMPT), "--gen",
+            *map(str, SERVE_GEN), "--kv-cache", "both", "--prefill-chunk",
+            str(SERVE_CHUNK), "--seed", str(SEED), "--replay", str(path),
+            "--profile"]
+    t0 = time.perf_counter()
+    try:
+        res = serve_launcher.main(argv)
+    except RuntimeError as e:
+        fail(f"serve mesh: {e}")
+    secs = time.perf_counter() - t0
+    ranks = res["ranks"]
+    per_step = 2 * SERVE_LAYERS + 1
+    reqs = {rid: len(toks) for rid, toks in one["completed"].items()}
+    launched = 0
+    for r in ranks:
+        where = f"serve mesh: rank {r['rank']} at {r['coords']}"
+        for kv, run in r["runs"].items():
+            got = {rid: len(t) for rid, t in run["completed"].items()}
+            if got != reqs:
+                fail(f"{where} {kv}: completed {got}, want {reqs}")
+            n = run["launches"]["plain"]
+            launched += n
+            if n < per_step * run["micro_steps"]:
+                fail(f"{where} {kv}: {n} rmsnorm launches for "
+                     f"{run['micro_steps']} decode steps (< {per_step} a "
+                     f"step)")
+        if r["runs"]["paged"]["completed"] != r["runs"]["dense"]["completed"]:
+            fail(f"{where}: paged tokens differ from dense")
+    mesh_out = ranks[0]["runs"]["paged"]["completed"]
+    # the replay against one device, step by step
+    got, want = ranks[0]["replay"], one["replay"]
+    if tuple(got.shape) != (REPLAY_STEPS, SERVE_SLOTS, cfg.vocab_size):
+        fail(f"serve mesh: replay logits {tuple(got.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail("serve mesh: non-finite replay logits")
+    top = torch.topk(want, 2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    worst, decided, tight = 0.0, 0, 0
+    for t in range(REPLAY_STEPS):
+        bound = REPLAY_ULPS * bf16_ulp(float(want[t].abs().max()))
+        err = float((got[t] - want[t]).abs().max())
+        worst = max(worst, err / bound)
+        if err > bound:
+            fail(f"serve mesh: replay step {t}: logits {err:.4g} from one "
+                 f"device's, over {REPLAY_ULPS} bf16 ulps ({bound:.4g})")
+        clear = gap[t] > bound
+        if not torch.equal(got[t].argmax(-1)[clear],
+                           want[t].argmax(-1)[clear]):
+            fail(f"serve mesh: replay step {t}: greedy tokens differ from "
+                 f"one device's where its top-2 gap exceeds {bound:.4g}")
+        decided += int(clear.sum())
+        tight += int((~clear).sum())
+    # a free-running stream that leaves phase 3b's must leave it at a
+    # near-tie: one device's top-2 gap there below the replay's bound
+    same, gaps = 0, []
+    for rid, toks in one["completed"].items():
+        if mesh_out[rid] == toks:
+            same += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(mesh_out[rid], toks))
+                 if a != b)
+        gap, peak = (float(v[j]) for v in one["decisions"][rid])
+        bound = REPLAY_ULPS * bf16_ulp(peak)
+        gaps.append(f"request {rid} at token {j}: {gap:.4g} "
+                    f"({gap / bound:.3f} of the bound)")
+        if gap >= bound:
+            fail(f"serve mesh: request {rid} leaves phase 3b's stream at "
+                 f"token {j}, where one device's top-2 gap {gap:.4g} "
+                 f"exceeds {REPLAY_ULPS} bf16 ulps ({bound:.4g})")
+    print(f"serve mesh: {SERVE_ARCH} bf16 {SERVE_LAYERS} layers on a "
+          f"{SERVE_MESH} mesh of four ranks on the card "
+          f"({ranks[0]['transport']}): every request completes on every "
+          f"rank, paged tokens equal dense tokens, the ranks agree; B9 "
+          f">= {per_step} launches a decode step on every rank; replay of "
+          f"{REPLAY_STEPS} steps x {SERVE_SLOTS} streams: logits within "
+          f"{worst:.3f} of the {REPLAY_ULPS}-ulp bound at worst, greedy "
+          f"tokens equal at all {decided} decisions whose one-device gap "
+          f"exceeds it ({tight} below it); free-running streams equal to "
+          f"phase 3b's: {same} of {len(one['completed'])}, each other one "
+          f"leaves it where one device's top-2 gap is below the bound"
+          f"{' (' + '; '.join(gaps) + ')' if gaps else ''}: ok")
+    for kv, run in ranks[0]["runs"].items():
+        c = run["comm"]
+        steps = max(run["micro_steps"], 1)
+        tokens = sum(len(v) for v in run["completed"].values())
+        print(f"serve: {SERVE_ARCH} bf16 {SERVE_LAYERS} layers {kv} on "
+              f"{SERVE_MESH}: {len(run['completed'])} requests, {tokens} "
+              f"generated tokens in {run['seconds']:.3f} s, "
+              f"{tokens / run['seconds']:.2f} tokens/s, {run['ticks']} "
+              f"ticks, {run['micro_steps']} decode steps "
+              f"({run['seconds'] / steps * 1e3:.2f} ms a step), "
+              f"{run['preemptions']} preemptions, page {run['page_len']}; "
+              f"rank 0's collectives {c['calls']} ({c['calls'] / steps:.1f} "
+              f"a step), {c['bytes']} bytes, {c['seconds'] * 1e3:.1f} ms "
+              f"on the host's clock ({c['seconds'] / steps * 1e3:.2f} ms a "
+              f"step), rmsnorm launches {run['launches']['plain']}")
+    prof = ranks[0]["runs"]["paged"]["profile"]
+    print_profile(f"decode tick rank 0 of {SERVE_MESH} {SERVE_ARCH} "
+                  f"({SERVE_LAYERS} layers) {SERVE_SLOTS} slots paged", prof)
+    print("serve mesh: peak memory "
+          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f} GiB"
+                      for r in ranks)
+          + f"; {secs:.1f} s for the launch (spawn, init, two runs, the "
+          f"replay, the profiled tick); the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    path.unlink()
+    del res, ranks, got
+    return {"rmsnorm": launched}
 
 
 def hybrid_phase() -> dict[str, int]:
@@ -2495,6 +2737,17 @@ def mesh_backward_checks() -> None:
                                   n_frames=(c.n_frames if c.family ==
                                             "encdec" else 0),
                                   d_model=c.d_model))
+    # serving on the same mesh (ROADMAP A11.5): each reduced family under
+    # rules.decode_rules, FSDP's reduced qwen3-14b under FSDP's rules
+    serving = {}
+    for fam, (arch, changes) in SERVE_FAMILIES.items():
+        c = dataclasses.replace(reduce_for_smoke(get_config(arch)),
+                                **changes)
+        serving[fam] = serve_inputs(c, numpy_params(
+            build_model(c).param_defs(), SEED, true_fan_in=True, cfg=c))
+        if fam.startswith("fsdp"):
+            serving[fam][1]["rules"] = rules_lib.make_rules(
+                fsdp=True, expert_tp=c.expert_tp)
     rng = np.random.default_rng(SEED)
     t, v, lv = MESH_XENT
     x = (3 * rng.standard_normal((t, v))).astype(np.float32)
@@ -2503,8 +2756,12 @@ def mesh_backward_checks() -> None:
     ranks = mesh_lib.spawn(
         mesh_checks.run, MESH_CHECK, device="cuda",
         args=([("xent", dict(logits=x, labels=labels, logical_v=lv))]
-              + [train_job(name, *models[name]) for name in models],))
+              + [train_job(name, *models[name]) for name in models]
+              + [job for job, _ in serving.values()],))
     secs = time.perf_counter() - t0
+    served = [hold_serve(fam, [ranked[1 + len(models) + i] for ranked in
+                               ranks], *serving[fam][1:])
+              for i, fam in enumerate(serving)]
 
     xc, lc = torch.from_numpy(x).cuda(), torch.from_numpy(labels).cuda()
     want_loss = api.launch("xent", xc, lc, logical_v=lv)
@@ -2613,7 +2870,112 @@ def mesh_backward_checks() -> None:
           f"for the spawn: ok")
     for line in lines:
         print(f"check: mesh {MESH_CHECK}: {line}")
+    print(f"check: serving on a {MESH_CHECK} mesh of {d * m} ranks on the "
+          f"card under rules.decode_rules (FSDP's rules for "
+          f"{', '.join(f for f in SERVE_FAMILIES if f.startswith('fsdp'))}"
+          f"): each reduced fp32 family's replayed decode logits within "
+          f"rtol 1e-5 / atol 1e-5 of their scale of the one-device port on "
+          f"the card, the ranks agree (paged), the streams equal one "
+          f"device's up to any decision "
+          f"whose top-2 gap is below that bound: ok")
+    for line in served:
+        print(f"check: mesh {MESH_CHECK} serve: {line}")
     torch.cuda.empty_cache()
+
+
+def serve_inputs(cfg, tree) -> tuple:
+    """A ``mesh_checks.serve`` job of the reduced ``cfg`` with the numpy
+    weights ``tree`` (``SERVE_CHECK`` requests, or an encoder-decoder's
+    static batch, paged and dense, and a teacher-forced replay of seeded
+    streams), and what ``hold_serve`` holds it with."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    n, slots, max_len, chunk, steps, gen = SERVE_CHECK
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(i, rng.integers(1, cfg.vocab_size,
+                                    size=3 + 2 * i).tolist(), 4 + i)
+            for i in range(n)]
+    streams = rng.integers(1, cfg.vocab_size, (n, steps)).astype(np.int32)
+    frames = (rng.standard_normal((n, cfg.n_frames, cfg.d_model))
+              .astype(np.float32) if cfg.family == "encdec" else None)
+    kw = dict(cfg=cfg, tree=tree, replay=streams, frames=frames)
+    if cfg.family == "encdec":
+        kw.update(gen=gen)
+    else:
+        kw.update(reqs=reqs, slots=slots, max_len=max_len,
+                  prefill_chunk=chunk, kv_caches=("paged",))
+    return ("serve", kw), kw
+
+
+def hold_serve(name: str, got: list[dict], kw: dict) -> str:
+    """Every rank's ``mesh_checks.serve`` result against the one-device
+    port on the card from the same inputs (``serve_inputs``); the check
+    line's text."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import build_model
+
+    cfg = kw["cfg"]
+    model = build_model(cfg)
+    streams = torch.from_numpy(kw["replay"]).cuda()
+    dev = streams.device
+    params = interop.params_from_jax(kw["tree"], cfg, device=dev)
+    frames = (None if kw["frames"] is None
+              else torch.from_numpy(kw["frames"]).cuda())
+    want = serve_lib.teacher_forced_logits(model, params, streams,
+                                           frames=frames).cpu()
+    scale = float(want.abs().max())
+    bound = 1e-5 * scale
+    for r, rank in enumerate(got):
+        where = f"serve check {name} rank {r}"
+        check_close(f"{where} replayed logits", rank["replay"], want, 1e-5,
+                    bound)
+    if cfg.family == "encdec":
+        static = serve_lib.serve_static(model, params, frames, streams,
+                                        kw["gen"]).cpu()
+        for r, rank in enumerate(got):
+            if not torch.equal(rank["runs"]["static"]["out"], static):
+                fail(f"serve check {name} rank {r}: static tokens differ "
+                     f"from one device's")
+        return (f"{name} ({cfg.family}) replay within {bound:.3g}, the "
+                f"static batch's {tuple(static.shape)} tokens equal one "
+                f"device's")
+    one = serve_lib.serve_requests(
+        model, params, kw["reqs"], kv_cache="paged", slots=kw["slots"],
+        max_len=kw["max_len"], prefill_chunk=kw["prefill_chunk"],
+        device=dev)["completed"]
+    agree = 0
+    for r, rank in enumerate(got):
+        if (rank["runs"]["paged"]["completed"]
+                != got[0]["runs"]["paged"]["completed"]):
+            fail(f"serve check {name} rank {r}: tokens differ from rank 0's")
+    for req in kw["reqs"]:
+        mine, theirs = got[0]["runs"]["paged"]["completed"][req.rid], \
+            one[req.rid]
+        if mine == theirs:
+            agree += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(mine, theirs)) if a != b)
+        seq = torch.tensor([req.prompt + theirs[:j]], dtype=torch.int32,
+                           device=dev)
+        logits = serve_lib.teacher_forced_logits(model, params,
+                                                 seq)[-1, 0]
+        top = torch.topk(logits, 2).values
+        if float(top[0] - top[1]) >= bound:
+            fail(f"serve check {name}: request {req.rid} differs from one "
+                 f"device's at token {j}, where one device's top-2 gap "
+                 f"{float(top[0] - top[1]):.3g} exceeds {bound:.3g}")
+    run = got[0]["runs"]["paged"]
+    return (f"{name} ({cfg.family}) replay within {bound:.3g}, the ranks "
+            f"agree, {agree} of {len(kw['reqs'])} streams "
+            f"equal one device's (any other first differs at a near-tie), "
+            f"{run['micro_steps']} decode steps, "
+            f"{run['comm']['calls'] / max(run['micro_steps'], 1):.1f} "
+            f"collectives a step, rank 0's launches {run['launches']}")
 
 
 def pick(tree: dict, path: tuple):
@@ -3651,7 +4013,9 @@ def main() -> int:
         phase_s[name] = round(time.perf_counter() - t0, 1)
         return out
 
-    serve_launches = timed("3b", serving_phase)
+    serve_launches, serve_one = timed("3b", serving_phase)
+    serve_mesh_launches = timed("3l", serve_mesh_phase, serve_one)
+    del serve_one
     train_launches, train_metrics = timed("3c", training_phase)
     spmd_launches = timed("3d", spmd_phase, train_metrics)
     recurrent_launches = timed("3j", recurrent_tp_phase)
@@ -3673,7 +4037,8 @@ def main() -> int:
     launches.update(spmd_launches)
     for phase in (hybrid_launches, xlstm_launches, moe_launches,
                   multimodal_launches, whisper_mesh_launches,
-                  recurrent_launches, fsdp_launches, halo_launches):
+                  recurrent_launches, fsdp_launches, halo_launches,
+                  serve_mesh_launches):
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count
     print(f"main: launches {launches}")
@@ -3826,6 +4191,10 @@ def main() -> int:
     # decode (8, 5120) and its prefix prefill's (4 x 1536, 5120) shapes
     cases["rmsnorm.pixtral"] = rms_case((SERVE_SLOTS, 5120), torch.bfloat16,
                                         False, 24)
+    # phase 3l's rows (serving on a (2, 2) mesh): a rank's 4 of the 8
+    # slots at Qwen3-4B's d_model, bf16
+    cases["rmsnorm.mesh"] = rms_case((SERVE_SLOTS // 2, 2560),
+                                     torch.bfloat16, False, 38)
     cases["rmsnorm.prefill.pixtral"] = rms_case(
         (PREFILL_B * (1024 + VLM_PREFILL_S), 5120), torch.bfloat16, False,
         25)
@@ -3904,6 +4273,15 @@ def main() -> int:
         34).items()})
     cases.update(split_case((rank_rows, 1024), torch.float32, torch.float32,
                             False, 35))
+    # the split passes at a (1, 2) rank's decode rows (serving on a mesh,
+    # ROADMAP A11.5): a zamba2 rank's bf16 (8, 2048) half of a Mamba2 row
+    # and an sLSTM rank's fp32 (8, 1024); launch-bound, as decode rows are
+    cases.update({f"{k}.decode": v for k, v in split_case(
+        (SERVE_SLOTS, 2048), torch.bfloat16, torch.bfloat16, True,
+        36).items()})
+    cases.update({f"{k}.decode": v for k, v in split_case(
+        (SERVE_SLOTS, 1024), torch.float32, torch.float32, False,
+        37).items()})
 
     def xent_case(t, v, logical_v, dtype, seed, offset=0):
         """B11 at a main-path shape, through the wrapper as ``_launch_xent``
@@ -4094,8 +4472,8 @@ def main() -> int:
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         }
         t = times[name]
-        base = name.removesuffix(".zamba2").removesuffix(".mlstm")
-        base = base.removesuffix(".bf16")
+        base = name.removesuffix(".decode").removesuffix(".zamba2")
+        base = base.removesuffix(".mlstm").removesuffix(".bf16")
         base = base.removesuffix(".fp32").removesuffix(".slab")
         base = base.replace(".prefill", "")
         if base.startswith("xent.partial"):

@@ -15,7 +15,11 @@ scripts/spmd_rehearsal.py 3j`` runs phase 3j alone instead
 (``recurrent_tp_phase``: zamba2-1.2b and xlstm-1.3b tensor-parallel on
 ``1x2``, about 2 minutes); ``python3 scripts/spmd_rehearsal.py 3k`` runs
 the (2, 2) backward checks (``mesh_backward_checks``, the FSDP jobs among
-them) and phase 3k (``fsdp_phase``: qwen3-14b under FSDP on ``2x1``)."""
+them) and phase 3k (``fsdp_phase``: qwen3-14b under FSDP on ``2x1``);
+``python3 scripts/spmd_rehearsal.py 3l`` runs phase 3b (``serving_phase``,
+whose one-device streams and logits phase 3l replays), phase 3l
+(``serve_mesh_phase``: Qwen3-4B served on ``2x2``) and the (2, 2) checks
+with their serving jobs."""
 import dataclasses
 import sys
 import time
@@ -45,6 +49,18 @@ def main():
         t0 = time.perf_counter()
         cs.fsdp_phase()
         print(f"phase 3k {time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:] == ["3l"]:
+        t0 = time.perf_counter()
+        _, one = cs.serving_phase()
+        print(f"phase 3b {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cs.serve_mesh_phase(one)
+        print(f"phase 3l {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cs.mesh_backward_checks()
+        print(f"the (2, 2) backward and serving checks "
+              f"{time.perf_counter() - t0:.1f} s")
         return
     if sys.argv[1:] == ["3j"]:
         t0 = time.perf_counter()

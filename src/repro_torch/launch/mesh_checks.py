@@ -38,7 +38,7 @@ from repro_torch.kernels.lbm import ref as lbm_ref
 from repro_torch.kernels.xent import kernel as xent_kernel
 from repro_torch.kernels.xent import ops as xent_ops
 from repro_torch.models import build_model
-from repro_torch.models.params import leaves, map_leaves
+from repro_torch.models.params import leaves, map_leaves, map_tree
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.schedules import make_schedule
 from repro_torch.parallel import rules as rules_lib
@@ -276,6 +276,90 @@ def train(mesh, cfg, state: dict, data_cfg, steps_run: int,
             "losses": losses, "state": st, "specs": specs,
             "digests": digests(st, specs, sizes),
             "launches": {k: after[k] - before[k] for k in before}}
+
+
+def serve(mesh, cfg, reqs=(), tree=None, seed: int = 0,
+          kv_caches=("paged", "dense"), slots: int = 2, max_len: int = 32,
+          prefill_chunk: int = 4, rules: dict | None = None, replay=None,
+          frames=None, gen: int = 0) -> dict:
+    """Serving on the mesh (``launch.serve``'s mesh path) from the numpy
+    weights ``tree`` (else ``model.init(seed)`` on the rank's device), under
+    ``rules`` (default ``rules.decode_rules(cfg, mesh)``): the requests
+    ``reqs`` through the batcher for each of ``kv_caches``
+    (``serve.serve_on_mesh``: the rank's completed streams, every RMSNorm
+    mode's launches, its collectives), and a teacher-forced replay of
+    ``replay``'s token streams (each step's logits whole over the vocab
+    ranks); an encoder-decoder serves the static batch of the global numpy
+    ``frames`` and prompts ``replay`` (``gen`` new tokens a row) instead
+    of requests, and replays over the same frames."""
+    from repro_torch.launch import serve as serve_lib
+
+    table = rules_lib.restrict_to_mesh(
+        rules or rules_lib.decode_rules(cfg, mesh), mesh)
+    model = build_model(cfg)
+    params = serve_lib.mesh_params(model, mesh, table, seed=seed, tree=tree)
+    static = None
+    if cfg.family == "encdec":
+        static = (torch.from_numpy(np.asarray(frames)).to(mesh.device),
+                  torch.from_numpy(np.asarray(replay, np.int32)).to(
+                      mesh.device), gen)
+    return serve_lib.serve_on_mesh(
+        mesh, model, params, list(reqs), kv_caches=kv_caches, slots=slots,
+        max_len=max_len, prefill_chunk=prefill_chunk, rules=table,
+        replay=replay, static=static)
+
+
+def greedy(mesh, cfg, logits: np.ndarray) -> dict:
+    """``steps.greedy`` of this rank's vocab shard of the global (B, V)
+    ``logits`` under ``rules.decode_rules(cfg, mesh)``: the tokens and the
+    collectives it made."""
+    table = rules_lib.restrict_to_mesh(rules_lib.decode_rules(cfg, mesh),
+                                       mesh)
+    s = rules_lib.spec(None, "vocab", rules=table, shape=logits.shape,
+                       axis_sizes=mesh.axis_sizes)
+    mine = specs_lib.shard_leaf(torch.from_numpy(logits), s,
+                                mesh).to(mesh.device)
+    before = mesh.comm["calls"]
+    with api.plan_context(mesh=mesh), rules_lib.use_rules(table, mesh):
+        got = steps.greedy(mine, cfg)
+    return {"tokens": got, "calls": mesh.comm["calls"] - before}
+
+
+def chunk(mesh, cfg, tree, tokens: np.ndarray, nvalid: np.ndarray,
+          rules: dict | None = None) -> dict:
+    """One chunk step (``steps.make_chunk_step``) of the global (B, C)
+    ``tokens`` on a fresh dense cache, each rank's rows advancing by their
+    own ``nvalid`` (uneven across the data ranks), the micro-step count the
+    global rows' longest, as the batcher passes it: the next tokens
+    gathered over the data ranks, the cache's ``idx``, and what the step
+    raised, before any collective, where it was not told the count."""
+    from repro_torch.launch import serve as serve_lib
+
+    table = rules_lib.restrict_to_mesh(
+        rules or rules_lib.decode_rules(cfg, mesh), mesh)
+    model = build_model(cfg)
+    params = serve_lib.mesh_params(model, mesh, table, tree=tree)
+    defs = model.cache_defs(tokens.shape[0], tokens.shape[1])
+    axes = map_tree(lambda d: d.axes.index("batch"), defs)
+    with api.plan_context(mesh=mesh), rules_lib.use_rules(table, mesh), \
+            torch.inference_mode():
+        cache = serve_lib.mesh_cache(model, defs, mesh.device)
+        toks, _ = serve_lib._mesh_rows(
+            torch.from_numpy(tokens).to(mesh.device), mesh, table)
+        nv, data = serve_lib._mesh_rows(
+            torch.from_numpy(nvalid).to(mesh.device), mesh, table)
+        step = steps.make_chunk_step(model, axes)
+        try:
+            step(params, cache, toks, nv)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        nxt, cache = step(params, cache, toks, nv, int(nvalid.max()))
+        idx = cache["idx"]
+        if data:
+            nxt = mesh.all_gather(nxt, data, 0)
+            idx = mesh.all_gather(idx, data, 0)
+    return {"next": nxt, "idx": idx, "refused": refused}
 
 
 def reduce_scatter(mesh, xs: np.ndarray) -> dict:

@@ -779,18 +779,35 @@ def _cache_kv_view(cache_kv: torch.Tensor, layout: str) -> torch.Tensor:
     return cache_kv
 
 
-def _decode_attend(p, q, kv_k, kv_v, idx, cfg, dtype):
+def decode_parallel(cfg: ModelConfig):
+    """``(mesh, axes)`` of a decode step's heads (``model_parallel``): its
+    query and KV heads a rank's block, as the cache's "kv_heads" is.
+    Raises ``NotImplementedError`` naming ROADMAP A11 where the rules cut
+    the query heads but leave the KV heads whole: a rank's cache would
+    then hold every KV head while its attention reads only some
+    (``rules.decode_rules`` gives such a mesh the flash-decoding override,
+    which ``rules.require_ported`` refuses)."""
+    tp = model_parallel("heads", cfg.n_heads)
+    if tp[1] and not model_parallel("kv_heads", cfg.n_kv_heads)[1]:
+        raise NotImplementedError(
+            f"decoding with {cfg.n_heads} query heads cut over {tp[1]} and "
+            f"{cfg.n_kv_heads} KV heads whole on every rank is not ported "
+            f"(ROADMAP A11): flash decoding would cut the cache's positions")
+    return tp
+
+
+def _decode_attend(p, q, kv_k, kv_v, idx, cfg, dtype, tp=(None, ())):
     scores = _gqa_scores(q, kv_k, cfg)                     # (B,KH,G,1,S)
     s = kv_k.shape[1]
     valid = (torch.arange(s, device=q.device)[None, :]
              <= idx[:, None])[:, None, None, None, :]
     scores = torch.where(valid, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return _gqa_out(probs, kv_v, p, dtype)
+    return _gqa_out(probs, kv_v, p, dtype, tp)
 
 
-def _decode_qkv(p, x, idx, cfg, use_rope):
-    q, k, v = _project_qkv(p, x, x, cfg)
+def _decode_qkv(p, x, idx, cfg, use_rope, tp=(None, ())):
+    q, k, v = _project_qkv(p, x, x, cfg, tp)
     if use_rope:
         pos = idx[:, None]
         q = rope(q, pos, cfg.rope_theta)
@@ -803,14 +820,19 @@ def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cfg: ModelConfig, *, act: torch.Tensor | None = None,
                      use_rope: bool = True):
     """One-token decode step.  x: (B, 1, d); idx per-slot (B,) (or a scalar).
-    Writes the caches in place; returns (out, cache_k, cache_v)."""
+    Writes the caches in place; returns (out, cache_k, cache_v).  On a
+    mesh whose rules cut the heads, tensor-parallel (``decode_parallel``):
+    the caches hold the rank's KV heads, and the output is summed over the
+    ranks."""
     idx = _rows_idx(idx, x.shape[0])
     layout = cfg.kv_cache_layout
-    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope)
+    tp = decode_parallel(cfg)
+    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope, tp)
     _cache_put(cache_k, k, idx, layout, act)
     _cache_put(cache_v, v, idx, layout, act)
     out = _decode_attend(p, q, _cache_kv_view(cache_k, layout),
-                         _cache_kv_view(cache_v, layout), idx, cfg, x.dtype)
+                         _cache_kv_view(cache_v, layout), idx, cfg, x.dtype,
+                         tp)
     return out, cache_k, cache_v
 
 
@@ -868,13 +890,15 @@ def paged_decode_attention(p: dict, x: torch.Tensor, pool_k: torch.Tensor,
                            cfg: ModelConfig, *, use_rope: bool = True):
     """One-token decode against the paged pool: same math as
     ``decode_attention``, the write scattered through the page table and the
-    KV view gathered from it.  Returns (out, pool_k, pool_v)."""
+    KV view gathered from it.  Returns (out, pool_k, pool_v).  On a mesh
+    the pools hold the rank's KV heads and the page table its rows."""
     idx = _rows_idx(idx, x.shape[0])
-    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope)
+    tp = decode_parallel(cfg)
+    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope, tp)
     _paged_put(pool_k, k, pages, idx, act)
     _paged_put(pool_v, v, pages, idx, act)
     out = _decode_attend(p, q, _paged_view(pool_k, pages),
-                         _paged_view(pool_v, pages), idx, cfg, x.dtype)
+                         _paged_view(pool_v, pages), idx, cfg, x.dtype, tp)
     return out, pool_k, pool_v
 
 

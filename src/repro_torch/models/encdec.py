@@ -23,7 +23,7 @@ The rounding order is the reference's: ``sinusoid`` in fp32 from an fp32
 the activation dtype before the sinusoid is added; the tied head
 ``embed.T``.
 
-On a mesh of ranks (training only) the decoder's lookup and head are the
+On a mesh of ranks the decoder's lookup and head are the
 decoder-only model's vocab-parallel ones (``transformer.embed_tokens``,
 ``transformer.enter_vocab_parallel``): the tied embedding shards its rows
 over the model axis, and so do the logits and the loss.  The encoder's
@@ -42,8 +42,11 @@ Serving is a static batch (``launch.serve``'s encdec path): ``prefill_cross``
 runs the encoder once and gives every decoder layer's cross K/V, which the
 caller puts into the cache (``cache["cross_k"]``, ``cache["cross_v"]``);
 ``decode_step`` then feeds one token a row and writes the self-attention
-KV cache in place.  The continuous batcher refuses this family, as the
-reference's never fills the cross K/V (ROADMAP §C).
+KV cache in place.  On a mesh (``launch.serve``'s static batch over a
+``(data, model)`` mesh) a rank holds its rows of the batch, its KV heads
+of the self and cross caches, and its vocab shard of the logits.  The
+continuous batcher refuses this family, as the reference's never fills the
+cross K/V (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -67,7 +70,6 @@ from repro_torch.models.transformer import (
     layers,
     lm_loss,
     ported_mesh,
-    refuse_mesh,
     whole_leaf,
 )
 
@@ -209,15 +211,22 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Tree:
 def prefill_cross(params: Tree, frames: torch.Tensor, cfg: ModelConfig
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The encoder pass and every decoder layer's cross K/V:
-    (L, B, T, KH, hd) each."""
+    (L, B, T, KH, hd) each; on a mesh a rank's rows and KV heads of them
+    (``blocks.decode_parallel``), each layer's cross weights gathered
+    first under FSDP."""
+    tp = blocks.decode_parallel(cfg)
     enc = encode(params, frames, cfg)
+    defs = {"cross": blocks.attention_defs(cfg)}
     ks, vs = [], []
     for lp in layers(params["dec"]):
-        k = torch.einsum("bsd,dhk->bshk", enc, lp["cross"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", enc, lp["cross"]["wv"])
+        cp = blocks.gather_params({"cross": lp["cross"]}, defs)["cross"]
+        if tp[1]:
+            cp, _ = blocks._rank_heads(cp, cfg, *tp)
+        k = torch.einsum("bsd,dhk->bshk", enc, cp["wk"])
+        v = torch.einsum("bsd,dhk->bshk", enc, cp["wv"])
         if cfg.qkv_bias:
-            k = k + lp["cross"]["bk"]
-            v = v + lp["cross"]["bv"]
+            k = k + cp["bk"]
+            v = v + cp["bv"]
         ks.append(k)
         vs.append(v)
     return torch.stack(ks), torch.stack(vs)
@@ -225,31 +234,43 @@ def prefill_cross(params: Tree, frames: torch.Tensor, cfg: ModelConfig
 
 def _cross_decode(lp: Tree, x: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One token's cross attention over fixed K/V; ck, cv: (B, T, KH, hd)."""
+    """One token's cross attention over fixed K/V; ck, cv: (B, T, KH, hd),
+    a rank's query and KV heads under tensor parallelism, the output
+    summed over the ranks."""
+    tp = blocks.decode_parallel(cfg)
+    if tp[1]:
+        lp, _ = blocks._rank_heads(lp, cfg, *tp)
+        x = blocks.enter(x, *tp)
     q = torch.einsum("bsd,dhk->bshk", x, lp["wq"])
     if cfg.qkv_bias:
         q = q + lp["bq"]
     if cfg.qk_norm:
         q = blocks.rms_head_norm(lp["q_norm"], q, cfg.norm_eps)
     probs = torch.softmax(blocks._gqa_scores(q, ck, cfg), dim=-1)
-    return blocks._gqa_out(probs, cv, lp, x.dtype)
+    return blocks._gqa_out(probs, cv, lp, x.dtype, tp)
 
 
 def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
                 cfg: ModelConfig) -> tuple[torch.Tensor, Tree]:
     """One decoder token a row (tokens (B, 1)) against the self-attention
     cache, written in place, and the fixed cross K/V.  Returns (logits
-    (B, 1, V) fp32, cache with ``idx`` advanced).  Raises under a mesh of
-    ranks."""
-    refuse_mesh()
+    (B, 1, V) fp32, cache with ``idx`` advanced).  The token goes through
+    ``transformer.embed_tokens``, the lookup ``decode_train`` takes.  On a
+    mesh of ranks the cache and the tokens are a rank's rows (and KV
+    heads), the logits its vocab shard, each layer tensor-parallel with its
+    FSDP-cut weights gathered first."""
+    ported_mesh(cfg)
+    blocks.decode_parallel(cfg)
     idx = torch.as_tensor(cache["idx"], dtype=torch.int32).expand(
         tokens.shape[0])
-    x = (params["embed"][tokens.to(torch.int64)]
+    x = (embed_tokens(params, tokens, cfg)
          + sinusoid(idx[:, None], cfg.d_model, cfg.adtype))
     self_kv = cache["self"]
+    defs = _dec_block_defs(cfg)
     for lp, sk, sv, ck, cv in zip(layers(params["dec"]), self_kv["k"],
                                   self_kv["v"], cache["cross_k"],
                                   cache["cross_v"]):
+        lp = blocks.gather_params(lp, defs)
         a = blocks.apply_norm(lp["ln1"], x, cfg)
         a, _, _ = blocks.decode_attention(lp["attn"], a, sk, sv, idx, cfg,
                                           use_rope=False)

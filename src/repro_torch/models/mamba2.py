@@ -44,7 +44,8 @@ ranks' parts summed.
 ``mamba_decode_step`` writes the conv and SSM state of its layer in place;
 a row whose ``act`` is 0 writes back what it found, so a frozen row's state
 is bit-identical to not having stepped (``models.blocks``' rule for the KV
-caches).
+caches).  On a mesh it is tensor-parallel as the full-sequence form is,
+its state a rank's heads and columns.
 """
 from __future__ import annotations
 
@@ -225,8 +226,15 @@ def mamba_decode_step(p: dict, cache: dict, u: torch.Tensor,
                       cfg: ModelConfig, act: torch.Tensor | None = None):
     """u: (B,1,d).  Returns (y, cache) with the layer's ``conv_x``,
     ``conv_bc`` and ``ssm`` state written in place (rows with ``act`` 0
-    unchanged)."""
+    unchanged).  Tensor-parallel as ``mamba_forward``: the cache holds the
+    rank's ``d_inner`` columns (``conv_x``) and heads (``ssm``) and the
+    whole B/C group (``conv_bc``)."""
     n = cfg.ssm_state
+    tp = blocks.model_parallel("mlp", cfg.ssm_expand * cfg.d_model)
+    if tp[1]:   # column-parallel in, the B/C group whole on every rank
+        u = blocks.enter(u, *tp)
+        p = {**p, **{k: blocks.enter(p[k], *tp)
+                     for k in ("wbc", "conv_bc", "conv_bc_b")}}
     z, x, bc, dt_pre = _proj(p, u, cfg)
     x, conv_x = _conv_step(x, cache["conv_x"], p["conv_x"], p["conv_x_b"])
     x = F.silu(x)
@@ -243,8 +251,8 @@ def mamba_decode_step(p: dict, cache: dict, u: torch.Tensor,
         bmat[:, None, :, None] * (dt[:, :, None] * xh)[:, :, None, :])
     y = torch.einsum("bn,bhnp->bhp", cmat, h) + p["D"][None, :, None] * xh
     y = y.reshape(u.shape[0], 1, -1).to(u.dtype)
-    y = blocks.apply_gated_norm(p["gnorm"], y, z, cfg)
-    out = torch.matmul(y, p["wo"])
+    y = blocks.apply_gated_norm(p["gnorm"], y, z, cfg, tp)
+    out = blocks.row_parallel(y, p["wo"], tp)
     _state_put(cache["conv_x"], conv_x, act)
     _state_put(cache["conv_bc"], conv_bc, act)
     _state_put(cache["ssm"], h, act)

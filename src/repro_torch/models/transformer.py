@@ -69,9 +69,11 @@ gradient over the data ranks and cuts it back (a reduce-scatter).  The
 vlm's image prefix has no weights to gather.  The model raises where the
 rules cut a parameter axis the port does not run (``rules.require_ported``:
 "embed" off the batch's mesh axes, and a model axis that divides a
-recurrent block's columns but not its heads, ROADMAP A11).  Decoding on a
-mesh (``decode_step``, and so serving) raises too, as does the masked
-loss.
+recurrent block's columns but not its heads, ROADMAP A11), and so does the
+masked loss.  Decoding runs on the same mesh (``decode_step``, ROADMAP
+A11.5): a rank holds its rows of the serving cache's slots and its block
+of the KV heads and recurrent state, under ``rules.decode_rules(cfg,
+mesh)``; a cut of the cache's positions (flash decoding) raises.
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -316,16 +318,6 @@ def vocab_parallel(cfg: ModelConfig):
     return mesh, rules_lib.dim_axes(s, 2)[0]
 
 
-def refuse_mesh() -> None:
-    """Raise under a mesh of ranks: decoding, and so serving, is not
-    ported there, only training (ROADMAP A11)."""
-    mesh = spmd_lib.spmd_mesh()
-    if mesh is not None:
-        raise NotImplementedError(
-            f"decoding on a mesh of {mesh.size} ranks is not ported (ROADMAP "
-            f"A11): decode and serve on one device")
-
-
 def whole_leaf(params: Tree, name: str, cfg: ModelConfig) -> torch.Tensor:
     """``params[name]``, the embedding or the untied head, gathered whole
     over the data ranks under FSDP (``blocks.gather_params``; its vocab
@@ -541,8 +533,10 @@ def _decode_block(kind: str, p: Tree, cache: Tree, x: torch.Tensor,
                   h0: torch.Tensor | None = None):
     """One layer against its cache (that layer's slices, written in
     place): the KV of a dense, moe or shared attention layer, the state of
-    a recurrent layer.  An MoE layer routes all B rows, frozen ones
-    included, as the reference's does."""
+    a recurrent layer, its FSDP-cut weights gathered first, as
+    ``_apply_block`` gathers them.  An MoE layer routes all B rows, frozen
+    ones included, as the reference's does."""
+    p = blocks.gather_params(p, block_defs(cfg, kind))
     rs = _scalar(cfg.residual_scale, x.dtype)
     if kind in _RECURRENT:
         h = blocks.apply_norm(p["ln1"], x, cfg)
@@ -575,8 +569,18 @@ def decode_step(params: Tree, cache: Tree, tokens: torch.Tensor,
     A cache built by ``paged_cache_defs`` (a ``pages`` leaf) routes the
     attention through the page table.  An ``act`` leaf masks the writes of
     inactive rows on either backend (the chunk step sets one on a dense
-    cache for the length of the step).  Raises under a mesh of ranks."""
-    refuse_mesh()
+    cache for the length of the step).
+
+    On a mesh of ranks the cache is this rank's block of it
+    (``parallel.specs.cache_specs``: its rows of the slots, its KV heads
+    and recurrent heads and columns; a paged pool its KV heads of every
+    page), the tokens its rows, and the logits its vocab shard; the layers
+    run tensor-parallel and gather their FSDP-cut weights as in training.
+    The rules are checked before any collective (``ported_mesh``,
+    ``blocks.decode_parallel``)."""
+    ported_mesh(cfg)
+    if any(kind not in _RECURRENT for kind, _ in cfg.stages()):
+        blocks.decode_parallel(cfg)
     idx = cache["idx"]
     pages = cache.get("pages")
     act = cache.get("act")

@@ -56,10 +56,11 @@ fp32, rounded once).
 
 The decode steps write their layer's state in place, as
 ``mamba2.mamba_decode_step`` does; a row whose ``act`` is 0 keeps the state
-it had.  The mLSTM's matrix memory C -- (B, H, P, P) fp32, almost all of a
-serving cache -- is updated by two in-place passes (``C *= f``, then
-``C += (i k) v^T``), with f = 1 and i = 0 for frozen rows, instead of a
-new tensor and a masked copy.
+it had.  On a mesh they are tensor-parallel as the full-sequence forms
+are, the state a rank's heads and columns.  The mLSTM's matrix memory C --
+(B, H, P, P) fp32, almost all of a serving cache -- is updated by two
+in-place passes (``C *= f``, then ``C += (i k) v^T``), with f = 1 and
+i = 0 for frozen rows, instead of a new tensor and a masked copy.
 """
 from __future__ import annotations
 
@@ -256,8 +257,12 @@ def mlstm_decode_step(p: dict, cache: dict, xin: torch.Tensor,
                       cfg: ModelConfig, act: torch.Tensor | None = None):
     """xin: (B, 1, d_model), one recurrent step.  Returns (y, cache) with
     the layer's ``c``, ``n``, ``m`` and ``conv`` state written in place
-    (rows with ``act`` 0 unchanged)."""
-    _, nh, pd = _dims(cfg)
+    (rows with ``act`` 0 unchanged).  Tensor-parallel as
+    ``mlstm_forward``: the state a rank's heads and columns."""
+    dinner, _, pd = _dims(cfg)
+    nh = p["wq"].shape[0]                   # a rank's heads under tp
+    tp = blocks.model_parallel("mlp", dinner)
+    xin = blocks.enter(xin, *tp)
     x = torch.matmul(xin, p["wup_x"])
     z = torch.matmul(xin, p["wup_z"])
     xc, conv = mamba2._conv_step(x, cache["conv"], p["conv"], p["conv_b"])
@@ -268,7 +273,7 @@ def mlstm_decode_step(p: dict, cache: dict, xin: torch.Tensor,
     k = torch.einsum("bshp,hpq->bshq", xch, p["wk"])[:, 0].to(f32)
     v = torch.einsum("bshp,hpq->bshq", xh, p["wv"])[:, 0].to(f32)
     q = q / math.sqrt(pd)
-    li, lf = (g[:, 0] for g in _gates(p, xc))                   # (B,H)
+    li, lf = (g[:, 0] for g in _gates(p, xc, tp))               # (B,H)
     m0 = cache["m"]
     m = torch.maximum(lf + m0, li)
     wf = torch.exp(lf + m0 - m)
@@ -286,7 +291,7 @@ def mlstm_decode_step(p: dict, cache: dict, xin: torch.Tensor,
     den = torch.maximum(torch.einsum("bhp,bhp->bh", q, n).abs(),
                         torch.exp(-m))
     h = (num / den[..., None])[:, None]                         # (B,1,H,P)
-    out = _mlstm_out(p, h, z, cfg, xin.dtype)
+    out = _mlstm_out(p, h, z, cfg, xin.dtype, tp)
     cache["n"].copy_(n)
     cache["m"].copy_(m)
     mamba2._state_put(cache["conv"], conv, act)
@@ -377,13 +382,15 @@ def slstm_decode_step(p: dict, cache: dict, xin: torch.Tensor,
                       cfg: ModelConfig, act: torch.Tensor | None = None):
     """xin: (B, 1, d_model).  Returns (y, cache) with the layer's ``c``,
     ``n``, ``m`` and ``h`` written in place (rows with ``act`` 0
-    unchanged)."""
-    nh = cfg.n_heads
+    unchanged).  Tensor-parallel as ``slstm_forward``: the state a rank's
+    columns."""
+    d, nh = p["wx"].shape[-1], p["r"].shape[1]
+    tp = blocks.model_parallel("mlp", cfg.d_model)
+    xin = blocks.enter(xin, *tp)
     gx = torch.einsum("bsd,dgi->bsgi", xin.to(torch.float32), p["wx"])[:, 0]
     keys = ("c", "n", "m", "h")
-    new = _slstm_cell(p, tuple(cache[k] for k in keys), gx, nh,
-                      xin.shape[-1] // nh)
-    out = _slstm_out(p, new[3], cfg, xin.dtype)[:, None, :]
+    new = _slstm_cell(p, tuple(cache[k] for k in keys), gx, nh, d // nh)
+    out = _slstm_out(p, new[3], cfg, xin.dtype, tp)[:, None, :]
     for key, t in zip(keys, new):
         mamba2._state_put(cache[key], t, act)
     return out, cache

@@ -195,15 +195,34 @@ def launcher_rules(cfg) -> dict[str, AxisTarget]:
     return make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)
 
 
+def decode_rules(cfg, mesh) -> dict[str, AxisTarget]:
+    """The rules a model config ``cfg`` decodes and serves under on
+    ``mesh`` (a ``launch.mesh.Mesh`` or an ``{axis: size}`` mapping): the
+    reference's decode-cell rules (``repro.launch.lowering.cell_rules`` for
+    a decode shape), ``make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp)``
+    and, where the KV heads do not divide the model ranks, the
+    flash-decoding override ``{"cache_seq": ("model",), "kv_heads":
+    None}``: the cache cut over its positions, the softmax's partials
+    combined across the ranks.  ``require_ported`` refuses that override on
+    a model axis of more than one rank (ROADMAP A11)."""
+    overrides = {}
+    m = axis_sizes_of(mesh).get("model", 1)
+    if cfg.n_kv_heads % m:
+        overrides = {"cache_seq": ("model",), "kv_heads": None}
+    return make_rules(fsdp=cfg.fsdp, expert_tp=cfg.expert_tp,
+                      overrides=overrides)
+
+
 def require_ported(family: str, mesh,
                    rules: Mapping[str, AxisTarget] | None = None,
                    recurrent: tuple[tuple[int, int], ...] = ()) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A11 where ``rules``
     (else the ambient rules) cut a parameter axis the port does not run for
-    ``family`` over a mesh axis of more than one rank.  "embed" (FSDP) runs
-    over the batch's mesh axes only, in every family.  Tensor parallelism
-    must keep off the batch's mesh axes, and the KV heads on the heads'
-    axes.  ``recurrent`` lists each recurrent block's ``(heads,
+    ``family`` over a mesh axis of more than one rank, or cut the KV
+    cache's positions ("cache_seq", flash decoding) over one.  "embed"
+    (FSDP) runs over the batch's mesh axes only, in every family.  Tensor
+    parallelism must keep off the batch's mesh axes, and the KV heads on
+    the heads' axes.  ``recurrent`` lists each recurrent block's ``(heads,
     columns)``: the Mamba2's ``d_inner / ssm_head_dim`` heads over its
     ``d_inner`` columns, the mLSTM's and the sLSTM's ``n_heads`` over their
     ``2 d`` and ``d``.  A rank's columns must be its heads' columns, so the
@@ -216,6 +235,13 @@ def require_ported(family: str, mesh,
     def cut(ax):
         return tuple(a for a in target_axes(table.get(ax))
                      if sizes.get(a, 1) > 1)
+
+    if cut("cache_seq"):
+        raise NotImplementedError(
+            f"the rules cut 'cache_seq' over mesh axes {cut('cache_seq')}: "
+            f"flash decoding (a KV cache cut over its positions, the "
+            f"softmax's partials combined across the ranks) is not ported "
+            f"(ROADMAP A11)")
 
     ok = ("vocab", "embed") + (TENSOR_PARALLEL_AXES
                                if family in TENSOR_PARALLEL_FAMILIES else ())

@@ -57,6 +57,17 @@ def state_specs(defs, rules, *, master: bool, axis_sizes=None) -> dict:
     return out
 
 
+def cache_specs(cache_defs_tree, rules, axis_sizes=None) -> dict:
+    """Specs of a serving cache's leaves from their declared axes: a dense
+    KV cache on "batch" and "kv_heads", a paged pool (no batch axis) on
+    "kv_heads" alone, the page table, ``act`` and ``idx`` on "batch", the
+    recurrent state on "batch" and "heads" or "mlp", the encoder-decoder's
+    cross K/V on "batch" and "kv_heads"; a dim that does not divide stays
+    whole, as a parameter's does."""
+    return map_tree(lambda d: spec(*d.axes, rules=rules, shape=d.shape,
+                                   axis_sizes=axis_sizes), cache_defs_tree)
+
+
 def batch_specs(batch_tree, rules, axis_sizes=None) -> dict:
     """Leading axis of every batch leaf is the (global) batch axis."""
     return {k: spec("batch", *(None,) * (v.ndim - 1), rules=rules,
@@ -100,6 +111,20 @@ def shard_leaf(x, spec_: tuple, mesh, rank=None):
         else:
             x = np.take(x, np.arange(idx * step, (idx + 1) * step), axis=d)
     return x.contiguous() if isinstance(x, torch.Tensor) else x
+
+
+def leaf_cutter(specs, mesh):
+    """``cut(path, leaf)``: the leaf at ``path`` cut to this rank's block
+    under the spec tree ``specs``, for ``params.init_params(cut=)`` (each
+    leaf drawn whole and cut as it is drawn)."""
+
+    def cut(path, leaf):
+        node = specs
+        for key in path:
+            node = node[key]
+        return shard_leaf(leaf, node, mesh)
+
+    return cut
 
 
 def map_with_specs(fn, tree, specs):

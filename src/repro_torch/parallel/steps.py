@@ -224,13 +224,37 @@ def make_prefill_step(model) -> Callable:
     return prefill_step
 
 
+def greedy(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """The greedy token of each row of (B, V) logits, int32 (B,).  Under a
+    vocab-parallel mesh the logits are this rank's shard: each rank's
+    largest logit and its global column are all-gathered over the vocab
+    ranks (one collective of (B, 2) fp32 a rank: the columns are below
+    2^24, exact in fp32) and the largest taken, a tie going to the lowest
+    global column, as ``torch.argmax`` breaks it on one device (a rank's
+    shard holds the columns after its predecessors')."""
+    from repro_torch.models import transformer
+
+    local = torch.argmax(logits, dim=-1)
+    mesh, axes = transformer.vocab_parallel(cfg)
+    if not axes:
+        return local.to(torch.int32)
+    best = torch.gather(logits, -1, local[:, None])[:, 0]
+    col = local + mesh.index(axes) * logits.shape[-1]
+    pair = torch.stack([best.to(torch.float32), col.to(torch.float32)], 1)
+    every = mesh.all_gather(pair, axes, 1).reshape(pair.shape[0], -1, 2)
+    winner = torch.argmax(every[..., 0], dim=-1)
+    return torch.gather(every[..., 1], 1, winner[:, None])[:, 0].to(
+        torch.int32)
+
+
 def make_decode_step(model) -> Callable:
-    """serve_step: one new token against the KV cache; greedy token."""
+    """serve_step: one new token against the KV cache; greedy token
+    (``greedy``: across the vocab ranks on a mesh)."""
+    cfg = model.cfg
 
     def decode_step(params: dict, cache: dict, tokens: torch.Tensor):
         logits, new_cache = model.decode_step(params, cache, tokens)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return next_tok[:, None], new_cache
+        return greedy(logits[:, -1, :], cfg)[:, None], new_cache
 
     return decode_step
 
@@ -257,7 +281,16 @@ def make_chunk_step(model, batch_axes) -> Callable:
     token after row b's last valid input (garbage for rows with
     ``nvalid == 0``; the scheduler ignores them).  ``act`` is left all ones
     on a paged cache and removed from a dense one.
+
+    On a mesh of ranks the rows are this rank's, and every rank must run
+    the same micro-steps, since each makes the same collectives (the
+    tensor-parallel sums, an MoE layer's ranking, FSDP's gathers, the
+    greedy token's gather): the count is ``steps``, the global rows'
+    longest, which the caller holds (the continuous batcher's host
+    schedule), and a step on a data mesh without it raises before any
+    collective.  On one device it defaults to the rows' longest.
     """
+    cfg = model.cfg
 
     def _restore(new, old, ax, active):
         if ax < 0 or new is old:
@@ -267,8 +300,16 @@ def make_chunk_step(model, batch_axes) -> Callable:
         return torch.where(mask, new, old)
 
     def chunk_step(params: dict, cache: dict, tokens: torch.Tensor,
-                   nvalid: torch.Tensor):
-        steps = int(nvalid.max()) if nvalid.numel() else 0
+                   nvalid: torch.Tensor, steps: int | None = None):
+        if steps is None:
+            from repro_torch.models.moe import data_parallel
+
+            if data_parallel()[1]:
+                raise ValueError(
+                    "a chunk step on a data mesh needs steps=, the global "
+                    "rows' longest count: a rank's own rows may run fewer "
+                    "micro-steps, and so fewer collectives, than another's")
+            steps = int(nvalid.max()) if nvalid.numel() else 0
         if steps == 0:
             return torch.zeros_like(tokens[:, :1]), cache
         paged = "act" in cache
@@ -281,7 +322,7 @@ def make_chunk_step(model, batch_axes) -> Callable:
             logits, nc = model.decode_step(params, cur, tokens[:, c:c + 1])
             cur = map_leaves(lambda n, o, ax: _restore(n, o, ax, active),
                              nc, cur, axes)
-            toks.append(torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32))
+            toks.append(greedy(logits[:, -1, :], cfg))
         toks = torch.stack(toks, dim=1)                           # (B, C')
         sel = torch.clamp(nvalid.to(torch.int64) - 1, 0, toks.shape[1] - 1)
         next_tok = torch.gather(toks, 1, sel[:, None])

@@ -140,18 +140,10 @@ class Trainer:
         self.kernel_plans = plans
         return plans
 
-    def _leaf_spec(self, path: tuple[str, ...]) -> tuple:
-        node = self.specs
-        for k in path:
-            node = node[k]
-        return node
-
     def init_or_restore(self, seed: int = 0) -> tuple[int, dict]:
         cut = init_cut = None
         if self.mesh is not None:
-            def cut(path, arr):
-                return specs_lib.shard_leaf(arr, self._leaf_spec(path),
-                                            self.mesh)
+            cut = specs_lib.leaf_cutter(self.specs, self.mesh)
 
             def init_cut(path, leaf):
                 return cut(("params",) + path, leaf)

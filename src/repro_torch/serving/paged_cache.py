@@ -69,7 +69,7 @@ def line_rows(kv_width: int, itemsize: int) -> int:
 
 def plan_page_geometry(cfg, max_len: int, *, page_len: int | None = None,
                        n_pages: int | None = None, slots: int = 1,
-                       banks: int = 4):
+                       banks: int = 4, mesh=None):
     """Derive the page geometry for a model's KV stream from the planner.
 
     Returns ``(PageGeometry, KernelPlan)``.  With ``page_len=None`` the page
@@ -79,18 +79,24 @@ def plan_page_geometry(cfg, max_len: int, *, page_len: int | None = None,
     be a whole number of both units (the alignment rule is not optional).
     ``n_pages`` defaults to enough pages for ``slots`` full-length
     sequences plus the reserved null page -- shrink it to exercise
-    backpressure and preemption.
+    backpressure and preemption.  An explicit ``mesh`` plans under it
+    (else the ambient ``plan_context``'s), as the reference's does; the
+    page is the KV stream's whole width, so every rank of a mesh pages
+    its KV heads alike.
     """
     kv_width = max(1, int(cfg.n_kv_heads) * int(cfg.hd))
     dtype = cfg.adtype
     unit = line_rows(kv_width, dtype.itemsize)
+    ctx = api.current_context()
+    if mesh is not None:
+        ctx = ctx.evolve(mesh=mesh)
     if page_len is None:
         plan = api.plan_tile("rmsnorm", (max_len, kv_width), dtype,
-                             smem_budget=DEFAULT_PAGE_SMEM)
+                             smem_budget=DEFAULT_PAGE_SMEM, ctx=ctx)
         page_len = round_up(max(plan.block_rows, ATTN_TILE_ROWS),
                             math.lcm(unit, ROW_UNIT))
     else:
-        plan = api.plan_tile("rmsnorm", (max_len, kv_width), dtype)
+        plan = api.plan_tile("rmsnorm", (max_len, kv_width), dtype, ctx=ctx)
         if page_len <= 0 or page_len % ROW_UNIT or page_len % unit:
             raise ValueError(
                 f"page_len {page_len} is not a whole number of the planner's "

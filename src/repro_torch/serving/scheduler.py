@@ -43,9 +43,29 @@ Decisions of the port:
   * **No event bus.**  The reference's ``obs.emit`` calls are left out until
     the port has one (ROADMAP A7); preemptions are kept in
     ``preemption_log`` and a pool shrink is logged.
+
+On a mesh (``mesh=``, as the reference's batcher takes it; or the ambient
+mesh of ranks): the slot and page plans are made under the mesh, and on a
+``launch.mesh.Mesh`` of more than one rank every rank runs the same host
+schedule over the *global* slots -- admission, pages, preemption, EOS --
+while its device tensors are its block of the cache
+(``parallel.specs.cache_specs`` under the rules: the ambient ones, else
+``rules.decode_rules(cfg, mesh)``): its rows of the slots, its KV heads,
+its recurrent heads and columns.  A slot's reset, page-table writes and
+feed touch only the rank that holds its row.  After each device call the
+next tokens (``slots / D`` int32 a rank) are all-gathered over the data
+axes, so every rank's scheduler sees every slot's token and takes the same
+decision; no decision reads a rank-local tensor.  The chunk step is told
+the global micro-step count.  Where the slots do not divide the data
+ranks, every data rank holds every slot (the rules' "batch" whole).  The
+paged pool has no batch axis and is whole over "data", as the reference's
+spec leaves it: a rank writes and reads only its own slots' pages, so the
+other ranks' pages in its copy are never read (cutting the pool by data
+rank is memory work, ROADMAP A11).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 from collections import deque
@@ -57,6 +77,8 @@ import torch
 from repro_torch import api
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import params as params_lib
+from repro_torch.parallel import rules as rules_lib
+from repro_torch.parallel import specs as specs_lib
 from repro_torch.parallel import steps as steps_lib
 from repro_torch.serving.paged_cache import PageManager, plan_page_geometry
 
@@ -125,9 +147,9 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def __init__(self, model, params, *, slots: int, max_len: int,
                  eos_id: int | None = None, seed: int = 0,
-                 kv_cache: str = "dense", page_len: int | None = None,
-                 n_pages: int | None = None, page_banks: int = 4,
-                 prefill_chunk: int = 1, device=None):
+                 mesh=None, kv_cache: str = "dense",
+                 page_len: int | None = None, n_pages: int | None = None,
+                 page_banks: int = 4, prefill_chunk: int = 1, device=None):
         if kv_cache not in ("dense", "paged"):
             raise ValueError(f"kv_cache must be 'dense' or 'paged', "
                              f"got {kv_cache!r}")
@@ -154,6 +176,9 @@ class ContinuousBatcher:
         self.prefill_chunk = max(1, int(prefill_chunk))
         self._d_model = int(getattr(cfg, "d_model", 0))
         self._adtype = getattr(cfg, "adtype", torch.float32)
+        # An explicit mesh wins for planning; otherwise the ambient
+        # plan_context is consulted at each planning call
+        self.mesh = mesh
         self.decode_plan = self._batch_plan(slots)
         self.padded_slots = (
             self.decode_plan.rows if self.decode_plan is not None else slots)
@@ -161,7 +186,7 @@ class ContinuousBatcher:
         if kv_cache == "paged":
             self.geometry, self.page_plan = plan_page_geometry(
                 cfg, max_len, page_len=page_len, n_pages=n_pages,
-                slots=slots, banks=page_banks)
+                slots=slots, banks=page_banks, mesh=mesh)
             self.pages = PageManager(self.geometry, self.padded_slots)
             defs = model.paged_cache_defs(
                 self.padded_slots, max_len,
@@ -177,7 +202,11 @@ class ContinuousBatcher:
             defs)
         self.decode = steps_lib.make_decode_step(model)
         self._chunk = steps_lib.make_chunk_step(model, self._batch_axes)
-        self.cache = params_lib.init_params(seed, defs, device=self.device)
+        self._place(cfg, defs)
+        self.cache = params_lib.init_params(
+            seed, defs, device=self.device,
+            cut=None if self.ranks is None else specs_lib.leaf_cutter(
+                self.cache_specs, self.ranks))
         # Pristine per-slot rows for admission resets; leaves with no batch
         # axis (shared pools) are never reset row-wise, so share storage.
         self._template = params_lib.map_leaves(
@@ -193,13 +222,63 @@ class ContinuousBatcher:
         self.preemption_log: list[tuple[int, str]] = []   # (rid, reason)
         self.completed: dict[int, list[int]] = {}
 
+    # ---- the mesh of ranks -------------------------------------------
+    def _place(self, cfg, defs) -> None:
+        """This rank's place on a mesh of ranks (``self.ranks``, ``None``
+        on one device): the rules the device calls run under, the cache's
+        specs, the data axes the slots are cut over and this rank's global
+        slots ``[lo, hi)``."""
+        ranks = self.mesh if self.mesh is not None else (
+            rules_lib.current_mesh() or api.current_context().mesh)
+        if not (hasattr(ranks, "all_gather") and ranks.size > 1):
+            ranks = None
+        self.ranks = ranks
+        self.rules, self.cache_specs, self._data_axes = None, None, ()
+        self._lo, self._hi = 0, self.padded_slots
+        if ranks is None:
+            return
+        table = rules_lib.mesh_table(
+            ranks, rules_lib.current_rules()
+            or rules_lib.decode_rules(cfg, ranks))
+        data = tuple(a for a in rules_lib.mesh_axes("batch", ranks, table)
+                     if ranks.axis_size(a) > 1)
+        if data and self.padded_slots % ranks.axis_size(data):
+            # every data rank holds every slot
+            table, data = {**table, "batch": None}, ()
+        self.rules, self._data_axes = table, data
+        self.cache_specs = specs_lib.cache_specs(defs, table,
+                                                 ranks.axis_sizes)
+        rows = self.padded_slots // ranks.axis_size(data)
+        self._lo = ranks.index(data) * rows
+        self._hi = self._lo + rows
+
+    def _scope(self):
+        """The plan context and rules a device call runs under: this
+        batcher's mesh of ranks, else nothing."""
+        if self.ranks is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(api.plan_context(mesh=self.ranks))
+        stack.enter_context(rules_lib.use_rules(self.rules, self.ranks))
+        return stack
+
+    def _row(self, slot: int) -> int | None:
+        """This rank's row of global ``slot``, or ``None`` where another
+        rank holds it."""
+        return slot - self._lo if self._lo <= slot < self._hi else None
+
     # ---- layout planning ---------------------------------------------------
     def _batch_plan(self, rows: int):
         """Registry plan for a decode/prefill batch of ``rows`` sequences:
-        the per-token norm kernel over (rows, d_model)."""
+        the per-token norm kernel over (rows, d_model) under this batcher's
+        mesh, else the ambient context's."""
         if not self._d_model or rows <= 0:
             return None
-        return api.plan_for("rmsnorm", (rows, self._d_model), self._adtype)
+        ctx = api.current_context()
+        if self.mesh is not None:
+            ctx = ctx.evolve(mesh=self.mesh)
+        return api.plan_for("rmsnorm", (rows, self._d_model), self._adtype,
+                            ctx=ctx)
 
     def _note_admitted_plans(self) -> None:
         """Record the plans of the currently admitted batch shapes, keyed
@@ -230,11 +309,15 @@ class ContinuousBatcher:
         """Copy pristine template rows into ``slot`` for every cache leaf,
         in place, along each leaf's declared batch axis.  Leaves without a
         batch axis -- the shared paged KV pools -- are left alone; the
-        zeroed page-table row already unmaps the slot."""
+        zeroed page-table row already unmaps the slot.  On a mesh only the
+        rank holding the slot's row writes it."""
+        row = self._row(slot)
+        if row is None:
+            return cache
 
         def reset(c, t, ax):
             if ax >= 0:
-                c.select(ax, slot).copy_(t.select(ax, slot))
+                c.select(ax, row).copy_(t.select(ax, row))
             return c
 
         return params_lib.map_leaves(reset, cache, self._template,
@@ -246,8 +329,9 @@ class ContinuousBatcher:
         table now -- idle slots still write every tick, and a stale table
         row would corrupt whoever the pages go to next."""
         freed = self.pages.release(slot)
-        if freed:
-            self.cache["pages"][slot] = 0
+        row = self._row(slot)
+        if freed and row is not None:
+            self.cache["pages"][row] = 0
         return freed
 
     def _preempt(self, victim: int, reason: str) -> int:
@@ -295,9 +379,10 @@ class ContinuousBatcher:
         while True:
             got = self.pages.alloc(slot, upto_pos)
             if got is not None:
-                if got:
+                row = self._row(slot)
+                if got and row is not None:
                     lps, phys = zip(*got)
-                    self.cache["pages"][slot, list(lps)] = torch.tensor(
+                    self.cache["pages"][row, list(lps)] = torch.tensor(
                         phys, dtype=torch.int32, device=self.device)
                 return True
             if not self._preempt_one(exclude=slot, allow_decode=decoding,
@@ -416,15 +501,21 @@ class ContinuousBatcher:
         active = [n for n in advance if n]
         uniform = width == 1 and len(active) == sum(
             r is not None for r in self.slot_req)
-        tokens = torch.from_numpy(feed).to(self.device)
-        if uniform:
-            nxt, self.cache = self.decode(self.params, self.cache, tokens)
-            self.micro_steps += 1
-        else:
-            nxt, self.cache = self._chunk(
-                self.params, self.cache, tokens,
-                torch.from_numpy(nvalid).to(self.device))
-            self.micro_steps += int(nvalid.max())
+        mine = slice(self._lo, self._hi)
+        tokens = torch.from_numpy(feed[mine]).to(self.device)
+        with self._scope():
+            if uniform:
+                nxt, self.cache = self.decode(self.params, self.cache,
+                                              tokens)
+                self.micro_steps += 1
+            else:
+                steps = int(nvalid.max())
+                nxt, self.cache = self._chunk(
+                    self.params, self.cache, tokens,
+                    torch.from_numpy(nvalid[mine]).to(self.device), steps)
+                self.micro_steps += steps
+            if self._data_axes:
+                nxt = self.ranks.all_gather(nxt, self._data_axes, 0)
         nxt = nxt[:, 0].cpu().numpy()
         self.ticks += 1
         for s, req in enumerate(self.slot_req):
@@ -444,6 +535,18 @@ class ContinuousBatcher:
                 if self.pages is not None:
                     self._release_slot_pages(s)
         self._admit()
+
+    @torch.inference_mode()
+    def decode_tick(self) -> torch.Tensor:
+        """One decode step of every slot outside the schedule, each fed
+        token 1: a full tick's device work (to profile or warm it), no
+        request advanced and nothing counted; on a mesh every rank must
+        call it.  Returns this rank's rows' next tokens."""
+        feed = torch.ones((self._hi - self._lo, 1), dtype=torch.int32,
+                          device=self.device)
+        with self._scope():
+            nxt, self.cache = self.decode(self.params, self.cache, feed)
+        return nxt
 
     @property
     def busy(self) -> bool:

@@ -2,7 +2,7 @@
 for the family tests (``tests/test_torch_{moe,vlm,encdec,hybrid,xlstm}.py``).
 
 ``Ranks`` is a mesh as the model's checks see it, without ranks: each
-refusal raises before any collective, so no process is spawned.
+refusal raises before any collective, so no process is spawned for it.
 ``assemble`` puts the ranks' blocks of a (data, model) mesh back together.
 """
 import math
@@ -13,9 +13,11 @@ import torch
 
 from repro_torch import api, interop
 from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import mesh_checks, serve
 from repro_torch.launch import train as train_launch
 from repro_torch.models import build_model, transformer
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, map_leaves
 from repro_torch.parallel import rules
 
 AXES = ("data", "model")
@@ -78,12 +80,28 @@ class Ranks:
     def axis_sizes(self):
         return dict(zip(self.axis_names, self.shape))
 
+    def axis_size(self, axes):
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return math.prod(self.axis_sizes[a] for a in axes)
+
+    def index(self, axes):
+        """Rank 0's place: a refusal never reads another's."""
+        return 0
+
 
 def assert_mesh_refusals(cfg):
-    """On a mesh of two ranks under the launchers' rules, each raising
-    ``NotImplementedError`` naming ROADMAP A11: a decode step and the
-    masked loss.  FSDP's rules run since FSDP is ported
-    (``tests/test_torch_fsdp.py``)."""
+    """On a mesh of two ranks: the masked loss raises
+    ``NotImplementedError`` naming ROADMAP A11 under the launchers' rules,
+    and so does a decode step whose rules cut the KV cache's positions
+    ("cache_seq", flash decoding), both before any collective (no process
+    is spawned for them); and a decode step now runs under
+    ``rules.decode_rules`` (decoding on a mesh is ported, ROADMAP A11.5):
+    two teacher-forced steps on a (1, 2) mesh of gloo ranks on the CPU
+    (``launch.mesh_checks.serve``), each step's logits, gathered over the
+    vocab ranks, within 1e-5 of their largest magnitude of one device's
+    (a tensor-parallel sum reorders fp32 additions;
+    tests/test_torch_serve_mesh.py holds every family on three meshes).
+    FSDP's rules run since FSDP is ported (``tests/test_torch_fsdp.py``)."""
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=4, global_batch=2,
@@ -95,13 +113,35 @@ def assert_mesh_refusals(cfg):
     mesh = Ranks((1, 2))
     with api.plan_context(mesh=mesh), \
             rules.use_rules(rules.launcher_rules(cfg), mesh):
-        with pytest.raises(NotImplementedError,
-                           match="decoding on a mesh .* A11"):
-            model.decode_step(params, cache, batch["tokens"][:, :1])
         logits = torch.zeros((2, 4, cfg.vocab_size))
         with pytest.raises(NotImplementedError, match="masked loss .* A11"):
             transformer.lm_loss(logits, batch["labels"], cfg,
                                 torch.ones((2, 4)))
+    flash = rules.make_rules(overrides={"cache_seq": ("model",),
+                                        "kv_heads": None})
+    with api.plan_context(mesh=mesh), rules.use_rules(flash, mesh):
+        with pytest.raises(NotImplementedError,
+                           match="'cache_seq' .* flash decoding .* A11"):
+            model.decode_step(params, cache, batch["tokens"][:, :1])
+
+    tokens = batch["tokens"][:, :2].to(torch.int32)
+    frames = batch.get("frames")
+    ranks = mesh_lib.spawn(mesh_checks.run, (1, 2), AXES, device="cpu",
+                           args=([("serve", dict(
+                               cfg=cfg, tree=map_leaves(interop.to_numpy,
+                                                        params),
+                               kv_caches=(), replay=tokens.numpy(),
+                               frames=(None if frames is None
+                                       else frames.numpy())))],))
+    with torch.inference_mode():
+        want = serve.teacher_forced_logits(model, params, tokens,
+                                           frames=frames)
+    scale = float(want.abs().max())
+    for r in ranks:
+        got = r[0]["replay"]
+        assert got.shape == want.shape == (2, 2, cfg.vocab_size)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)
 
 
 def assert_launcher_trains_on_a_mesh(arch, shape, ckpt_dir):

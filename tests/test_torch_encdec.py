@@ -365,10 +365,11 @@ def test_train_launcher_runs_whisper_on_the_cpu(tmp_path):
 
 
 def test_encdec_on_a_mesh_raises(tmp_path):
-    """The encoder-decoder on a mesh: decoding and the masked loss raise
-    (ROADMAP A11); training runs with the decoder's lookup and head
-    vocab-parallel and the layers tensor-parallel
-    (tests/test_torch_mesh_families.py holds it to the reference), and
-    under FSDP (tests/test_torch_fsdp.py)."""
+    """The encoder-decoder on a mesh: the masked loss and a cut of the cache's
+    positions raise (ROADMAP A11), a decode step runs
+    (tests/test_torch_serve_mesh.py serves it on three meshes); training runs
+    with the decoder's lookup and head vocab-parallel and the layers tensor-
+    parallel (tests/test_torch_mesh_families.py holds it to the reference),
+    and under FSDP (tests/test_torch_fsdp.py)."""
     assert_mesh_refusals(reduce_for_smoke(get_config(ARCH)))
     assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)

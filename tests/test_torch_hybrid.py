@@ -540,10 +540,11 @@ def test_slot_reset_zeroes_the_reused_slots_ssm_and_conv_rows():
 
 
 def test_a_mesh_with_a_model_axis_refuses_the_hybrid(tmp_path):
-    """The hybrid on a mesh: decoding and the masked loss are refused
-    (ROADMAP A11); the vocab-parallel training on a model axis runs
-    (tests/test_torch_mesh_families.py holds it to the reference), and so
-    does FSDP (tests/test_torch_fsdp.py)."""
+    """The hybrid on a mesh: the masked loss and a cut of the cache's
+    positions are refused (ROADMAP A11), a decode step runs
+    (tests/test_torch_serve_mesh.py serves it on three meshes); the vocab-
+    parallel training on a model axis runs (tests/test_torch_mesh_families.py
+    holds it to the reference), and so does FSDP (tests/test_torch_fsdp.py)."""
     _, cfg = configs()
     assert_mesh_refusals(cfg)
     assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)

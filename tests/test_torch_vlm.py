@@ -228,9 +228,11 @@ def test_train_launcher_runs_pixtral_on_the_cpu(tmp_path):
 
 
 def test_vlm_on_a_mesh_raises(tmp_path):
-    """The vlm on a mesh: decoding and the masked loss raise (ROADMAP
-    A11); training runs, a rank on its rows of the image embeddings,
-    tensor-parallel on a model axis (tests/test_torch_mesh_families.py
-    holds it to the reference), and under FSDP (tests/test_torch_fsdp.py)."""
+    """The vlm on a mesh: the masked loss and a cut of the cache's positions
+    raise (ROADMAP A11), a decode step runs (tests/test_torch_serve_mesh.py
+    serves it on three meshes); training runs, a rank on its rows of the image
+    embeddings, tensor-parallel on a model axis
+    (tests/test_torch_mesh_families.py holds it to the reference), and under
+    FSDP (tests/test_torch_fsdp.py)."""
     assert_mesh_refusals(reduce_for_smoke(get_config(ARCH)))
     assert_launcher_trains_on_a_mesh(ARCH, "2x1", tmp_path)
