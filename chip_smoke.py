@@ -22,7 +22,7 @@ Phases, each fatal on failure:
   3b. serving at full Qwen3-4B width, its depth cut to 2 of 36 layers
      to make room for the later phases (bf16, seeded weights, one card):
      ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
-     serves 12 seeded requests (prompts 32-64 tokens, 8-16 new tokens)
+     serves 12 seeded requests (prompts 16-32 tokens, 8-16 new tokens)
      with the paged KV cache and again with the dense one; fatal unless
      every request completes, paged tokens equal dense tokens, two requests
      re-run alone in the same slot geometry give the same tokens, and the
@@ -38,8 +38,9 @@ Phases, each fatal on failure:
      block of the seed-0 weights leaf by leaf and serves under
      ``rules.decode_rules``: 4 of the 8 slots, 16 of 32 heads, 4 of 8 KV
      heads, half the MLP and 75,968 of the 151,936 vocabulary columns a
-     rank), paged and dense, then a teacher-forced replay of the first 32
-     tokens of 3b's first 8 one-device streams and one profiled decode
+     rank), paged and dense, then a teacher-forced replay of the first 16
+     tokens (32 before phase 3m) of 3b's first 8 one-device streams and one
+     profiled decode
      tick; fatal unless every request completes on every rank, paged
      tokens equal dense tokens on every rank and the ranks agree, each
      rank launched B9 at least 5 times a decode step, each replayed
@@ -52,6 +53,23 @@ Phases, each fatal on failure:
      many free-running streams equal 3b's, ms a decode step, collectives
      a step and their host ms, the tick's busy share and each rank's peak
      memory;
+  3m. right after 3l (``serve_flash_phase``): flash decoding,
+     Qwen2-0.5B at full width (2 of 24 layers, bf16, seed-0 weights)
+     serving 3b's request shapes on a (1, 4) mesh of four ranks of the
+     card through ``launch.serve --mesh 1x4 --kv-cache both`` under
+     ``rules.decode_rules``: its 2 KV heads do not divide 4, so a rank's
+     dense cache holds 256 of each slot's 1,024 positions of both KV
+     heads (the owner of a position writes it), all 14 query heads, a
+     quarter of the MLP and of the vocabulary, and every layer combines
+     the ranks' softmax partials (a pmax and a psum); fatal unless every
+     request completes on every rank, paged tokens equal dense tokens on
+     every rank and the ranks agree, a rank's dense cache leaf holds 256
+     positions, each rank launched B9 at least 5 times a decode step, and
+     a teacher-forced replay of the first 16 prompt tokens of 8 requests
+     lies within ``REPLAY_ULPS`` bf16 ulps of one device's logits with the
+     greedy tokens equal wherever one device's top-2 gap exceeds that
+     bound; prints ms a decode step, collectives a step and their host
+     ms, each rank's peak memory and cache bytes against one device's;
   3c. training at full Qwen2-0.5B width, its depth cut to 8 of 24 layers
      to make room for phase 3k (``TRAIN_LAYERS``; d_model 896, 14/2
      heads, d_ff 4864, vocab 151936, tied embeddings, QKV bias; bf16 with
@@ -97,8 +115,14 @@ Phases, each fatal on failure:
      mesh under ``rules.decode_rules`` (``SERVE_FAMILIES``,
      ``mesh_checks.serve``: a replay's logits within rtol 1e-5 / atol 1e-5
      of their scale of the one-device port on the card, the ranks' paged
-     streams equal to each other and to one device's up to any near-tie);
-     then
+     streams equal to each other and to one device's up to any near-tie),
+     the reduced Qwen2-0.5B once more under the flash-decoding override
+     (``FLASH_CHECK_RULES``: 2 of 4 query heads a rank, both KV heads,
+     half the positions, q gathered; paged equal to dense), and
+     the masked loss of the padded reduced Qwen2-0.5B under a seeded, an
+     all-ones and an all-zeros mask (``hold_masked``: the backward
+     check's gates against one device's masked loss, the all-ones mask at
+     the unmasked loss, the all-zeros one 0); then
      the
      full-width Qwen2-0.5B backward (``TRAIN_LAYERS``) in fp32 from
      ``model.init`` on one
@@ -165,7 +189,7 @@ Phases, each fatal on failure:
      lines give ms a step, tokens/s, busy share, collectives and peaks;
   3k. right after 3j (``fsdp_phase``): FSDP, qwen3-14b at full width
      (d_model 5120, 40 heads over 8 KV heads, d_ff 17408, vocab 151936),
-     its depth cut to 2 of 40 layers, through ``launch.train --mesh 2x1``
+     its depth cut to 1 of 40 layers, through ``launch.train --mesh 2x1``
      under its launchers' rules (``fsdp`` on: every "embed" dim cut over
      "data"), bf16 + fp32 master, remat, 2 steps of 4 x 1024 tokens and one
      profiled, the final save gathered leaf by leaf and written by rank 0
@@ -380,9 +404,10 @@ SERVE_SLOTS, SERVE_MAX_LEN, SERVE_CHUNK, SERVE_REQUESTS = 8, 1024, 16, 12
 # prompts and new tokens a request (from (32, 256) and (16, 64): 2,452,
 # 704 and 1,048 steps; then (16, 32), 455 steps; new tokens halved again
 # for phase 3k's seconds, 374 steps; prompts from (32, 128) to (32, 64) and
-# 12 requests for phase 3l's seconds, 176 steps; a request still crosses up
-# to 4 prefill chunks and 5 pages of 16 positions)
-SERVE_PROMPT, SERVE_GEN = (32, 64), (8, 16)
+# 12 requests for phase 3l's seconds, 176 steps; prompts to (16, 32) for
+# phase 3m's seconds; a request still crosses up to 2 prefill chunks and 3
+# pages of 16 positions)
+SERVE_PROMPT, SERVE_GEN = (16, 32), (8, 16)
 PREFILL_B, PREFILL_S = 4, 512
 # phase 3l: phase 3b's serving on a (2, 2) mesh of four ranks of the card
 # through ``launch.serve --mesh 2x2`` (the slots' rows over "data", the
@@ -397,8 +422,24 @@ PREFILL_B, PREFILL_S = 4, 512
 # twice, as the mesh's sums round them, moves a step by 1.6 ulps at most;
 # one model rank's fault in one layer (a dropped partial, the wrong
 # KV-head shard) by 74 ulps or more at its largest step
-SERVE_MESH, REPLAY_STEPS, REPLAY_ULPS = "2x2", 32, 8
+# (16 steps, 32 before phase 3m, for its seconds)
+SERVE_MESH, REPLAY_STEPS, REPLAY_ULPS = "2x2", 16, 8
 SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_serve_mesh"
+# phase 3m: flash decoding (ROADMAP A11.5), Qwen2-0.5B at full width on a
+# (1, 4) mesh of the card under rules.decode_rules: its 2 KV heads do not
+# divide 4 (nor do its 14 query heads), so the dense cache's 1,024
+# positions are cut four ways and the softmax's partials combined; depth
+# cut to 2 of 24 layers, as 3l serves Qwen3-4B.  Its replay streams are the
+# first REPLAY_STEPS prompt tokens of 3b's first SERVE_SLOTS requests
+# (drawn for Qwen2-0.5B's vocabulary), held at 3l's REPLAY_ULPS: against
+# one device a rank's MLP output is four bf16 partials summed (3l's two
+# moved a step by 1.6 ulps at most, so four by about twice that), and the
+# combine's fp32 exps and products round the context once where one
+# device rounds its probabilities and the context (half an ulp more);
+# a dropped or misplaced partial moves a step by tens of ulps (3l's
+# readings)
+FLASH_ARCH, FLASH_MESH, FLASH_LAYERS = "qwen2-0.5b", "1x4", 2
+FLASH_DIR = ROOT / "build" / "chip_smoke_flash"
 GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
 SEED = 0
 # training at full Qwen2-0.5B width, depth cut to TRAIN_LAYERS of its 24
@@ -534,7 +575,7 @@ RECURRENT_TP_STEPS, RECURRENT_TP_BATCH, RECURRENT_TP_SEQ = 2, 2, 1024
 RECURRENT_TP_DIR = ROOT / "build" / "chip_smoke_recurrent_tp"
 # phase 3k: FSDP (ROADMAP A11.5), qwen3-14b at full width through the
 # launcher on a (2, 1) mesh of the card under its launchers' rules
-# (``fsdp`` on: "embed" cut over "data"), depth cut to 2 of 40 layers, bf16
+# (``fsdp`` on: "embed" cut over "data"), depth cut to 1 of 40 layers, bf16
 # with an fp32 master copy, remat on; each rank holds half of every "embed"
 # dim of the parameters, the moments and the master copy.  Its steps are
 # held to one-device bf16 train steps of the same seed's state on the same
@@ -545,7 +586,8 @@ RECURRENT_TP_DIR = ROOT / "build" / "chip_smoke_recurrent_tp"
 # phase 3d).  Step 1's update, from the ranks' bf16 gradients
 # reduce-scattered over "data" (the FSDP leaves' only sum) and written
 # into the donated state, is in the final save
-FSDP_ARCH, FSDP_LAYERS, FSDP_STEPS = "qwen3-14b", 2, 2
+# (1 layer, 2 before phase 3m, for its seconds)
+FSDP_ARCH, FSDP_LAYERS, FSDP_STEPS = "qwen3-14b", 1, 2
 # step 1's update moves a third step's loss by less than TP_LOSS_RTOL
 # (5.06e-5 of it on an H100 80GB HBM3 at 700 W), so the update itself is
 # held: the final checkpoint's fp32 master copy of these leaves (two cut by
@@ -579,6 +621,20 @@ SERVE_FAMILIES = {"dense": (TRAIN_ARCH, {}),
                   **{k: v for k, v in MESH_FAMILIES.items() if k != "grok"},
                   "fsdp-dense": (FSDP_ARCH, {})}
 SERVE_CHECK = (3, 2, 32, 4, 4, 4)
+# flash decoding in the same check (ROADMAP A11.5): the reduced Qwen2-0.5B
+# (4 heads, 2 KV heads) under the flash-decoding override on the (2, 2)
+# mesh's model axis, so a rank's 2 query heads read every KV head over
+# its half of the positions, q gathered over the heads' ranks (the case
+# the reduced config reaches at a model axis of 4 on the CPU,
+# tests/test_torch_flash_decode.py), paged and dense
+FLASH_CHECK_RULES = {"cache_seq": ("model",), "kv_heads": None}
+# its cache: 16 positions, 8 a model rank, so SERVE_CHECK's requests (up
+# to 7 prompt and 6 new tokens) write into both ranks' blocks
+FLASH_CHECK_MAX_LEN = 16
+# the masked loss on the same mesh (ROADMAP A11.5): the reduced Qwen2-0.5B
+# of the backward check (vocab 500 padded to 512) on batch 0 under a seeded
+# mask, an all-ones and an all-zeros mask, against the one-device port
+MASK_CHECK_KEEP = 0.6
 # phase 3d's second part, after phase 3h: whisper-tiny at full width trained
 # through the launcher on a (2, 1) mesh of the card (--baseline: B11 on
 # each rank's 4 of the 8 rows x 448) and on a (1, 2) one (the vocab padded
@@ -1144,6 +1200,155 @@ def serve_mesh_phase(one: dict) -> dict[str, int]:
           f"{time.perf_counter() - t_phase:.1f} s")
     path.unlink()
     del res, ranks, got
+    return {"rmsnorm": launched}
+
+
+def serve_flash_phase() -> dict[str, int]:
+    """Phase 3m: flash decoding (ROADMAP A11.5).  Qwen2-0.5B at full width
+    (``FLASH_LAYERS`` of its 24 layers, bf16, seed-0 weights) serves
+    phase 3b's request shapes on a (1, 4) mesh of four ranks of the card
+    through ``launch.serve --mesh 1x4 --kv-cache both`` under
+    ``rules.decode_rules``: its 2 KV heads do not divide 4, so a rank's
+    dense cache holds a quarter of each slot's ``SERVE_MAX_LEN``
+    positions of both KV heads, every query head (14 do not divide 4
+    either), a quarter of the MLP and of the vocabulary; a decode step
+    combines the ranks' softmax partials (a pmax, then one psum) in every
+    layer.  Each rank zeroes its counters just before each run and reads
+    them just after.  Fatal unless every request completes on every rank,
+    paged tokens equal dense tokens on every rank and the ranks agree, a
+    rank's dense cache leaf holds ``SERVE_MAX_LEN / 4`` positions, each
+    rank launched B9 at least 2 x layers + 1 times a decode step, and a
+    teacher-forced replay (the first ``REPLAY_STEPS`` prompt tokens of the
+    first ``SERVE_SLOTS`` requests) holds each step's logits within
+    ``REPLAY_ULPS`` bf16 ulps of the step's largest |logit| of one
+    device's run of the same depth and the greedy tokens equal wherever
+    one device's top-2 gap exceeds that bound.  Prints ms a decode step
+    paged and dense, collectives a step and their host ms, each rank's
+    peak memory and its cache bytes against one device's; returns the
+    launches summed over the ranks."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch.serve import make_requests, teacher_forced_logits
+    from repro_torch.models import build_model
+    from repro_torch.models.params import leaves
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(FLASH_ARCH), n_layers=FLASH_LAYERS)
+    n = int(FLASH_MESH.split("x")[1])
+    reqs = make_requests(SERVE_REQUESTS, cfg.vocab_size, SERVE_PROMPT,
+                         SERVE_GEN, SEED)
+    streams = np.array([r.prompt[:REPLAY_STEPS] for r in
+                        reqs[:SERVE_SLOTS]], dtype=np.int32)
+    model = build_model(cfg)
+    params = model.init(SEED)
+    want = teacher_forced_logits(model, params,
+                                 torch.from_numpy(streams).cuda()).cpu()
+    one_bytes = {"dense": sum(
+        math.prod(d.shape) * d.dtype.itemsize for _, d in
+        leaves(model.cache_defs(SERVE_SLOTS, SERVE_MAX_LEN)))}
+    del model, params
+    torch.cuda.empty_cache()
+    FLASH_DIR.mkdir(parents=True, exist_ok=True)
+    path = FLASH_DIR / "replay.npy"
+    np.save(path, streams)
+    argv = ["--arch", FLASH_ARCH, "--mesh", FLASH_MESH, "--layers",
+            str(FLASH_LAYERS), "--slots", str(SERVE_SLOTS), "--max-len",
+            str(SERVE_MAX_LEN), "--requests", str(SERVE_REQUESTS),
+            "--prompt-len", *map(str, SERVE_PROMPT), "--gen",
+            *map(str, SERVE_GEN), "--kv-cache", "both", "--prefill-chunk",
+            str(SERVE_CHUNK), "--seed", str(SEED), "--replay", str(path)]
+    t0 = time.perf_counter()
+    try:
+        res = serve_launcher.main(argv)
+    except RuntimeError as e:
+        fail(f"serve flash: {e}")
+    secs = time.perf_counter() - t0
+    ranks = res["ranks"]
+    per_step = 2 * FLASH_LAYERS + 1
+    want_len = {r.rid: r.max_new_tokens for r in reqs}
+    positions = SERVE_MAX_LEN // n
+    launched = 0
+    for r in ranks:
+        where = f"serve flash: rank {r['rank']} at {r['coords']}"
+        for kv, run in r["runs"].items():
+            got = {rid: len(t) for rid, t in run["completed"].items()}
+            if got != want_len:
+                fail(f"{where} {kv}: completed {got}, want {want_len}")
+            k = run["launches"]["plain"]
+            launched += k
+            if k < per_step * run["micro_steps"]:
+                fail(f"{where} {kv}: {k} rmsnorm launches for "
+                     f"{run['micro_steps']} decode steps (< {per_step} a "
+                     f"step)")
+        if r["runs"]["paged"]["completed"] != r["runs"]["dense"]["completed"]:
+            fail(f"{where}: paged tokens differ from dense")
+        shape = r["runs"]["dense"]["cache_shapes"]["s00_dense/k"]
+        if shape[3] != positions:
+            fail(f"{where}: its dense cache leaf is {shape}, not "
+                 f"{positions} of {SERVE_MAX_LEN} positions")
+    got = ranks[0]["replay"]
+    if tuple(got.shape) != tuple(want.shape):
+        fail(f"serve flash: replay logits {tuple(got.shape)}, want "
+             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail("serve flash: non-finite replay logits")
+    top = torch.topk(want, 2, dim=-1).values
+    gap = top[..., 0] - top[..., 1]
+    worst, decided, tight = 0.0, 0, 0
+    for t in range(REPLAY_STEPS):
+        bound = REPLAY_ULPS * bf16_ulp(float(want[t].abs().max()))
+        err = float((got[t] - want[t]).abs().max())
+        worst = max(worst, err / bound)
+        if err > bound:
+            fail(f"serve flash: replay step {t}: logits {err:.4g} from one "
+                 f"device's, over {REPLAY_ULPS} bf16 ulps ({bound:.4g})")
+        clear = gap[t] > bound
+        if not torch.equal(got[t].argmax(-1)[clear],
+                           want[t].argmax(-1)[clear]):
+            fail(f"serve flash: replay step {t}: greedy tokens differ from "
+                 f"one device's where its top-2 gap exceeds {bound:.4g}")
+        decided += int(clear.sum())
+        tight += int((~clear).sum())
+    print(f"serve flash: {FLASH_ARCH} bf16 {FLASH_LAYERS} layers on a "
+          f"{FLASH_MESH} mesh of {n} ranks on the card "
+          f"({ranks[0]['transport']}), the cache's positions cut {n} ways "
+          f"(a rank's dense cache leaf "
+          f"{ranks[0]['runs']['dense']['cache_shapes']['s00_dense/k']}: "
+          f"{positions} of {SERVE_MAX_LEN} positions): every request "
+          f"completes on every rank, paged tokens equal dense tokens, the "
+          f"ranks agree; B9 >= {per_step} launches a decode step on every "
+          f"rank; replay of {REPLAY_STEPS} steps x {SERVE_SLOTS} streams: "
+          f"logits within {worst:.3f} of the {REPLAY_ULPS}-ulp bound at "
+          f"worst, greedy tokens equal at all {decided} decisions whose "
+          f"one-device gap exceeds it ({tight} below it): ok")
+    for kv, run in ranks[0]["runs"].items():
+        c = run["comm"]
+        steps = max(run["micro_steps"], 1)
+        tokens = sum(len(v) for v in run["completed"].values())
+        print(f"serve: {FLASH_ARCH} bf16 {FLASH_LAYERS} layers {kv} on "
+              f"{FLASH_MESH}: {len(run['completed'])} requests, {tokens} "
+              f"generated tokens in {run['seconds']:.3f} s, "
+              f"{tokens / run['seconds']:.2f} tokens/s, {run['ticks']} "
+              f"ticks, {run['micro_steps']} decode steps "
+              f"({run['seconds'] / steps * 1e3:.2f} ms a step), "
+              f"{run['preemptions']} preemptions, page {run['page_len']}; "
+              f"rank 0's collectives {c['calls']} ({c['calls'] / steps:.1f} "
+              f"a step), {c['bytes']} bytes, {c['seconds'] * 1e3:.1f} ms "
+              f"on the host's clock ({c['seconds'] / steps * 1e3:.2f} ms a "
+              f"step), cache {run['cache_bytes']} bytes a rank"
+              + (f" against one device's {one_bytes[kv]}" if kv in one_bytes
+                 else "") + f", rmsnorm launches {run['launches']['plain']}")
+    print("serve flash: peak memory "
+          + ", ".join(f"rank {r['rank']} {r['peak_bytes'] / 2**30:.2f} GiB"
+                      for r in ranks)
+          + f"; {secs:.1f} s for the launch (spawn, init, two runs, the "
+          f"replay); the phase took {time.perf_counter() - t_phase:.1f} s")
+    path.unlink()
     return {"rmsnorm": launched}
 
 
@@ -2738,9 +2943,11 @@ def mesh_backward_checks() -> None:
                                             "encdec" else 0),
                                   d_model=c.d_model))
     # serving on the same mesh (ROADMAP A11.5): each reduced family under
-    # rules.decode_rules, FSDP's reduced qwen3-14b under FSDP's rules
+    # rules.decode_rules, FSDP's reduced qwen3-14b under FSDP's rules, the
+    # reduced Qwen2-0.5B again under the flash-decoding override
     serving = {}
-    for fam, (arch, changes) in SERVE_FAMILIES.items():
+    for fam, (arch, changes) in (*SERVE_FAMILIES.items(),
+                                 ("flash", (TRAIN_ARCH, {}))):
         c = dataclasses.replace(reduce_for_smoke(get_config(arch)),
                                 **changes)
         serving[fam] = serve_inputs(c, numpy_params(
@@ -2748,6 +2955,20 @@ def mesh_backward_checks() -> None:
         if fam.startswith("fsdp"):
             serving[fam][1]["rules"] = rules_lib.make_rules(
                 fsdp=True, expert_tp=c.expert_tp)
+        if fam == "flash":
+            serving[fam][1].update(
+                rules=rules_lib.make_rules(overrides=FLASH_CHECK_RULES),
+                kv_caches=("paged", "dense"), max_len=FLASH_CHECK_MAX_LEN)
+    # the masked loss (ROADMAP A11.5): the padded reduced Qwen2-0.5B
+    mcfg, mtree, mdata = models[TRAIN_ARCH]
+    masks = {"seeded": (np.random.default_rng(SEED).random(
+        (mdata.global_batch, mdata.seq_len)) < MASK_CHECK_KEEP).astype(
+        np.float32), "ones": np.ones((mdata.global_batch, mdata.seq_len),
+                                     np.float32),
+        "zeros": np.zeros((mdata.global_batch, mdata.seq_len), np.float32)}
+    masked = [("seeded_grads", dict(cfg=mcfg, seed=SEED, data_cfg=mdata,
+                                    tree=mtree, mask=mask))
+              for mask in masks.values()]
     rng = np.random.default_rng(SEED)
     t, v, lv = MESH_XENT
     x = (3 * rng.standard_normal((t, v))).astype(np.float32)
@@ -2757,11 +2978,16 @@ def mesh_backward_checks() -> None:
         mesh_checks.run, MESH_CHECK, device="cuda",
         args=([("xent", dict(logits=x, labels=labels, logical_v=lv))]
               + [train_job(name, *models[name]) for name in models]
-              + [job for job, _ in serving.values()],))
+              + [job for job, _ in serving.values()] + masked,))
     secs = time.perf_counter() - t0
     served = [hold_serve(fam, [ranked[1 + len(models) + i] for ranked in
                                ranks], *serving[fam][1:])
               for i, fam in enumerate(serving)]
+    at = 1 + len(models) + len(serving)
+    masked_line = hold_masked(
+        {k: [ranked[at + i] for ranked in ranks]
+         for i, k in enumerate(masks)}, masks, mcfg, mtree, mdata,
+        [ranked[1]["loss0"] for ranked in ranks])
 
     xc, lc = torch.from_numpy(x).cuda(), torch.from_numpy(labels).cuda()
     want_loss = api.launch("xent", xc, lc, logical_v=lv)
@@ -2880,7 +3106,64 @@ def mesh_backward_checks() -> None:
           f"whose top-2 gap is below that bound: ok")
     for line in served:
         print(f"check: mesh {MESH_CHECK} serve: {line}")
+    print(f"check: mesh {MESH_CHECK} masked loss: {masked_line}")
     torch.cuda.empty_cache()
+
+
+def hold_masked(got: dict, masks: dict, cfg, tree, data,
+                unmasked: list) -> str:
+    """The masked loss on the (2, 2) check's mesh (``mesh_checks.
+    seeded_grads`` with a mask, a rank's rows of it as of the tokens)
+    against the one-device port's masked loss on the card from the same
+    weights and batch, at the backward check's gates: the loss rtol 1e-5,
+    each gradient leaf rtol 1e-4 / atol 1e-2 of its scale (rank blocks
+    against the same blocks cut from one device's); the all-ones mask's
+    loss within rtol 1e-5 of the unmasked loss of the same mesh
+    (``unmasked``, each rank's train job's step-0 loss), the all-zeros
+    mask's loss 0 and every gradient 0.  The check line's text."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.params import leaves
+    from repro_torch.parallel import specs, steps
+
+    d, m = MESH_CHECK
+    sizes = {"data": d, "model": m}
+    model = build_model(cfg)
+    params = interop.params_from_jax(tree, cfg)
+    batch = make_batch(data, 0)
+    out = []
+    for kind, mask in masks.items():
+        b = dict(batch, mask=torch.from_numpy(mask).cuda())
+        loss, grads = steps.value_and_grad(model, params, b)
+        for r, tr in enumerate(got[kind]):
+            where = f"spmd: mesh {MESH_CHECK} rank {r} masked loss ({kind})"
+            check_close(f"{where} loss", torch.tensor(tr["loss0"]),
+                        loss.cpu(), 1e-5, 0.0)
+            for path, g in leaves(grads):
+                if g is None:
+                    continue
+                block = specs.shard_leaf(g, pick(tr["specs"], path), sizes,
+                                         rank=r).cpu()
+                check_close(f"{where} gradient {'/'.join(path)}",
+                            pick(tr["grads0"], path), block, 1e-4,
+                            1e-2 * float(g.abs().max()))
+                if kind == "zeros" and bool(pick(tr["grads0"], path).any()):
+                    fail(f"{where}: a nonzero gradient of {'/'.join(path)}")
+            if kind == "ones":
+                check_close(f"{where} against the unmasked loss",
+                            torch.tensor(tr["loss0"]),
+                            torch.tensor(unmasked[r]), 1e-5, 0.0)
+            if kind == "zeros" and tr["loss0"] != 0.0:
+                fail(f"{where}: loss {tr['loss0']} under an all-zeros mask")
+        out.append(f"{kind} {got[kind][0]['loss0']!r} vs {float(loss)!r}")
+    return (f"{cfg.name} (vocab {cfg.vocab_logical} padded to "
+            f"{cfg.vocab_size}) under {', '.join(out)} (mesh vs one "
+            f"device), every leaf within the check's gates, the all-ones "
+            f"mask at the unmasked loss, the all-zeros mask 0 with every "
+            f"gradient 0: ok")
 
 
 def serve_inputs(cfg, tree) -> tuple:
@@ -2953,6 +3236,10 @@ def hold_serve(name: str, got: list[dict], kw: dict) -> str:
         if (rank["runs"]["paged"]["completed"]
                 != got[0]["runs"]["paged"]["completed"]):
             fail(f"serve check {name} rank {r}: tokens differ from rank 0's")
+        if ("dense" in rank["runs"] and rank["runs"]["dense"]["completed"]
+                != rank["runs"]["paged"]["completed"]):
+            fail(f"serve check {name} rank {r}: paged tokens differ from "
+                 f"dense")
     for req in kw["reqs"]:
         mine, theirs = got[0]["runs"]["paged"]["completed"][req.rid], \
             one[req.rid]
@@ -3739,8 +4026,8 @@ def fsdp_phase() -> dict[str, int]:
                  f"{r['peak_bytes']} B is not below the replicated train "
                  f"state's {replicated} B: the state is not sharded")
 
-    # one device: the same seed's 2-layer state and the launcher's
-    # schedule, the same steps, donated (one 31 GB state beside the step's
+    # one device: the same seed's FSDP_LAYERS-layer state and the launcher's
+    # schedule, the same steps, donated (one 26 GB state beside the step's
     # gradients)
     t0 = time.perf_counter()
     model = build_model(cfg)
@@ -4016,6 +4303,7 @@ def main() -> int:
     serve_launches, serve_one = timed("3b", serving_phase)
     serve_mesh_launches = timed("3l", serve_mesh_phase, serve_one)
     del serve_one
+    flash_launches = timed("3m", serve_flash_phase)
     train_launches, train_metrics = timed("3c", training_phase)
     spmd_launches = timed("3d", spmd_phase, train_metrics)
     recurrent_launches = timed("3j", recurrent_tp_phase)
@@ -4038,7 +4326,7 @@ def main() -> int:
     for phase in (hybrid_launches, xlstm_launches, moe_launches,
                   multimodal_launches, whisper_mesh_launches,
                   recurrent_launches, fsdp_launches, halo_launches,
-                  serve_mesh_launches):
+                  serve_mesh_launches, flash_launches):
         for name, count in phase.items():
             launches[name] = launches.get(name, 0) + count
     print(f"main: launches {launches}")
@@ -4195,6 +4483,10 @@ def main() -> int:
     # slots at Qwen3-4B's d_model, bf16
     cases["rmsnorm.mesh"] = rms_case((SERVE_SLOTS // 2, 2560),
                                      torch.bfloat16, False, 38)
+    # phase 3m's rows (flash decoding on a (1, 4) mesh): every slot on
+    # each rank at Qwen2-0.5B's d_model, bf16
+    cases["rmsnorm.flash"] = rms_case((SERVE_SLOTS, 896), torch.bfloat16,
+                                      False, 39)
     cases["rmsnorm.prefill.pixtral"] = rms_case(
         (PREFILL_B * (1024 + VLM_PREFILL_S), 5120), torch.bfloat16, False,
         25)

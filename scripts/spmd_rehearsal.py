@@ -19,7 +19,10 @@ them) and phase 3k (``fsdp_phase``: qwen3-14b under FSDP on ``2x1``);
 ``python3 scripts/spmd_rehearsal.py 3l`` runs phase 3b (``serving_phase``,
 whose one-device streams and logits phase 3l replays), phase 3l
 (``serve_mesh_phase``: Qwen3-4B served on ``2x2``) and the (2, 2) checks
-with their serving jobs."""
+with their serving jobs; ``python3 scripts/spmd_rehearsal.py 3m`` runs
+phase 3m (``serve_flash_phase``: Qwen2-0.5B served on ``1x4``, the cache's
+positions cut four ways) and the (2, 2) checks with their masked-loss and
+flash-decoding jobs."""
 import dataclasses
 import sys
 import time
@@ -60,6 +63,15 @@ def main():
         t0 = time.perf_counter()
         cs.mesh_backward_checks()
         print(f"the (2, 2) backward and serving checks "
+              f"{time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:] == ["3m"]:
+        t0 = time.perf_counter()
+        cs.serve_flash_phase()
+        print(f"phase 3m {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cs.mesh_backward_checks()
+        print(f"the (2, 2) backward, masked-loss and serving checks "
               f"{time.perf_counter() - t0:.1f} s")
         return
     if sys.argv[1:] == ["3j"]:

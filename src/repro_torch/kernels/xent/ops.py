@@ -62,7 +62,7 @@ def _xent_shard_partials(plan, logits, labels, off: int, *, vl: int,
                                 logical_v=logical_v, brows=plan.block_rows)
 
 
-def _spmd_xent(ctx, logits, labels, *, logical_v: int = 0):
+def _spmd_xent(ctx, logits, labels, *, logical_v: int = 0, mask=None):
     """Shard body: vocab-parallel mean cross-entropy.
 
     ``logits`` is this rank's (T_local, V_local) shard.  When the vocab
@@ -70,13 +70,22 @@ def _spmd_xent(ctx, logits, labels, *, logical_v: int = 0):
     slice and the log-sum-exp combine crosses the vocab ranks with
     pmax/psum; otherwise the vocab is whole here and B11 gives the NLL.
     Either way the scalar mean crosses the batch axes with a pmean of
-    equal-sized shard means."""
+    equal-sized shard means.
+
+    With ``mask`` (T_local,) fp32, this rank's tokens' weights, the same
+    per-token NLL is weighted instead: the result is the (2,) fp32
+    ``(sum of nll * mask, sum of mask)`` over the global tokens, one psum
+    over the batch axes, for the caller's masked mean."""
     t, vl = logits.shape
     vocab_axes = ctx.axes(0, 1)
     batch_axes = ctx.axes(0, 0)
     n_vocab = ctx.size(vocab_axes)
     plan = dispatch.plan_for("xent", (t, vl), logits.dtype, local=True)
-    if n_vocab <= 1:
+    if n_vocab <= 1 and mask is not None:
+        nll = kernel.xent_nll(logits.contiguous(), labels,
+                              logical_v=logical_v or vl,
+                              brows=plan.block_rows)
+    elif n_vocab <= 1:
         out = _launch_xent(plan, logits, labels, logical_v=logical_v)
     else:
         lv = logical_v or vl * n_vocab
@@ -89,7 +98,11 @@ def _spmd_xent(ctx, logits, labels, *, logical_v: int = 0):
         l, ll = ctx.psum(torch.stack([l * torch.exp(m - mg), ll]),
                          vocab_axes)
         nll = torch.log(torch.clamp(l, min=1e-30)) + mg - ll
-        out = nll.mean()
+        if mask is None:
+            out = nll.mean()
+    if mask is not None:
+        out = torch.stack([(nll * mask).sum(), mask.sum()])
+        return ctx.psum(out, batch_axes) if batch_axes else out
     if batch_axes:
         out = ctx.pmean(out, batch_axes)
     return out
@@ -116,12 +129,15 @@ def _launch_xent(plan, logits, labels, *, logical_v: int = 0):
 
 
 def xent_grad(logits: torch.Tensor, labels: torch.Tensor, g, *,
-              logical_v: int = 0, global_shapes=None) -> torch.Tensor:
+              logical_v: int = 0, global_shapes=None,
+              weights: torch.Tensor | None = None) -> torch.Tensor:
     """d(mean NLL)/d(logits) at cotangent ``g``: ``(softmax(masked) -
     onehot) * g / T`` in fp32, cast to the logits' dtype -- the reference's
     single-device vjp of ``_ref``.  Columns at or past ``logical_v`` get a
     zero gradient (their logits were replaced by the mask), a label there
-    included.
+    included.  With ``weights`` (T,) fp32, the gradient of ``sum_t w_t *
+    nll_t`` instead: row t's cotangent is ``g * w_t`` (the masked mean's
+    ``mask_t / sum(mask)``, ``models.transformer.XentFn``).
 
     Under an ambient mesh of ranks this is the *vocab-parallel* gradient,
     the reference's ``xent_grad`` shard body: ``logits`` is this rank's
@@ -155,8 +171,12 @@ def xent_grad(logits: torch.Tensor, labels: torch.Tensor, g, *,
         else:
             vocab_axes = ()
         t_total = t * ctx.size(ctx.axes(0, 0))
-    scale = torch.as_tensor(g, dtype=torch.float32,
-                            device=logits.device) / t_total
+    scale = torch.as_tensor(g, dtype=torch.float32, device=logits.device)
+    if weights is None:
+        scale = scale / t_total
+    else:
+        scale = scale * weights.to(device=logits.device,
+                                   dtype=torch.float32)[:, None]
     out = torch.empty_like(logits)
     lab = labels.to(device=logits.device, dtype=torch.int64)
     chunk = max(1, GRAD_CHUNK_ELEMS // max(v, 1))
@@ -176,6 +196,7 @@ def xent_grad(logits: torch.Tensor, labels: torch.Tensor, g, *,
         lse = torch.log(torch.clamp(l, min=1e-30)) + m
         p = x.sub_(lse).exp_().masked_fill_(dead, 0.0)
         hit = (col[None, :] == lab[r0:r1, None]) & (col[None, :] < lv)
-        p.sub_(hit.to(torch.float32)).mul_(scale)
+        p.sub_(hit.to(torch.float32)).mul_(
+            scale if weights is None else scale[r0:r1])
         out[r0:r1] = p
     return out

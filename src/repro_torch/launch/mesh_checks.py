@@ -326,12 +326,13 @@ def greedy(mesh, cfg, logits: np.ndarray) -> dict:
 
 
 def chunk(mesh, cfg, tree, tokens: np.ndarray, nvalid: np.ndarray,
-          rules: dict | None = None) -> dict:
+          rules: dict | None = None, max_len: int | None = None) -> dict:
     """One chunk step (``steps.make_chunk_step``) of the global (B, C)
-    ``tokens`` on a fresh dense cache, each rank's rows advancing by their
-    own ``nvalid`` (uneven across the data ranks), the micro-step count the
-    global rows' longest, as the batcher passes it: the next tokens
-    gathered over the data ranks, the cache's ``idx``, and what the step
+    ``tokens`` on a fresh dense cache of ``max_len`` positions (else C),
+    each rank's rows advancing by their own ``nvalid`` (uneven across the
+    data ranks), the micro-step count the global rows' longest, as the
+    batcher passes it: the next tokens gathered over the data ranks, the
+    cache's ``idx``, the rank's block of the cache, and what the step
     raised, before any collective, where it was not told the count."""
     from repro_torch.launch import serve as serve_lib
 
@@ -339,7 +340,7 @@ def chunk(mesh, cfg, tree, tokens: np.ndarray, nvalid: np.ndarray,
         rules or rules_lib.decode_rules(cfg, mesh), mesh)
     model = build_model(cfg)
     params = serve_lib.mesh_params(model, mesh, table, tree=tree)
-    defs = model.cache_defs(tokens.shape[0], tokens.shape[1])
+    defs = model.cache_defs(tokens.shape[0], max_len or tokens.shape[1])
     axes = map_tree(lambda d: d.axes.index("batch"), defs)
     with api.plan_context(mesh=mesh), rules_lib.use_rules(table, mesh), \
             torch.inference_mode():
@@ -359,7 +360,7 @@ def chunk(mesh, cfg, tree, tokens: np.ndarray, nvalid: np.ndarray,
         if data:
             nxt = mesh.all_gather(nxt, data, 0)
             idx = mesh.all_gather(idx, data, 0)
-    return {"next": nxt, "idx": idx, "refused": refused}
+    return {"next": nxt, "idx": idx, "refused": refused, "cache": cache}
 
 
 def reduce_scatter(mesh, xs: np.ndarray) -> dict:
@@ -412,24 +413,34 @@ def moe_layer(mesh, cfg, tree: dict, x: np.ndarray) -> dict:
 
 
 def seeded_grads(mesh, cfg, seed: int, data_cfg,
-                 rules: dict | None = None) -> dict:
+                 rules: dict | None = None, mask: np.ndarray | None = None,
+                 tree: dict | None = None) -> dict:
     """This rank's loss, gradient blocks and global norm at step 0 of the
     weights ``model.init(seed)`` draws on the rank's device (the weights of
-    every rank and of one device on that device type), on batch 0 of
-    ``data_cfg``, with the parameter specs.  No numpy state crosses the
-    spawn, so it serves full-width models.  ``rules`` replaces the
-    launchers' rules."""
+    every rank and of one device on that device type), or of the numpy
+    ``tree`` where given, on batch 0 of ``data_cfg``, with the parameter
+    specs.  No numpy state crosses the spawn without ``tree``, so it
+    serves full-width models.  ``rules`` replaces the launchers' rules;
+    ``mask`` (the global (B, S) loss mask) makes the loss the masked one,
+    a rank taking its rows of it as of the tokens."""
+    from repro_torch.launch import serve as serve_lib
+
     rules = mesh_rules(mesh, rules, cfg)
     sizes = mesh.axis_sizes
     model = build_model(cfg)
     specs = specs_lib.param_specs(model.param_defs(), rules, sizes)
-    params = specs_lib.shard_tree(model.init(seed, device=mesh.device),
-                                  specs, mesh)
+    params = (serve_lib.mesh_params(model, mesh, rules, tree=tree)
+              if tree is not None else specs_lib.shard_tree(
+                  model.init(seed, device=mesh.device), specs, mesh))
     sharding = specs_lib.NamedSharding(mesh, rules_lib.spec(
         "batch", None, rules=rules, axis_sizes=sizes,
         shape=(data_cfg.global_batch, data_cfg.seq_len)))
+    batch = make_batch(data_cfg, 0, sharding)
+    if mask is not None:
+        batch["mask"] = specs_lib.shard_leaf(
+            torch.from_numpy(mask), sharding.spec, mesh).to(mesh.device)
     grad_fn = steps.make_grad_fn(model, mesh=mesh, rules=rules)
-    loss0, grads0, gnorm0 = grad_fn(params, make_batch(data_cfg, 0, sharding))
+    loss0, grads0, gnorm0 = grad_fn(params, batch)
     return {"loss0": float(loss0), "grads0": grads0, "gnorm0": float(gnorm0),
             "specs": specs}
 

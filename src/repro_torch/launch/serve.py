@@ -359,12 +359,15 @@ def serve_requests(model, params, reqs, *, kv_cache: str, slots: int,
     counters and the mesh's collectives zeroed just before the run and
     read just after.  Returns the completed streams, seconds, ticks,
     decode steps, preemptions, page length, the launches of each RMSNorm
-    mode and, on a mesh, the collectives' calls, bytes and host seconds;
+    mode, the batcher's cache (each leaf's shape, a rank's block on a
+    mesh, and their bytes) and, on a mesh, the collectives' calls, bytes
+    and host seconds;
     with ``profile`` (on the card) one more decode tick profiled after
     they are read (``profile_tick``, recorded on rank 0)."""
     import torch
 
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import params as params_lib
     from repro_torch.serving import ContinuousBatcher, Request
 
     batcher = ContinuousBatcher(model, params, slots=slots, max_len=max_len,
@@ -391,6 +394,10 @@ def serve_requests(model, params, reqs, *, kv_cache: str, slots: int,
            "page_len": (batcher.geometry.page_len if batcher.geometry
                         else None),
            "launches": dict(rms_kernel.LAUNCHES),
+           "cache_shapes": {"/".join(path): tuple(t.shape) for path, t in
+                            params_lib.leaves(batcher.cache)},
+           "cache_bytes": sum(t.numel() * t.element_size() for _, t in
+                              params_lib.leaves(batcher.cache)),
            "comm": dict(mesh.comm) if mesh is not None else None,
            "profile": None}
     if profile and device.type == "cuda":
@@ -523,7 +530,8 @@ def _main_mesh(args, device) -> dict:
                   f"({c['calls'] / max(r['micro_steps'], 1):.1f} a decode "
                   f"step), {c['bytes']} bytes, host "
                   f"{c['seconds'] * 1e3:.1f} ms, launches "
-                  f"{r.get('launches')}, peak {res['peak_bytes']}")
+                  f"{r.get('launches')}, cache {r.get('cache_bytes')} "
+                  f"bytes, peak {res['peak_bytes']}")
     first = results[0]["runs"]
     for res in results[1:]:
         for kv, r in res["runs"].items():

@@ -560,16 +560,27 @@ def _rank_heads(p: dict, cfg: ModelConfig, mesh, axes):
     if model_parallel("kv_heads", cfg.n_kv_heads)[1]:
         return out, None
     h_loc = cfg.n_heads // mesh.axis_size(axes)
-    group = cfg.n_heads // cfg.n_kv_heads
-    q0 = mesh.index(axes) * h_loc
-    kv = [(q0 + j) // group for j in range(h_loc)]
-    lo, hi = kv[0], kv[-1] + 1
+    lo, hi, kv_of_q = _kv_block(cfg, mesh.index(axes) * h_loc, h_loc)
     for name in ("wk", "wv", "bk", "bv"):
         if name in p:
             t = enter(p[name], mesh, axes)
             out[name] = t[:, lo:hi] if t.ndim == 3 else t[lo:hi]
-    equal = group % h_loc == 0 or h_loc % group == 0
-    return out, None if equal else [i - lo for i in kv]
+    return out, kv_of_q
+
+
+def _kv_block(cfg: ModelConfig, q0: int, hq: int, k0: int = 0):
+    """``(lo, hi, kv_of_q)``: the block ``[lo, hi)`` of KV heads, counted
+    from global KV head ``k0``, that ``hq`` query heads from global query
+    head ``q0`` on read (query head ``j`` reads ``j // (H / KH)``), and
+    each query head's place in the block where its heads do not each hold
+    an equal run of them (else ``None``, the block's own ratio)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv = [(q0 + j) // group - k0 for j in range(hq)]
+    lo, hi = kv[0], kv[-1] + 1
+    run = hq // (hi - lo)
+    equal = run * (hi - lo) == hq and kv == [lo + j // run
+                                             for j in range(hq)]
+    return lo, hi, None if equal else [i - lo for i in kv]
 
 
 def _project_qkv(p: dict, x: torch.Tensor, x_kv: torch.Tensor,
@@ -779,40 +790,139 @@ def _cache_kv_view(cache_kv: torch.Tensor, layout: str) -> torch.Tensor:
     return cache_kv
 
 
+def cache_seq_parallel(cfg: ModelConfig):
+    """``(mesh, axes)``: the ambient mesh of ranks and the mesh axes over
+    which a rank's dense KV cache holds a block of the positions (the
+    rules cut "cache_seq", flash decoding), or ``(None, ())``.  The cut is
+    the one ``parallel.specs.cache_specs`` gives the cache's leaf
+    (``init_kv_cache``'s axes, an earlier dim taking a mesh axis first);
+    ``cache_specs`` refuses a ``max_len`` that the cut does not divide."""
+    mesh = spmd_lib.spmd_mesh()
+    if mesh is None:
+        return None, ()
+    d = init_kv_cache(cfg, mesh.size, mesh.size, 1)["k"]
+    s = rules_lib.spec(*d.axes, rules=rules_lib.mesh_table(mesh),
+                       shape=d.shape, axis_sizes=mesh.axis_sizes)
+    axes = rules_lib.dim_axes(s, len(d.shape))[d.axes.index("cache_seq")]
+    axes = tuple(a for a in axes if mesh.axis_size(a) > 1)
+    return (mesh, axes) if axes else (None, ())
+
+
 def decode_parallel(cfg: ModelConfig):
-    """``(mesh, axes)`` of a decode step's heads (``model_parallel``): its
-    query and KV heads a rank's block, as the cache's "kv_heads" is.
-    Raises ``NotImplementedError`` naming ROADMAP A11 where the rules cut
-    the query heads but leave the KV heads whole: a rank's cache would
-    then hold every KV head while its attention reads only some
-    (``rules.decode_rules`` gives such a mesh the flash-decoding override,
-    which ``rules.require_ported`` refuses)."""
+    """``(mesh, axes)`` of a decode step's query heads (``model_parallel``):
+    its query heads a rank's block.  The KV heads a rank's cache holds are
+    its block where the rules cut them with the query heads, else all of
+    them, a rank's query heads reading their own group's.  Where the rules
+    cut the cache's positions over the query heads' mesh axes too (the
+    flash-decoding override of ``rules.decode_rules``), every rank needs
+    every query head against its positions (``_decode_attend``).  Raises
+    ``NotImplementedError`` naming ROADMAP A11, before any collective,
+    where the positions are cut over some of the query heads' mesh axes
+    but not all, or over the KV heads' (a rank would hold some KV heads of
+    some positions)."""
     tp = model_parallel("heads", cfg.n_heads)
-    if tp[1] and not model_parallel("kv_heads", cfg.n_kv_heads)[1]:
+    seq = set(cache_seq_parallel(cfg)[1])
+    kv = set(model_parallel("kv_heads", cfg.n_kv_heads)[1])
+    if seq & kv or (seq & set(tp[1]) and not set(tp[1]) <= seq):
         raise NotImplementedError(
-            f"decoding with {cfg.n_heads} query heads cut over {tp[1]} and "
-            f"{cfg.n_kv_heads} KV heads whole on every rank is not ported "
-            f"(ROADMAP A11): flash decoding would cut the cache's positions")
+            f"decoding with the cache's positions cut over {sorted(seq)}, "
+            f"the query heads over {tp[1]} and the KV heads over "
+            f"{sorted(kv)} is not ported (ROADMAP A11)")
     return tp
 
 
-def _decode_attend(p, q, kv_k, kv_v, idx, cfg, dtype, tp=(None, ())):
+def _queries_kv(kv_k: torch.Tensor, kv_v: torch.Tensor, q0: int, hq: int,
+                cfg: ModelConfig):
+    """The KV heads (B, S, KH', D) that ``hq`` query heads from global head
+    ``q0`` on read (``_kv_block``), out of the ones a rank's cache holds
+    (its block where the rules cut the KV heads, else all): the cache's
+    own heads where they are that block, else a block of them, else one
+    KV head a query head."""
+    held = kv_k.shape[2]
+    k0 = 0
+    if held < cfg.n_kv_heads:
+        mesh, axes = model_parallel("kv_heads", cfg.n_kv_heads)
+        k0 = mesh.index(axes) * held
+    lo, hi, kv_of_q = _kv_block(cfg, q0, hq, k0)
+    if (lo, hi) != (0, held):
+        kv_k, kv_v = kv_k[:, :, lo:hi], kv_v[:, :, lo:hi]
+    if kv_of_q is not None:
+        kv_k, kv_v = kv_k[:, :, kv_of_q], kv_v[:, :, kv_of_q]
+    return kv_k, kv_v
+
+
+def _decode_attend(p, q, kv_k, kv_v, idx, cfg, dtype, tp=(None, ()),
+                   seq=(None, ()), pos0: int = 0):
+    """One token's attention of query heads ``q`` (B, 1, H', D), a rank's
+    block under tensor parallelism ``tp``, over the cache view ``kv_k``,
+    ``kv_v`` (B, S, KH', D) of positions ``pos0`` onwards (masked past
+    ``idx``), then ``wo``.  Where ``seq`` (``(mesh, axes)``) cuts the
+    positions, each rank's softmax partials -- the max, the sum of exps
+    and the exps times v, in fp32 -- are combined over its axes: the max
+    by a pmax, then the other two by one psum; a rank whose positions
+    all lie past ``idx`` adds zeros.  Where the positions are cut over
+    the query heads' axes, q is all-gathered over them first, and a rank
+    keeps its own heads' block of the context for the row-parallel
+    ``wo``."""
+    mesh, axes = tp
+    smesh, saxes = seq
+    hq = q.shape[2]
+    gather = bool(set(saxes) & set(axes))
+    if gather:
+        q = mesh.all_gather(q, axes, 2)
+    q0 = mesh.index(axes) * hq if axes and not gather else 0
+    kv_k, kv_v = _queries_kv(kv_k, kv_v, q0, q.shape[2], cfg)
     scores = _gqa_scores(q, kv_k, cfg)                     # (B,KH,G,1,S)
     s = kv_k.shape[1]
-    valid = (torch.arange(s, device=q.device)[None, :]
-             <= idx[:, None])[:, None, None, None, :]
+    pos = pos0 + torch.arange(s, device=q.device)
+    valid = (pos[None, :] <= idx[:, None])[:, None, None, None, :]
     scores = torch.where(valid, scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    return _gqa_out(probs, kv_v, p, dtype, tp)
+    if not saxes:
+        probs = torch.softmax(scores, dim=-1)
+        return _gqa_out(probs, kv_v, p, dtype, tp)
+    m = smesh.all_reduce(scores.amax(-1, keepdim=True), saxes, "max")
+    e = torch.where(valid, torch.exp(scores - m), 0.0)
+    b, kh, g, sq, _ = e.shape
+    o = torch.matmul(e.reshape(b, kh, g * sq, s),
+                     _heads_major(kv_v).to(torch.float32))
+    part = torch.cat([o.reshape(b, kh, g, sq, -1), e.sum(-1, keepdim=True)],
+                     dim=-1)
+    part = smesh.all_reduce(part, saxes, "sum")
+    ctx = part[..., :-1] / torch.clamp(part[..., -1:], min=1e-30)
+    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(b, sq, kh * g, -1)
+    if gather:
+        i = mesh.index(axes)
+        ctx = ctx[:, :, i * hq:(i + 1) * hq]
+    return _out_proj(ctx.to(dtype), p["wo"], tp).to(dtype)
 
 
-def _decode_qkv(p, x, idx, cfg, use_rope, tp=(None, ())):
-    q, k, v = _project_qkv(p, x, x, cfg, tp)
+def _decode_qkv(p, x, idx, cfg, use_rope):
+    """q of a rank's query heads, k and v of the KV heads its cache holds
+    (its blocks of ``wq``, ``wk``, ``wv``: a decode step has no backward,
+    so nothing enters through ``SumGradOverRanks``)."""
+    q, k, v = _project_qkv(p, x, x, cfg)
     if use_rope:
         pos = idx[:, None]
         q = rope(q, pos, cfg.rope_theta)
         k = rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def _own_positions(idx: torch.Tensor, act: torch.Tensor | None, s_loc: int,
+                   seq) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``(local idx, act, pos0)`` of a write at global position ``idx``
+    (clamped to the last position, as one device clamps it) into a rank's
+    block of ``s_loc`` positions from ``pos0`` on: a row writes only on
+    the rank that owns its position (``act`` 0 elsewhere: the write puts
+    back what the block held)."""
+    mesh, axes = seq
+    pos0 = mesh.index(axes) * s_loc
+    gpos = idx.clamp(0, s_loc * mesh.axis_size(axes) - 1)
+    local = gpos - pos0
+    own = (local >= 0) & (local < s_loc)
+    if act is not None:
+        own = own & (act > 0)
+    return local.clamp(0, s_loc - 1), own.to(torch.int32), pos0
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -822,17 +932,26 @@ def decode_attention(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     """One-token decode step.  x: (B, 1, d); idx per-slot (B,) (or a scalar).
     Writes the caches in place; returns (out, cache_k, cache_v).  On a
     mesh whose rules cut the heads, tensor-parallel (``decode_parallel``):
-    the caches hold the rank's KV heads, and the output is summed over the
-    ranks."""
+    the caches hold the rank's KV heads (or all of them), and the output
+    is summed over the ranks.  Where the rules cut the cache's positions
+    (``cache_seq_parallel``, flash decoding) the caches hold a rank's
+    block of them: the new position is written by the rank that owns it
+    alone, and the ranks' softmax partials are combined
+    (``_decode_attend``)."""
     idx = _rows_idx(idx, x.shape[0])
     layout = cfg.kv_cache_layout
     tp = decode_parallel(cfg)
-    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope, tp)
-    _cache_put(cache_k, k, idx, layout, act)
-    _cache_put(cache_v, v, idx, layout, act)
+    seq = cache_seq_parallel(cfg)
+    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope)
+    at, pos0 = idx, 0
+    if seq[1]:
+        s_loc = cache_k.shape[2] if layout == "bhsd" else cache_k.shape[1]
+        at, act, pos0 = _own_positions(idx, act, s_loc, seq)
+    _cache_put(cache_k, k, at, layout, act)
+    _cache_put(cache_v, v, at, layout, act)
     out = _decode_attend(p, q, _cache_kv_view(cache_k, layout),
                          _cache_kv_view(cache_v, layout), idx, cfg, x.dtype,
-                         tp)
+                         tp, seq, pos0)
     return out, cache_k, cache_v
 
 
@@ -876,12 +995,32 @@ def _paged_put(pool: torch.Tensor, new: torch.Tensor, pages: torch.Tensor,
     return pool
 
 
-def _paged_view(pool: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
-    """Gather (B, max_pages * page_len, KH, D): the bshd view of each row's
-    page table; unmapped entries read the null page (masked by the caller)."""
+def _paged_view(pool: torch.Tensor, pages: torch.Tensor, seq=(None, ())
+                ) -> tuple[torch.Tensor, int]:
+    """``(view, pos0)``: the gathered (B, S, KH, D) bshd view of each row's
+    page table, from position ``pos0`` on; unmapped entries read the null
+    page (masked by the caller).  Whole, ``S = max_pages * page_len`` from
+    0; where ``seq`` (``(mesh, axes)``) cuts the positions, a rank's block
+    of them, as a dense cache's (only the pages that hold it gathered)."""
+    mesh, axes = seq
+    p = pool.shape[1]
+    total = pages.shape[1] * p
+    pos0, s = 0, total
+    if axes:
+        n = mesh.axis_size(axes)
+        if total % n:
+            raise NotImplementedError(
+                f"a paged view of {total} positions cut {n} ways over "
+                f"{axes} is not ported (ROADMAP A11)")
+        s = total // n
+        pos0 = mesh.index(axes) * s
+        pages = pages[:, pos0 // p:-(-(pos0 + s) // p)]
     g = pool[pages.to(torch.int64)]                        # (B, MP, P, KH, D)
-    b, mp, p = g.shape[:3]
-    return g.reshape(b, mp * p, *g.shape[3:])
+    b, mp = g.shape[:2]
+    g = g.reshape(b, mp * p, *g.shape[3:])
+    if axes:
+        g = g[:, pos0 % p:pos0 % p + s]
+    return g, pos0
 
 
 def paged_decode_attention(p: dict, x: torch.Tensor, pool_k: torch.Tensor,
@@ -891,14 +1030,22 @@ def paged_decode_attention(p: dict, x: torch.Tensor, pool_k: torch.Tensor,
     """One-token decode against the paged pool: same math as
     ``decode_attention``, the write scattered through the page table and the
     KV view gathered from it.  Returns (out, pool_k, pool_v).  On a mesh
-    the pools hold the rank's KV heads and the page table its rows."""
+    the pools hold the rank's KV heads (or all of them) and the page table
+    its rows.  The pool has no positions axis, so where the rules cut the
+    dense cache's positions it is whole on every rank and every rank
+    writes the new position; a rank attends over the dense cache's block
+    of the positions, read from its pages, and the partials combine as
+    the dense cache's do, so the two give the same bits."""
     idx = _rows_idx(idx, x.shape[0])
     tp = decode_parallel(cfg)
-    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope, tp)
+    seq = cache_seq_parallel(cfg)
+    q, k, v = _decode_qkv(p, x, idx, cfg, use_rope)
     _paged_put(pool_k, k, pages, idx, act)
     _paged_put(pool_v, v, pages, idx, act)
-    out = _decode_attend(p, q, _paged_view(pool_k, pages),
-                         _paged_view(pool_v, pages), idx, cfg, x.dtype, tp)
+    view_k, pos0 = _paged_view(pool_k, pages, seq)
+    view_v, _ = _paged_view(pool_v, pages, seq)
+    out = _decode_attend(p, q, view_k, view_v, idx, cfg, x.dtype, tp, seq,
+                         pos0)
     return out, pool_k, pool_v
 
 

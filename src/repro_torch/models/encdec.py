@@ -212,16 +212,15 @@ def prefill_cross(params: Tree, frames: torch.Tensor, cfg: ModelConfig
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The encoder pass and every decoder layer's cross K/V:
     (L, B, T, KH, hd) each; on a mesh a rank's rows and KV heads of them
-    (``blocks.decode_parallel``), each layer's cross weights gathered
-    first under FSDP."""
-    tp = blocks.decode_parallel(cfg)
+    (its block where the rules cut the KV heads, else all of them:
+    ``blocks.decode_parallel``), each layer's cross weights gathered first
+    under FSDP."""
+    blocks.decode_parallel(cfg)
     enc = encode(params, frames, cfg)
     defs = {"cross": blocks.attention_defs(cfg)}
     ks, vs = [], []
     for lp in layers(params["dec"]):
         cp = blocks.gather_params({"cross": lp["cross"]}, defs)["cross"]
-        if tp[1]:
-            cp, _ = blocks._rank_heads(cp, cfg, *tp)
         k = torch.einsum("bsd,dhk->bshk", enc, cp["wk"])
         v = torch.einsum("bsd,dhk->bshk", enc, cp["wv"])
         if cfg.qkv_bias:
@@ -235,17 +234,17 @@ def prefill_cross(params: Tree, frames: torch.Tensor, cfg: ModelConfig
 def _cross_decode(lp: Tree, x: torch.Tensor, ck: torch.Tensor,
                   cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One token's cross attention over fixed K/V; ck, cv: (B, T, KH, hd),
-    a rank's query and KV heads under tensor parallelism, the output
-    summed over the ranks."""
-    tp = blocks.decode_parallel(cfg)
-    if tp[1]:
-        lp, _ = blocks._rank_heads(lp, cfg, *tp)
-        x = blocks.enter(x, *tp)
+    a rank's query heads and the KV heads its cache holds under tensor
+    parallelism (``blocks.decode_parallel``), the output summed over the
+    ranks."""
+    mesh, axes = tp = blocks.decode_parallel(cfg)
     q = torch.einsum("bsd,dhk->bshk", x, lp["wq"])
     if cfg.qkv_bias:
         q = q + lp["bq"]
     if cfg.qk_norm:
         q = blocks.rms_head_norm(lp["q_norm"], q, cfg.norm_eps)
+    q0 = mesh.index(axes) * q.shape[2] if axes else 0
+    ck, cv = blocks._queries_kv(ck, cv, q0, q.shape[2], cfg)
     probs = torch.softmax(blocks._gqa_scores(q, ck, cfg), dim=-1)
     return blocks._gqa_out(probs, cv, lp, x.dtype, tp)
 

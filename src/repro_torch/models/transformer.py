@@ -28,7 +28,8 @@ batch's ``img_embeds`` in ``LM.loss``); it serves text alone, from position
 ``models.encdec.EncDecLM``.
 
 ``lm_loss`` is the training loss: unmasked, the registered ``xent`` kernel
-(B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch.
+(B11 on the card) differentiated by ``XentFn``; masked, plain PyTorch on
+one device and the same kernel path, weighted, on a mesh.
 
 Under a mesh of ranks (an ambient ``launch.mesh.Mesh``, ``api.spmd``) the
 model is *vocab-parallel*, Megatron's layout: the tied embedding (V, d)
@@ -69,11 +70,13 @@ gradient over the data ranks and cuts it back (a reduce-scatter).  The
 vlm's image prefix has no weights to gather.  The model raises where the
 rules cut a parameter axis the port does not run (``rules.require_ported``:
 "embed" off the batch's mesh axes, and a model axis that divides a
-recurrent block's columns but not its heads, ROADMAP A11), and so does the
-masked loss.  Decoding runs on the same mesh (``decode_step``, ROADMAP
-A11.5): a rank holds its rows of the serving cache's slots and its block
-of the KV heads and recurrent state, under ``rules.decode_rules(cfg,
-mesh)``; a cut of the cache's positions (flash decoding) raises.
+recurrent block's columns but not its heads, ROADMAP A11).  Decoding runs
+on the same mesh (``decode_step``, ROADMAP A11.5): a rank holds its rows
+of the serving cache's slots and its block of the KV heads and recurrent
+state, under ``rules.decode_rules(cfg, mesh)``; where the rules cut the
+cache's positions ("cache_seq", flash decoding) a rank's dense cache holds
+its block of the positions, and the attention combines the ranks'
+softmax partials (``models.blocks.decode_attention``).
 
 ``decode_step`` writes the KV caches, the Mamba2 conv and SSM state and
 the mLSTM and sLSTM state in place (``models.blocks``, ``models.mamba2``,
@@ -423,16 +426,32 @@ class XentFn(torch.autograd.Function):
     counterpart of the reference's ``_xent_fused`` ``custom_vjp``.  Labels
     get no gradient.  The backward may run on autograd's device thread, so
     it re-enters the forward's plan context and rules (the mesh among
-    them) explicitly."""
+    them) explicitly.
+
+    With ``mask`` (T,) fp32 (a mesh's masked loss, ``lm_loss``) the forward
+    is the same launch weighted by the mask: the shard body returns the
+    global ``(sum of nll * mask, sum of mask)``, the loss is their quotient
+    (the denominator at least 1), and the backward's row cotangent is
+    ``mask_t / max(sum of mask, 1)``."""
 
     @staticmethod
-    def forward(ctx, logits, labels, logical_v, global_shapes=None):
+    def forward(ctx, logits, labels, logical_v, global_shapes=None,
+                mask=None):
         ctx.save_for_backward(logits, labels)
         ctx.logical_v, ctx.global_shapes = logical_v, global_shapes
         ctx.scope = (context_lib.current_context(),
                      rules_lib.current_rules(), rules_lib.current_mesh())
-        return dispatch.launch("xent", logits, labels, logical_v=logical_v,
-                               global_shapes=global_shapes)
+        if mask is None:
+            ctx.weights = None
+            return dispatch.launch("xent", logits, labels,
+                                   logical_v=logical_v,
+                                   global_shapes=global_shapes)
+        num, den = dispatch.launch("xent", logits, labels,
+                                   logical_v=logical_v,
+                                   global_shapes=global_shapes, mask=mask)
+        den = torch.clamp(den, min=1.0)
+        ctx.weights = mask / den
+        return num / den
 
     @staticmethod
     def backward(ctx, g):
@@ -444,8 +463,9 @@ class XentFn(torch.autograd.Function):
                 rules_lib.use_rules(rules, mesh):
             grad = xent_ops.xent_grad(logits, labels, g,
                                       logical_v=ctx.logical_v,
-                                      global_shapes=ctx.global_shapes)
-        return grad, None, None, None
+                                      global_shapes=ctx.global_shapes,
+                                      weights=ctx.weights)
+        return grad, None, None, None, None
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
@@ -456,21 +476,21 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, cfg: ModelConfig,
     ``xent`` kernel forward, ``xent_grad`` backward), as the reference
     launches its Pallas kernel; under a mesh the logits are this rank's
     vocab shard of ``cfg.vocab_size`` columns, and the loss the global
-    mean.  Masked, the plain math: a masked mean cannot be recovered from
-    the kernel's all-token mean (one device only).  Padded vocab columns
-    (``cfg.vocab_logical``) are masked by index."""
+    mean.  Masked on one device, the plain math, as the reference's
+    masked loss is.  Masked on a mesh, the same launch as unmasked,
+    weighted: each token's NLL from the vocab ranks' partials (B12 and the
+    combine), ``-(sum of ll * mask) / max(sum of mask, 1)`` over the
+    global tokens, the batch's mesh axes summed (``XentFn``'s ``mask``).
+    Padded vocab columns (``cfg.vocab_logical``) are masked by index."""
     v = logits.shape[-1]
     logical = getattr(cfg, "vocab_logical", 0) or cfg.vocab_size
     on_mesh = spmd_lib.spmd_mesh() is not None
-    if mask is None:
-        shapes = ((None, cfg.vocab_size), (None,)) if on_mesh else None
-        return XentFn.apply(logits.reshape(-1, v),
-                            labels.reshape(-1).to(torch.int32), logical,
-                            shapes)
-    if on_mesh:
-        raise NotImplementedError(
-            "a masked loss under a mesh of ranks is not ported (ROADMAP "
-            "A11): its plain math would see only this rank's vocab shard")
+    shapes = ((None, cfg.vocab_size), (None,)) if on_mesh else None
+    if mask is None or on_mesh:
+        return XentFn.apply(
+            logits.reshape(-1, v), labels.reshape(-1).to(torch.int32),
+            logical, shapes,
+            None if mask is None else mask.reshape(-1).to(torch.float32))
     lf = logits.to(torch.float32)
     viota = torch.arange(v, device=lf.device)
     if logical < v:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Mapping
 
 AxisTarget = str | tuple[str, ...] | None
@@ -203,8 +204,7 @@ def decode_rules(cfg, mesh) -> dict[str, AxisTarget]:
     and, where the KV heads do not divide the model ranks, the
     flash-decoding override ``{"cache_seq": ("model",), "kv_heads":
     None}``: the cache cut over its positions, the softmax's partials
-    combined across the ranks.  ``require_ported`` refuses that override on
-    a model axis of more than one rank (ROADMAP A11)."""
+    combined across the ranks (``models.blocks.decode_attention``)."""
     overrides = {}
     m = axis_sizes_of(mesh).get("model", 1)
     if cfg.n_kv_heads % m:
@@ -218,8 +218,9 @@ def require_ported(family: str, mesh,
                    recurrent: tuple[tuple[int, int], ...] = ()) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP A11 where ``rules``
     (else the ambient rules) cut a parameter axis the port does not run for
-    ``family`` over a mesh axis of more than one rank, or cut the KV
-    cache's positions ("cache_seq", flash decoding) over one.  "embed"
+    ``family`` over a mesh axis of more than one rank (a cut of the KV
+    cache's positions, "cache_seq", runs: flash decoding, where
+    ``require_cache_len`` refuses a length the cut does not divide).  "embed"
     (FSDP) runs over the batch's mesh axes only, in every family.  Tensor
     parallelism must keep off the batch's mesh axes, and the KV heads on
     the heads' axes.  ``recurrent`` lists each recurrent block's ``(heads,
@@ -235,13 +236,6 @@ def require_ported(family: str, mesh,
     def cut(ax):
         return tuple(a for a in target_axes(table.get(ax))
                      if sizes.get(a, 1) > 1)
-
-    if cut("cache_seq"):
-        raise NotImplementedError(
-            f"the rules cut 'cache_seq' over mesh axes {cut('cache_seq')}: "
-            f"flash decoding (a KV cache cut over its positions, the "
-            f"softmax's partials combined across the ranks) is not ported "
-            f"(ROADMAP A11)")
 
     ok = ("vocab", "embed") + (TENSOR_PARALLEL_AXES
                                if family in TENSOR_PARALLEL_FAMILIES else ())
@@ -282,6 +276,40 @@ def require_ported(family: str, mesh,
                 f"heads over {cut('heads')}: tensor parallelism that splits "
                 f"a recurrent head across ranks is not ported (ROADMAP "
                 f"A11)")
+
+
+def require_cache_len(d, rules: Mapping[str, AxisTarget],
+                      axis_sizes: Mapping[str, int]) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP A11, before any
+    collective, where ``rules`` cut the positions ("cache_seq") of the
+    cache leaf ``d`` (a ``ParamDef``) over mesh axes whose ranks do not
+    divide its length: each rank's block must hold ``max_len / n``
+    positions of every row (flash decoding, ``models.blocks``).  The cut a
+    decode step reads off the rules (``blocks.cache_seq_parallel``) takes
+    the slots as dividing their mesh axes; where they do not and that
+    moves the positions' cut (the batch and the positions on one axis),
+    it raises too."""
+    at = d.axes.index("cache_seq")
+    n = math.prod(int(axis_sizes.get(a, 1)) for a in axis_sizes)
+
+    def cut_of(held):
+        shape = tuple(n if ax in held else k
+                      for ax, k in zip(d.axes, d.shape))
+        s = spec(*d.axes, rules=rules, shape=shape, axis_sizes=axis_sizes)
+        return dim_axes(s, len(shape))[at]
+
+    axes = cut_of(("cache_seq",))
+    if axes != cut_of(("cache_seq", "batch")):
+        raise NotImplementedError(
+            f"the rules cut a KV cache's positions over {axes} only "
+            f"because its {d.shape[d.axes.index('batch')]} slots do not "
+            f"divide their mesh axes: not ported (ROADMAP A11)")
+    cut = spec_size(axes, axis_sizes)
+    if d.shape[at] % cut:
+        raise NotImplementedError(
+            f"the rules cut a KV cache's {d.shape[at]} positions "
+            f"('cache_seq') {cut} ways: a length the cut does not divide "
+            f"is not ported (ROADMAP A11)")
 
 
 def spec(*axes: str | None, rules: Mapping[str, AxisTarget] | None = None,

@@ -16,7 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.models.params import ParamDef, map_tree
-from repro_torch.parallel.rules import dim_axes, spec, spec_size
+from repro_torch.parallel.rules import (
+    dim_axes,
+    require_cache_len,
+    spec,
+    spec_size,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +68,19 @@ def cache_specs(cache_defs_tree, rules, axis_sizes=None) -> dict:
     "kv_heads" alone, the page table, ``act`` and ``idx`` on "batch", the
     recurrent state on "batch" and "heads" or "mlp", the encoder-decoder's
     cross K/V on "batch" and "kv_heads"; a dim that does not divide stays
-    whole, as a parameter's does."""
-    return map_tree(lambda d: spec(*d.axes, rules=rules, shape=d.shape,
-                                   axis_sizes=axis_sizes), cache_defs_tree)
+    whole, as a parameter's does.  Where the rules cut a dense KV cache's
+    positions ("cache_seq", flash decoding) a rank's block holds
+    ``max_len / n`` of them: a ``max_len`` that n does not divide raises
+    ``NotImplementedError`` naming ROADMAP A11
+    (``rules.require_cache_len``)."""
+
+    def one(d):
+        if "cache_seq" in d.axes and axis_sizes:
+            require_cache_len(d, rules, axis_sizes)
+        return spec(*d.axes, rules=rules, shape=d.shape,
+                    axis_sizes=axis_sizes)
+
+    return map_tree(one, cache_defs_tree)
 
 
 def batch_specs(batch_tree, rules, axis_sizes=None) -> dict:

@@ -248,6 +248,15 @@ class ContinuousBatcher:
         self.rules, self._data_axes = table, data
         self.cache_specs = specs_lib.cache_specs(defs, table,
                                                  ranks.axis_sizes)
+        if self.geometry is not None and hasattr(self.model, "cache_defs"):
+            # the paged view is read over the dense cache's split of its
+            # positions (flash decoding): refuse, before any collective, a
+            # page table whose positions that split does not divide
+            g = self.geometry
+            span = -(-self.max_len // g.page_len) * g.page_len
+            specs_lib.cache_specs(self.model.cache_defs(self.padded_slots,
+                                                        span),
+                                  table, ranks.axis_sizes)
         rows = self.padded_slots // ranks.axis_size(data)
         self._lo = ranks.index(data) * rows
         self._hi = self._lo + rows

@@ -1,5 +1,5 @@
-"""What the port still refuses on a mesh of ranks, and what it now runs,
-for the family tests (``tests/test_torch_{moe,vlm,encdec,hybrid,xlstm}.py``).
+"""What the port runs on a mesh of ranks, and what it still refuses, for
+the family tests (``tests/test_torch_{moe,vlm,encdec,hybrid,xlstm}.py``).
 
 ``Ranks`` is a mesh as the model's checks see it, without ranks: each
 refusal raises before any collective, so no process is spawned for it.
@@ -16,9 +16,9 @@ from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import mesh_checks, serve
 from repro_torch.launch import train as train_launch
-from repro_torch.models import build_model, transformer
-from repro_torch.models.params import init_params, map_leaves
-from repro_torch.parallel import rules
+from repro_torch.models import build_model
+from repro_torch.models.params import leaves, map_leaves
+from repro_torch.parallel import rules, steps
 
 AXES = ("data", "model")
 # the parameter leaves tensor parallelism and the vocab cut: the
@@ -89,19 +89,23 @@ class Ranks:
         return 0
 
 
-def assert_mesh_refusals(cfg):
-    """On a mesh of two ranks: the masked loss raises
-    ``NotImplementedError`` naming ROADMAP A11 under the launchers' rules,
-    and so does a decode step whose rules cut the KV cache's positions
-    ("cache_seq", flash decoding), both before any collective (no process
-    is spawned for them); and a decode step now runs under
-    ``rules.decode_rules`` (decoding on a mesh is ported, ROADMAP A11.5):
-    two teacher-forced steps on a (1, 2) mesh of gloo ranks on the CPU
-    (``launch.mesh_checks.serve``), each step's logits, gathered over the
-    vocab ranks, within 1e-5 of their largest magnitude of one device's
-    (a tensor-parallel sum reorders fp32 additions;
-    tests/test_torch_serve_mesh.py holds every family on three meshes).
-    FSDP's rules run since FSDP is ported (``tests/test_torch_fsdp.py``)."""
+def assert_mesh_runs(cfg):
+    """On a mesh of two ranks (ROADMAP A11.5): a KV cache of a length the
+    flash-decoding cut does not divide raises ``NotImplementedError``
+    naming ROADMAP A11 before any collective (no process is spawned for
+    it; a family with no KV cache has nothing to cut); then, on a (1, 2)
+    mesh of gloo ranks on the CPU (``launch.mesh_checks``), two
+    teacher-forced decode steps under ``rules.decode_rules`` and again
+    under the flash-decoding override ``{"cache_seq": ("model",),
+    "kv_heads": None}`` (the cache's positions cut over the two ranks, the
+    softmax's partials combined), each step's logits, gathered over the
+    vocab ranks, within 1e-5 of their largest magnitude of one device's (a
+    tensor-parallel sum reorders fp32 additions;
+    tests/test_torch_serve_mesh.py and tests/test_torch_flash_decode.py
+    hold the families on more meshes), and the masked loss under the
+    launchers' rules and its gradient, every leaf within 1e-5 of its
+    largest magnitude of one device's.  FSDP's rules run since FSDP is
+    ported (``tests/test_torch_fsdp.py``)."""
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=4, global_batch=2,
@@ -109,39 +113,50 @@ def assert_mesh_refusals(cfg):
                       n_frames=cfg.n_frames if cfg.family == "encdec" else 0,
                       d_model=cfg.d_model)
     batch = make_batch(data, 0, device="cpu")
-    cache = init_params(0, model.cache_defs(2, 8), device="cpu")
     mesh = Ranks((1, 2))
-    with api.plan_context(mesh=mesh), \
-            rules.use_rules(rules.launcher_rules(cfg), mesh):
-        logits = torch.zeros((2, 4, cfg.vocab_size))
-        with pytest.raises(NotImplementedError, match="masked loss .* A11"):
-            transformer.lm_loss(logits, batch["labels"], cfg,
-                                torch.ones((2, 4)))
     flash = rules.make_rules(overrides={"cache_seq": ("model",),
                                         "kv_heads": None})
-    with api.plan_context(mesh=mesh), rules.use_rules(flash, mesh):
-        with pytest.raises(NotImplementedError,
-                           match="'cache_seq' .* flash decoding .* A11"):
-            model.decode_step(params, cache, batch["tokens"][:, :1])
+    if cfg.family != "ssm":
+        with api.plan_context(mesh=mesh), rules.use_rules(flash, mesh):
+            with pytest.raises(NotImplementedError,
+                               match="7 positions .* 2 ways.* A11"):
+                serve.mesh_cache(model, model.cache_defs(2, 7), "cpu")
+    mask = np.array([[1, 0, 1, 1], [0, 1, 1, 0]], np.float32)
 
     tokens = batch["tokens"][:, :2].to(torch.int32)
     frames = batch.get("frames")
+    tree = map_leaves(interop.to_numpy, params)
+    serve_kw = dict(cfg=cfg, tree=tree, kv_caches=(), replay=tokens.numpy(),
+                    frames=None if frames is None else frames.numpy())
     ranks = mesh_lib.spawn(mesh_checks.run, (1, 2), AXES, device="cpu",
-                           args=([("serve", dict(
-                               cfg=cfg, tree=map_leaves(interop.to_numpy,
-                                                        params),
-                               kv_caches=(), replay=tokens.numpy(),
-                               frames=(None if frames is None
-                                       else frames.numpy())))],))
+                           args=([("serve", serve_kw),
+                                  ("serve", dict(serve_kw, rules=flash)),
+                                  ("seeded_grads", dict(
+                                      cfg=cfg, seed=0, data_cfg=data,
+                                      mask=mask))],))
     with torch.inference_mode():
         want = serve.teacher_forced_logits(model, params, tokens,
                                            frames=frames)
     scale = float(want.abs().max())
     for r in ranks:
-        got = r[0]["replay"]
-        assert got.shape == want.shape == (2, 2, cfg.vocab_size)
-        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
-                                   atol=1e-5 * scale)
+        for got in (r[0]["replay"], r[1]["replay"]):
+            assert got.shape == want.shape == (2, 2, cfg.vocab_size)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                       atol=1e-5 * scale)
+    loss, grads = steps.value_and_grad(
+        model, params, dict(batch, mask=torch.from_numpy(mask)))
+    for r in ranks:
+        assert r[2]["loss0"] == pytest.approx(float(loss), rel=1e-5)
+    for path, g in leaves(grads):
+        if g is None:       # an integer leaf (the MoE's perm tables)
+            continue
+        spec_, blocks = ranks[0][2]["specs"], [r[2]["grads0"] for r in ranks]
+        for k in path:
+            spec_, blocks = spec_[k], [b[k] for b in blocks]
+        want_g = g.numpy()
+        np.testing.assert_allclose(
+            assemble([b.numpy() for b in blocks], spec_, (1, 2)), want_g,
+            rtol=0, atol=1e-5 * float(np.abs(want_g).max()) + 1e-12)
 
 
 def assert_launcher_trains_on_a_mesh(arch, shape, ckpt_dir):

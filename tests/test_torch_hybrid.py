@@ -59,7 +59,7 @@ from repro_torch.models import blocks, build_model, mamba2
 from repro_torch.models.params import init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
-from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_runs
 
 ARCH = "zamba2-1.2b"
 LOGITS = dict(rtol=1e-4, atol=1e-5)
@@ -540,13 +540,14 @@ def test_slot_reset_zeroes_the_reused_slots_ssm_and_conv_rows():
 
 
 def test_a_mesh_with_a_model_axis_refuses_the_hybrid(tmp_path):
-    """The hybrid on a mesh: the masked loss and a cut of the cache's
-    positions are refused (ROADMAP A11), a decode step runs
-    (tests/test_torch_serve_mesh.py serves it on three meshes); the vocab-
+    """The hybrid on a mesh (ROADMAP A11.5): the masked loss, a decode step
+    and a cut of the shared block's cache positions run, and a cache length
+    that cut does not divide is refused (``_torch_mesh.assert_mesh_runs``;
+    tests/test_torch_serve_mesh.py serves it on three meshes); the vocab-
     parallel training on a model axis runs (tests/test_torch_mesh_families.py
     holds it to the reference), and so does FSDP (tests/test_torch_fsdp.py)."""
     _, cfg = configs()
-    assert_mesh_refusals(cfg)
+    assert_mesh_runs(cfg)
     assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)
 
 

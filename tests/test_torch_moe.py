@@ -52,7 +52,7 @@ from repro_torch.models.config import FAMILIES
 from repro_torch.models.params import ParamDef, init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
-from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_runs
 
 ARCH = "qwen3-moe-30b-a3b"
 GROK = "grok-1-314b"
@@ -650,15 +650,16 @@ def test_serving_paged_equals_dense_and_isolated_at_cf_16():
 
 
 def test_a_mesh_of_more_than_one_rank_refuses_the_moe_family(tmp_path):
-    """The moe family on a mesh: the masked loss and a cut of the cache's
-    positions are refused (ROADMAP A11), a decode step runs
-    (tests/test_torch_serve_mesh.py serves it on three meshes); training on a
+    """The moe family on a mesh (ROADMAP A11.5): the masked loss, a decode
+    step and a cut of the cache's positions run, and a cache length that
+    cut does not divide is refused (``_torch_mesh.assert_mesh_runs``;
+    tests/test_torch_serve_mesh.py serves it on three meshes); training on a
     data axis runs, ranking capacity over the global batch, and on a model
     axis with the experts split by rank (tests/test_torch_mesh_families.py and
     tests/test_torch_tp.py hold both to the reference), and under FSDP
     (tests/test_torch_fsdp.py)."""
     _, cfg = configs()
-    assert_mesh_refusals(cfg)
+    assert_mesh_runs(cfg)
     assert_launcher_trains_on_a_mesh(ARCH, "2x1", tmp_path)
 
 

@@ -42,10 +42,11 @@ imports nothing of JAX).  Held:
   * the greedy token across the vocab ranks breaks ties to the lowest
     global column, as ``torch.argmax`` does on one device;
   * ``launch.serve --mesh 2x2 --device cpu``;
-  * the refusals: a cut of the cache's positions (the flash-decoding
-    override ``decode_rules`` gives the reduced qwen2-0.5b's 2 KV heads on
-    a model axis of 4) and a query-head cut with the KV heads whole raise
-    ``NotImplementedError`` naming A11 before any collective;
+  * the flash-decoding override ``decode_rules`` gives the reduced
+    qwen2-0.5b's 2 KV heads on a model axis of 4 passes the guard and cuts
+    the cache's positions (tests/test_torch_flash_decode.py runs it); a
+    cache length that cut does not divide raises ``NotImplementedError``
+    naming A11 before any collective;
   * the batcher plans under its mesh (the reference's
     tests/test_api.py::TestCallSiteMeshThreading batcher tests).
 """
@@ -445,27 +446,32 @@ def test_cache_specs_cut_the_rows_and_the_heads():
 
 def test_flash_decoding_and_a_whole_kv_head_cut_raise_before_any_collective():
     """The reduced qwen2-0.5b (4 heads, 2 KV heads) on a model axis of 4:
-    ``decode_rules`` gives the flash-decoding override, and a decode step
-    raises naming A11 ("cache_seq"); with the KV heads left whole under
-    the launchers' rules instead, a decode step raises too.  ``Ranks`` has
-    no collectives: both raise before one."""
+    ``decode_rules`` gives the flash-decoding override, which runs since
+    flash decoding is ported (tests/test_torch_flash_decode.py serves it):
+    the rules pass ``require_ported``, a rank's dense cache holds a quarter
+    of the positions of every KV head, and a cache whose length the cut
+    does not divide raises ``NotImplementedError`` naming A11 before any
+    collective.  With the KV heads left whole under the launchers' rules
+    instead, a decode step's query heads are a rank's and its cache keeps
+    every KV head (no raise).  ``Ranks`` has no collectives."""
     cfg = configs("dense")[1]
     model = build_model(cfg)
-    params = model.init(0, device="cpu")
-    cache = init_params(0, model.cache_defs(2, 8), device="cpu")
-    tokens = torch.ones((2, 1), dtype=torch.int32)
     mesh = Ranks((1, 4))
     table = rules.decode_rules(cfg, mesh.axis_sizes)
     assert table["cache_seq"] == ("model",) and table["kv_heads"] is None
+    rules.require_ported(cfg.family, mesh, table)
+    cs = specs.cache_specs(model.cache_defs(2, 8), table, mesh.axis_sizes)
+    assert cs["s00_dense"]["k"] == (None, "data", None, "model")
     with api.plan_context(mesh=mesh), rules.use_rules(table, mesh):
         with pytest.raises(NotImplementedError,
-                           match="'cache_seq' .* flash decoding .* A11"):
-            model.decode_step(params, cache, tokens)
+                           match="6 positions .* 4 ways.* A11"):
+            serve.mesh_cache(model, model.cache_defs(2, 6), CPU)
     with api.plan_context(mesh=mesh), \
             rules.use_rules(rules.make_rules(), mesh):
-        with pytest.raises(NotImplementedError,
-                           match="KV heads whole .* A11"):
-            model.decode_step(params, cache, tokens)
+        from repro_torch.models import blocks
+
+        assert blocks.decode_parallel(cfg)[1] == ("model",)
+        assert blocks.cache_seq_parallel(cfg) == (None, ())
 
 
 def test_decode_tick_steps_every_slot_outside_the_schedule():

@@ -38,7 +38,7 @@ from repro_torch.models import LM, build_model
 from repro_torch.models.params import leaves
 from repro_torch.parallel import steps
 from repro_torch.parallel.steps import make_prefill_step
-from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_runs
 
 ARCH = "pixtral-12b"
 CPU = dict(device="cpu")
@@ -228,11 +228,13 @@ def test_train_launcher_runs_pixtral_on_the_cpu(tmp_path):
 
 
 def test_vlm_on_a_mesh_raises(tmp_path):
-    """The vlm on a mesh: the masked loss and a cut of the cache's positions
-    raise (ROADMAP A11), a decode step runs (tests/test_torch_serve_mesh.py
-    serves it on three meshes); training runs, a rank on its rows of the image
+    """The vlm on a mesh (ROADMAP A11.5): the masked loss, a decode step and
+    a cut of the cache's positions run, and a cache length that cut does not
+    divide raises (``_torch_mesh.assert_mesh_runs``;
+    tests/test_torch_serve_mesh.py serves it on three meshes); training runs,
+    a rank on its rows of the image
     embeddings, tensor-parallel on a model axis
     (tests/test_torch_mesh_families.py holds it to the reference), and under
     FSDP (tests/test_torch_fsdp.py)."""
-    assert_mesh_refusals(reduce_for_smoke(get_config(ARCH)))
+    assert_mesh_runs(reduce_for_smoke(get_config(ARCH)))
     assert_launcher_trains_on_a_mesh(ARCH, "2x1", tmp_path)

@@ -56,7 +56,7 @@ from repro_torch.models import build_model, xlstm
 from repro_torch.models.params import ParamDef, init_params, leaves
 from repro_torch.parallel import steps
 from repro_torch.serving import ContinuousBatcher, Request
-from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_refusals
+from _torch_mesh import assert_launcher_trains_on_a_mesh, assert_mesh_runs
 
 ARCH = "xlstm-1.3b"
 LOGITS = dict(rtol=1e-4, atol=1e-5)
@@ -656,13 +656,14 @@ def test_greedy_tokens_equal_across_frameworks():
 
 
 def test_a_mesh_with_a_model_axis_refuses_the_ssm_family(tmp_path):
-    """The ssm family on a mesh: the masked loss and a cut of the cache's
-    positions are refused (ROADMAP A11), a decode step runs
-    (tests/test_torch_serve_mesh.py serves it on three meshes); the vocab-
+    """The ssm family on a mesh (ROADMAP A11.5): the masked loss and a
+    decode step run, under the flash-decoding rules too (the family has no
+    KV cache to cut; ``_torch_mesh.assert_mesh_runs``;
+    tests/test_torch_serve_mesh.py serves it on three meshes); the vocab-
     parallel training on a model axis runs (tests/test_torch_mesh_families.py
     holds it to the reference), and so does FSDP (tests/test_torch_fsdp.py)."""
     _, cfg = configs()
-    assert_mesh_refusals(cfg)
+    assert_mesh_runs(cfg)
     assert_launcher_trains_on_a_mesh(ARCH, "1x2", tmp_path)
 
 
@@ -689,3 +690,64 @@ def test_cache_defs_declare_the_batch_axis_of_every_state_leaf():
             assert isinstance(d, ParamDef)
             assert d.axes[:2] == ("layers", "batch"), name
             assert d.shape[:2] == (2, 3), name
+
+
+def test_a_near_tie_of_the_mlstm_floor_flips_its_gradient():
+    """ROADMAP §C Open 2: the xlstm-1.3b (1, 2) mesh's step-0 gradient norm
+    at 2 x 512 tokens lay 2.5e-4 from one device's on the card, where both
+    losses agree, because one element of layer 5's second chunk sat 1.87e-5
+    (relative) from the tie of the mLSTM's floor ``max(|q . n|,
+    exp(-m))`` (``xlstm._chunk``; the reference's
+    ``src/repro/models/xlstm.py:148`` takes the same max), and the two
+    runs' roundings (4.8e-5 of a layer's output) put it on either side
+    (``scripts/xlstm_norm_gap.py``).  The function is continuous there and
+    its gradient is not: with ``|den_i|`` a relative 1e-9 above and below
+    ``exp(-m_i)`` in fp64, the chunk's output moves by about 1e-9 while
+    the gradient of its inputs jumps by exactly ``|g_i . h_i| * ||grad(log
+    |den_i| + m_i)||`` (g the output's cotangent), the bound a flip puts on
+    the gradient's change, whatever the device."""
+    rng = np.random.default_rng(0)
+    b, l, h, p, i = 1, 8, 1, 4, 5
+    f64 = dict(dtype=torch.float64)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, l, h, p)))
+               for _ in range(3))
+    li = torch.from_numpy(rng.standard_normal((b, l, h)))
+    bc = torch.cumsum(torch.nn.functional.logsigmoid(
+        torch.from_numpy(2 + rng.standard_normal((b, l, h)))), dim=1)
+    c0, n0 = torch.zeros((b, h, p, p), **f64), torch.zeros((b, h, p), **f64)
+    m0 = torch.full((b, h), -1e30, **f64)
+    causal = torch.ones((l, l), dtype=torch.bool).tril()
+    g = torch.from_numpy(rng.standard_normal((b, l, h, p)))
+
+    def den_and_m(qq, kk, ll, bb):
+        u = torch.maximum(m0[:, None], torch.cummax(ll - bb, dim=1).values)
+        m = bb + u
+        w = torch.exp(torch.where(causal[None, :, :, None],
+                                  bb[:, :, None] - bb[:, None] + ll[:, None]
+                                  - m[:, :, None], float("-inf")))
+        return torch.einsum("bihp,bihp->bih", qq,
+                            torch.einsum("bijh,bjhp->bihp", w, kk)), m
+
+    den, m = den_and_m(q, k, li, bc)
+    # q_i scaled so that |den_i| = exp(-m_i) (1 + s 1e-9): m is q's free
+    tie = torch.exp(-m[0, i, 0]) / den[0, i, 0].abs()
+    runs = []
+    for s in (1, -1):
+        qs = q.clone()
+        qs[0, i] = q[0, i] * tie * (1 + s * 1e-9)
+        ins = [t.clone().requires_grad_(True) for t in (qs, k, v, li, bc)]
+        out = xlstm._chunk(c0, n0, m0, ins[0], ins[1], ins[2], ins[3],
+                           ins[4], causal)[3]
+        runs.append((out.detach(), torch.autograd.grad(out, ins, g), ins))
+    (h_up, g_up, ins), (h_dn, g_dn, _) = runs
+    jump = torch.sqrt(sum(((a - c) ** 2).sum() for a, c in zip(g_up, g_dn)))
+    scale = torch.sqrt(sum((a ** 2).sum() for a in g_up))
+    assert float((h_up - h_dn).abs().max() / h_up.abs().max()) < 1e-8
+    assert float(jump / scale) > 1e-2
+    d, mm = den_and_m(ins[0], ins[1], ins[3], ins[4])
+    grads = torch.autograd.grad(torch.log(d[0, i, 0].abs()) + mm[0, i, 0],
+                                ins, allow_unused=True,
+                                materialize_grads=True)
+    bound = abs(float((g[0, i, 0] * h_up[0, i, 0]).sum())) * float(
+        torch.sqrt(sum((a ** 2).sum() for a in grads)))
+    assert float(jump) == pytest.approx(bound, rel=1e-5)
