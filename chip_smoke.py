@@ -8,6 +8,18 @@ Phases, each fatal on failure:
   2. build every kernel source with nvcc (one process per source, in
      parallel) and print the seconds, ptxas's registers, static shared
      memory and spills of every STREAM and RMSNorm instantiation;
+  1 obs. the observability bus on the card (``phase1_obs``): the
+     sequence of ``scripts/torch_obs_smoke.py`` (two
+     ``api.launch("stream.scale")``, B2, and one ``plan_for`` under a
+     ``JsonlSink`` session), fatal unless the stream holds at least 3
+     plan records with a miss and a hit and a launch with no session
+     makes no sink call.  Phases 3b (its paged run), 3c (both ``Trainer``
+     runs) and 3d (its first launch, ``--obs-jsonl``, rank 0 writing)
+     stream too, each gated on its records (``obs:`` lines; 3b also
+     prints a decode tick's host ms with no session and with a ring and a
+     JSONL session), and after 3d ``python -m repro_torch.obs.report
+     --fail-on-validation`` over the four streams must exit 0 (its
+     summary on ``obs report:`` lines);
   3. the main path at real size through ``repro_torch.api.launch``:
      STREAM copy/scale/add/triad and the Schoenauer triad at n = 2**27
      (fp32 and bf16) and at one ragged n, a phase sweep of
@@ -373,6 +385,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -441,6 +454,12 @@ SERVE_MESH_DIR = ROOT / "build" / "chip_smoke_serve_mesh"
 FLASH_ARCH, FLASH_MESH, FLASH_LAYERS = "qwen2-0.5b", "1x4", 2
 FLASH_DIR = ROOT / "build" / "chip_smoke_flash"
 GATED_SHAPE = (2048, 4096)  # the d_inner of a zamba2-1.2b Mamba2 block
+# the obs event streams of phases 1, 3b, 3c and 3d (ROADMAP A7.1), read
+# back by the gates and by ``python -m repro_torch.obs.report``
+OBS_DIR = ROOT / "build" / "chip_smoke_obs"
+# host_ms rounds of a decode tick with no obs session, a RingBufferSink
+# session and a JsonlSink session, in turns (10 calls a reading)
+OBS_TICK_ROUNDS = 5
 SEED = 0
 # training at full Qwen2-0.5B width, depth cut to TRAIN_LAYERS of its 24
 # layers for phase 3k's seconds (a run's five saves, and the (1, 2)
@@ -885,6 +904,63 @@ def tol(dtype) -> tuple[float, float]:
     return (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-6)
 
 
+def read_stream(path) -> list[dict]:
+    """The records of a ``JsonlSink`` stream, one a line."""
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def kind_counts(records) -> dict[str, int]:
+    out: dict[str, int] = {}
+    for r in records:
+        out[r["kind"]] = out.get(r["kind"], 0) + 1
+    return out
+
+
+def check_serve_stream(ring, batcher, reqs, records) -> None:
+    """Phase 3b's gates on the paged run's obs stream (``ring`` in memory,
+    ``records`` read back from its file): a ``batcher_tick`` a tick, an
+    admission for every request, the preemptions of ``preemption_log`` in
+    its order, a page-pool record a tick whose pages add up, and no
+    abandoned request; prints the ``obs:`` line."""
+    if [r["kind"] for r in records] != [e.kind for e in ring.events()]:
+        fail("obs: serve: the file's records are not the ring's events")
+    by = {k: [r for r in records if r["kind"] == k] for k in
+          ("batcher_tick", "admission", "preemption", "page_pool", "plan",
+           "request_abandoned")}
+    if [r["tick"] for r in by["batcher_tick"]] != list(
+            range(1, batcher.ticks + 1)):
+        fail(f"obs: serve: {len(by['batcher_tick'])} batcher_tick records "
+             f"for {batcher.ticks} ticks")
+    rids = sorted(r["rid"] for r in by["admission"])
+    if set(rids) != {r.rid for r in reqs}:
+        fail(f"obs: serve: admissions {rids} do not cover the requests "
+             f"{[r.rid for r in reqs]}")
+    got = [(r["rid"], r["reason"]) for r in by["preemption"]]
+    if got != [tuple(p) for p in batcher.preemption_log]:
+        fail(f"obs: serve: preemption records {got} != preemption_log "
+             f"{batcher.preemption_log}")
+    if len(by["page_pool"]) != batcher.ticks:
+        fail(f"obs: serve: {len(by['page_pool'])} page_pool records for "
+             f"{batcher.ticks} ticks")
+    for r in by["page_pool"]:
+        if r["used_pages"] + r["free_pages"] != r["live_pages"]:
+            fail(f"obs: serve: page_pool record {r}: used + free != live")
+    if by["request_abandoned"]:
+        fail(f"obs: serve: {len(by['request_abandoned'])} request_abandoned "
+             f"records")
+    hits = sum(r["cache"] == "hit" for r in by["plan"])
+    print(f"obs: phase 3b paged serve stream: {len(records)} records "
+          f"{kind_counts(records)}; "
+          f"{len(by['plan']) / batcher.micro_steps:.2f} plan records a "
+          f"decode step over {batcher.micro_steps} steps ({hits} hits, "
+          f"{len(by['plan']) - hits} misses); batcher_tick = ticks "
+          f"({batcher.ticks}), admissions cover all {len(reqs)} requests "
+          f"({len(rids)} with replays), preemptions = preemption_log "
+          f"({len(got)}), used + free = live pages on every page_pool "
+          f"record, no request_abandoned: ok")
+
+
 def serving_phase() -> tuple[dict[str, int], dict]:
     """Phase 3b: continuous-batching serving at full Qwen3-4B width
     (``SERVE_LAYERS`` of its 36 layers), a
@@ -899,7 +975,7 @@ def serving_phase() -> tuple[dict[str, int], dict]:
     import numpy as np
     import torch
 
-    from repro_torch import api
+    from repro_torch import api, obs
     from repro_torch.configs import get_config
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.launch.serve import make_requests, teacher_forced_logits
@@ -915,16 +991,20 @@ def serving_phase() -> tuple[dict[str, int], dict]:
     per_step = 2 * cfg.n_layers + 1      # ln1 + ln2 a layer, the final norm
     counts = {"rmsnorm": 0, "rmsnorm.gated": 0}
 
-    def serve(kv, subset):
-        batcher = ContinuousBatcher(model, params, slots=SERVE_SLOTS,
-                                    max_len=SERVE_MAX_LEN, kv_cache=kv,
-                                    prefill_chunk=SERVE_CHUNK)
-        torch.cuda.synchronize()
-        rms_kernel.LAUNCHES["plain"] = 0
-        t0 = time.perf_counter()
-        out = batcher.run([Request(r.rid, list(r.prompt), r.max_new_tokens)
-                           for r in subset])
-        torch.cuda.synchronize()
+    def serve(kv, subset, sinks=()):
+        """The requests of ``subset`` served with the ``kv`` cache, under an
+        obs session delivering to ``sinks`` where any are given."""
+        scope = obs.session(*sinks) if sinks else contextlib.nullcontext()
+        with scope:
+            batcher = ContinuousBatcher(model, params, slots=SERVE_SLOTS,
+                                        max_len=SERVE_MAX_LEN, kv_cache=kv,
+                                        prefill_chunk=SERVE_CHUNK)
+            torch.cuda.synchronize()
+            rms_kernel.LAUNCHES["plain"] = 0
+            t0 = time.perf_counter()
+            out = batcher.run([Request(r.rid, list(r.prompt),
+                                       r.max_new_tokens) for r in subset])
+            torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launched = rms_kernel.LAUNCHES["plain"]
         counts["rmsnorm"] += launched
@@ -936,9 +1016,15 @@ def serving_phase() -> tuple[dict[str, int], dict]:
                  f"{batcher.micro_steps} decode steps (< {per_step} a step)")
         return batcher, out, secs, launched
 
+    # the paged run streams to the obs bus, the dense one runs outside any
+    # session: paged = dense below also holds that the session changes no
+    # token
+    ring = obs.RingBufferSink(capacity=1 << 20)
+    jsonl = obs.JsonlSink(OBS_DIR / "serve.jsonl")
     runs = {}
     for kv in ("paged", "dense"):
-        batcher, out, secs, launched = serve(kv, reqs)
+        batcher, out, secs, launched = serve(
+            kv, reqs, (jsonl, ring) if kv == "paged" else ())
         runs[kv] = (batcher, out)
         tokens = sum(len(v) for v in out.values())
         page = batcher.geometry.page_len if batcher.geometry else None
@@ -956,6 +1042,9 @@ def serving_phase() -> tuple[dict[str, int], dict]:
         fail(f"serve: paged tokens differ from dense for requests {bad}")
     print(f"serve: paged tokens equal dense tokens for all "
           f"{SERVE_REQUESTS} requests")
+    jsonl.close()
+    check_serve_stream(ring, runs["paged"][0], reqs,
+                       read_stream(OBS_DIR / "serve.jsonl"))
     for rid in (0, 1):
         _, alone, _, _ = serve("paged", [reqs[rid]])
         if alone[rid] != runs["paged"][1][rid]:
@@ -975,6 +1064,28 @@ def serving_phase() -> tuple[dict[str, int], dict]:
     device_profile(f"decode tick {SERVE_ARCH} ({cfg.n_layers} layers) "
                    f"{SERVE_SLOTS} slots paged "
                    f"max_len {SERVE_MAX_LEN}", tick, top=8)
+    # the bus's cost on this host-bound tick: host ms to enqueue one tick
+    # with no session (the default: one enabled() scan a plan_for), in a
+    # RingBufferSink session (a PlanEvent built a launch) and in a
+    # JsonlSink session (its record also written and flushed), in turns
+    tick_sink = obs.JsonlSink(OBS_DIR / "tick.jsonl")
+    scopes = {"none": (), "ring": (obs.RingBufferSink(),),
+              "jsonl": (tick_sink,)}
+    readings = {k: [] for k in scopes}
+    for _ in range(OBS_TICK_ROUNDS):
+        for k, sinks in scopes.items():
+            with obs.session(*sinks) if sinks else contextlib.nullcontext():
+                readings[k].append(host_ms(tick))
+    tick_sink.close()
+    plans = tick_sink.emitted / (OBS_TICK_ROUNDS * 11)
+    med = {k: statistics.median(v) for k, v in readings.items()}
+    print(f"obs: decode tick host_ms, median of {OBS_TICK_ROUNDS} readings "
+          f"of 10 calls in turns: no session {med['none']:.4f}, a "
+          f"RingBufferSink session {med['ring']:.4f} "
+          f"({med['ring'] - med['none']:+.4f}), a JsonlSink session "
+          f"{med['jsonl']:.4f} ({med['jsonl'] - med['none']:+.4f}); "
+          f"{plans:.2f} plan records a tick; readings "
+          + str({k: [round(x, 4) for x in v] for k, v in readings.items()}))
     # phase 3l's replay input and its one-device logits
     streams = np.array([(r.prompt + runs["paged"][1][r.rid])[:REPLAY_STEPS]
                         for r in reqs[:SERVE_SLOTS]], dtype=np.int32)
@@ -2572,6 +2683,29 @@ def multimodal_phase() -> tuple[dict[str, int], list[dict]]:
     return counts, whisper_metrics
 
 
+def check_train_stream(records, metrics, checkpoints) -> None:
+    """Phase 3c's gates on its two ``Trainer`` runs' obs stream: one
+    ``train_step`` record a step, its loss and gradient norm equal bit for
+    bit to ``Trainer.metrics``, and the ``checkpoint`` records exactly
+    ``checkpoints`` ((step, action) in order: the first run's saves, the
+    round trip's restore, its saves); prints the ``obs:`` line."""
+    steps = [(r["step"], r["loss"], r["grad_norm"]) for r in records
+             if r["kind"] == "train_step"]
+    want = [(m["step"], m["loss"], m["grad_norm"]) for m in metrics]
+    if steps != want:
+        fail(f"obs: train: train_step records {steps} != Trainer.metrics "
+             f"{want}")
+    got = [(r["step"], r["action"]) for r in records
+           if r["kind"] == "checkpoint"]
+    if got != checkpoints:
+        fail(f"obs: train: checkpoint records {got} != the saves and the "
+             f"restore {checkpoints}")
+    print(f"obs: phase 3c train stream: {len(records)} records "
+          f"{kind_counts(records)}; {len(steps)} train_step records equal "
+          f"to Trainer.metrics bit for bit (loss, grad_norm); checkpoint "
+          f"records {got}: ok")
+
+
 def training_phase() -> tuple[dict[str, int], list[float]]:
     """Phase 3c: training at full Qwen2-0.5B width, with a checkpoint round
     trip.  Each kernel counter is zeroed just before a training run and
@@ -2583,7 +2717,7 @@ def training_phase() -> tuple[dict[str, int], list[float]]:
 
     import torch
 
-    from repro_torch import interop
+    from repro_torch import interop, obs
     from repro_torch.configs import get_config, get_schedule, reduce_for_smoke
     from repro_torch.interop import numpy_params
     from repro_torch.data.pipeline import DataConfig, make_batch
@@ -2696,11 +2830,14 @@ def training_phase() -> tuple[dict[str, int], list[float]]:
         for f in os.listdir(TRAIN_DIR / "run" / name):
             os.link(TRAIN_DIR / "run" / name / f, replay_dir / name / f)
 
+    # both runs stream to one obs file (checked after the round trip)
+    stream = obs.JsonlSink(OBS_DIR / "train.jsonl")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rms_kernel.LAUNCHES["plain"] = 0
     xent_kernel.LAUNCHES["xent"] = 0
-    metrics = run.train(SEED, fail_injector=keep_step)
+    with obs.session(stream):
+        metrics = run.train(SEED, fail_injector=keep_step)
     launched = {"rmsnorm": rms_kernel.LAUNCHES["plain"],
                 "xent": xent_kernel.LAUNCHES["xent"]}
     peak = torch.cuda.max_memory_allocated()
@@ -2734,6 +2871,7 @@ def training_phase() -> tuple[dict[str, int], list[float]]:
           f"({launched['rmsnorm'] / TRAIN_STEPS:.0f} rmsnorm a step, remat "
           f"recompute included)")
 
+    saves = [(s["step"], "save") for s in run.saves]
     # one step, profiled
     state = run.state
     batch = make_batch(data, TRAIN_STEPS)
@@ -2757,7 +2895,13 @@ def training_phase() -> tuple[dict[str, int], list[float]]:
 
     rms_kernel.LAUNCHES["plain"] = 0
     xent_kernel.LAUNCHES["xent"] = 0
-    replayed = again.train(SEED, fail_injector=compare_restored)
+    with obs.session(stream):
+        replayed = again.train(SEED, fail_injector=compare_restored)
+    stream.close()
+    saves += [(TRAIN_CKPT_EVERY, "restore")] + [(s["step"], "save")
+                                                for s in again.saves]
+    check_train_stream(read_stream(OBS_DIR / "train.jsonl"),
+                       metrics + replayed, saves)
     launched["rmsnorm"] += rms_kernel.LAUNCHES["plain"]
     launched["xent"] += xent_kernel.LAUNCHES["xent"]
     if saved:
@@ -3574,13 +3718,37 @@ def print_profile(label: str, prof: dict) -> None:
           + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, ms, n in prof["top"]))
 
 
+def check_mesh_stream(records, ranks: list[dict]) -> None:
+    """Phase 3d's gates on a ``launch.train --mesh --obs-jsonl`` run's
+    stream: one ``train_step`` record a step with rank 0's losses, every
+    record rank 0's, and no other rank's bus listening; prints the
+    ``obs:`` line."""
+    got = [(r["step"], r["loss"]) for r in records
+           if r["kind"] == "train_step"]
+    want = [(m["step"], m["loss"]) for m in ranks[0]["metrics"]]
+    if got != want:
+        fail(f"obs: spmd: train_step records {got} != rank 0's metrics "
+             f"{want}")
+    if ranks[0]["obs"]["records"] != len(records):
+        fail(f"obs: spmd: the file holds {len(records)} records, rank 0 "
+             f"wrote {ranks[0]['obs']['records']}")
+    others = {r["rank"]: r["obs"] for r in ranks[1:]}
+    if any(o["enabled"] or o["records"] for o in others.values()):
+        fail(f"obs: spmd: ranks other than 0 streamed: {others}")
+    print(f"obs: phase 3d mesh stream (rank 0 of {len(ranks)}): "
+          f"{len(records)} records {kind_counts(records)}; train_step "
+          f"records = rank 0's metrics ({len(got)} steps); other ranks' "
+          f"buses {others}: ok")
+
+
 def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
     """Phase 3d: the vocab-parallel loss and backward checked on the card,
     then vocab-parallel training of Qwen2-0.5B at full width on a (1, 2)
     mesh of two ranks on the one card, through the launcher, held against
     the one-device run's ``train_metrics``, and a checkpoint replay.  Each
     rank zeroes its kernel counters just before its run and reads them just
-    after; returns the launches summed over the ranks of the first run."""
+    after; returns the launches summed over the ranks of the first run.  The
+    first run streams to ``--obs-jsonl``, which rank 0 alone writes."""
     import os
     import shutil
 
@@ -3603,11 +3771,13 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
             str(SPMD_CKPT_EVERY), "--seed", str(SEED)]
     t0 = time.perf_counter()
     ranks = train_launcher.main(argv + ["--ckpt-dir", str(SPMD_DIR / "run"),
-                                        "--profile"])
+                                        "--profile", "--obs-jsonl",
+                                        str(OBS_DIR / "spmd.jsonl")])
     secs = time.perf_counter() - t0
     tokens = TRAIN_SEQ * TRAIN_BATCH
     losses = check_launch_ranks(ranks, "spmd", SPMD_STEPS, "xent.partial",
                                 "xent")
+    check_mesh_stream(read_stream(OBS_DIR / "spmd.jsonl"), ranks)
     cut = tp_cut(ranks, get_config(TRAIN_ARCH), "spmd", "s00_dense")
     one = [m["loss"] for m in train_metrics]
     rel = [abs(losses[i] - one[i]) / abs(one[i]) for i in range(2)]
@@ -4120,6 +4290,49 @@ def fsdp_phase() -> dict[str, int]:
             for k in ("xent", "rmsnorm")}
 
 
+def phase1_obs() -> None:
+    """Phase 1's obs stream: ``scripts/torch_obs_smoke.py``'s sequence on
+    the card (two ``api.launch("stream.scale")``, B2, and one ``plan_for``
+    under a ``JsonlSink`` session), fatal unless the stream holds at least 3
+    plan records with a miss and a hit and a launch with no session makes
+    no sink call."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    from torch_obs_smoke import obs_smoke
+
+    try:
+        records = obs_smoke(OBS_DIR / "phase1.jsonl", "cuda")
+    except RuntimeError as e:
+        fail(str(e))
+    caches = [r["cache"] for r in records if r["kind"] == "plan"]
+    print(f"obs: phase 1: {len(records)} records {kind_counts(records)}, "
+          f"plan caches {caches}; a launch with no session made no sink "
+          f"call: ok")
+
+
+def obs_report() -> None:
+    """``python -m repro_torch.obs.report --fail-on-validation`` over the
+    streams of phases 1, 3b, 3c and 3d; fatal unless it exits 0.  Prints
+    its summary, then deletes the streams."""
+    import os
+
+    paths = [str(OBS_DIR / f"{name}.jsonl")
+             for name in ("phase1", "serve", "train", "spmd")]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report",
+         "--fail-on-validation", *paths],
+        capture_output=True, text=True, timeout=300, env=env)
+    for line in out.stdout.splitlines():
+        print(f"obs report: {line}")
+    if out.returncode != 0:
+        fail(f"obs report: exit {out.returncode}: {out.stderr.strip()}")
+    print("obs report: python -m repro_torch.obs.report --fail-on-validation "
+          "over the phase 1, 3b, 3c and 3d streams exited 0: ok")
+    shutil.rmtree(OBS_DIR)
+
+
 def main() -> int:
     import torch
 
@@ -4180,6 +4393,19 @@ def main() -> int:
             print(f"build: {source}: {e['kernel'][:120]}: {e['registers']} "
                   f"registers, {e['smem']} B static shared memory, "
                   f"{e['spill_bytes']} B spill stores")
+
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    # the obs bus on the card: scripts/torch_obs_smoke.py's sequence
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    OBS_DIR.mkdir(parents=True)
+    timed("1 obs", phase1_obs)
 
     # ---- 3. the main path ----------------------------------------------
     counters = {
@@ -4292,20 +4518,13 @@ def main() -> int:
     print(f"main: vector_triad_segmented n={N} fp32, {SEGMENTS} segments, "
           f"phases {segs[0].phases}: equal to the flat triad: ok")
 
-    phase_s = {}
-
-    def timed(name, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        phase_s[name] = round(time.perf_counter() - t0, 1)
-        return out
-
     serve_launches, serve_one = timed("3b", serving_phase)
     serve_mesh_launches = timed("3l", serve_mesh_phase, serve_one)
     del serve_one
     flash_launches = timed("3m", serve_flash_phase)
     train_launches, train_metrics = timed("3c", training_phase)
     spmd_launches = timed("3d", spmd_phase, train_metrics)
+    timed("obs report", obs_report)
     recurrent_launches = timed("3j", recurrent_tp_phase)
     fsdp_launches = timed("3k", fsdp_phase)
     hybrid_launches = timed("3e", hybrid_phase)

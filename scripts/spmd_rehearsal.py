@@ -22,7 +22,10 @@ whose one-device streams and logits phase 3l replays), phase 3l
 with their serving jobs; ``python3 scripts/spmd_rehearsal.py 3m`` runs
 phase 3m (``serve_flash_phase``: Qwen2-0.5B served on ``1x4``, the cache's
 positions cut four ways) and the (2, 2) checks with their masked-loss and
-flash-decoding jobs."""
+flash-decoding jobs; ``python3 scripts/spmd_rehearsal.py obs`` runs the
+phases that stream to the obs bus (ROADMAP A7.1) and their gates: phase
+1's obs smoke, 3b, 3c, 3d and the report over their streams (about 8
+minutes)."""
 import dataclasses
 import sys
 import time
@@ -73,6 +76,25 @@ def main():
         cs.mesh_backward_checks()
         print(f"the (2, 2) backward, masked-loss and serving checks "
               f"{time.perf_counter() - t0:.1f} s")
+        return
+    if sys.argv[1:] == ["obs"]:
+        import shutil
+
+        shutil.rmtree(cs.OBS_DIR, ignore_errors=True)
+        cs.OBS_DIR.mkdir(parents=True)
+        seconds = {}
+        for name, fn in (("1 obs", cs.phase1_obs), ("3b", cs.serving_phase),
+                         ("3c", cs.training_phase)):
+            t0 = time.perf_counter()
+            out = fn()
+            seconds[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        cs.spmd_phase(out[1])
+        seconds["3d"] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        cs.obs_report()
+        seconds["obs report"] = round(time.perf_counter() - t0, 1)
+        print(f"seconds a phase {seconds}")
         return
     if sys.argv[1:] == ["3j"]:
         t0 = time.perf_counter()

@@ -16,6 +16,12 @@ When the ambient mesh is a ``launch.mesh.Mesh`` of more than one rank,
 are this rank's shards, the kernel's ``Partitioning`` says how they were cut,
 and each rank plans its own local shape.  Single-rank programs, and scopes
 under ``plan_context(spmd=False)``, keep the direct path.
+
+Under an ``obs`` session ``plan_for`` emits a ``PlanEvent`` a resolution
+(hit, miss or override) and a shadowed override an
+``SpmdOverrideShadowEvent`` each time; the port is eager, so every launch
+resolves its plan and streams one ``PlanEvent`` (the reference plans at
+trace time).
 """
 from __future__ import annotations
 
@@ -26,7 +32,14 @@ import torch
 from repro_torch.api import context as context_lib
 from repro_torch.api import registry as registry_lib
 from repro_torch.api import spmd as spmd_lib
-from repro_torch.core.planner import KernelPlan, dtype_name, plan_kernel
+from repro_torch.core.planner import (
+    KernelPlan,
+    dtype_name,
+    plan_cache_info,
+    plan_kernel,
+)
+from repro_torch.obs import bus as obs_bus
+from repro_torch.obs import events as obs_events
 
 __all__ = ["launch", "plan_for", "plan_tile", "explain", "ref"]
 
@@ -47,8 +60,19 @@ def plan_for(kernel: str, shape, dtype, *, ctx=None,
     if override is None:
         override = ctx.plan_overrides.get(entry.name)
     if override is not None and _matches(entry, override, shape, dtype):
+        if obs_bus.enabled():
+            obs_bus.emit(obs_events.PlanEvent(
+                kernel=entry.name, shape=tuple(override.logical_shape),
+                dtype=override.dtype, cache="override",
+                source=override.provenance, local=bool(local),
+                mesh=tuple(override.mesh)))
         return override
-    return plan_kernel(
+    # An observed plan was a miss when the memo's miss counter moved
+    # across the call (the cache is process-global: telemetry, not
+    # accounting, if threads plan at once).
+    track = obs_bus.enabled()
+    misses_before = plan_cache_info()["misses"] if track else 0
+    plan = plan_kernel(
         entry.name, shape, dtype,
         mesh=ctx.mesh,
         model=ctx.model,
@@ -56,6 +80,14 @@ def plan_for(kernel: str, shape, dtype, *, ctx=None,
         sm_count=ctx.sm_count,
         local=local,
     )
+    if track:
+        cache = ("miss" if plan_cache_info()["misses"] > misses_before
+                 else "hit")
+        obs_bus.emit(obs_events.PlanEvent(
+            kernel=entry.name, shape=tuple(plan.logical_shape),
+            dtype=plan.dtype, cache=cache, source=plan.provenance,
+            local=bool(local), mesh=tuple(plan.mesh)))
+    return plan
 
 
 def plan_tile(kernel: str, shape, dtype, *, smem_budget: int | None = None,
@@ -159,6 +191,12 @@ def _warn_spmd_shadowed_overrides(entry, mesh, tensors, scalars,
             if k == entry.name else tuple(k[1]) == gshape))
     if not offending:
         return
+    if obs_bus.enabled():
+        # every occurrence emits; only the warning below fires once
+        obs_bus.emit(obs_events.SpmdOverrideShadowEvent(
+            kernel=entry.name,
+            mesh=tuple(zip(tuple(mesh.axis_names), tuple(mesh.shape))),
+            global_shape=gshape, cells=tuple(offending)))
     mesh_key = (entry.name, tuple(mesh.axis_names), tuple(mesh.shape))
     if mesh_key in _SPMD_OVERRIDE_WARNED:
         return

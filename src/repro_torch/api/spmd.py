@@ -65,6 +65,8 @@ import torch
 
 from repro_torch.api import context as context_lib
 from repro_torch.kernels.util import tracing
+from repro_torch.obs import bus as obs_bus
+from repro_torch.obs import events as obs_events
 from repro_torch.parallel import rules as rules_lib
 
 __all__ = ["Partitioning", "SCALAR", "replicated", "partitioning_for",
@@ -303,9 +305,17 @@ _FALLBACK_LOGGED: set[tuple] = set()
 def _log_fallbacks(entry, mesh, shapes, fallbacks) -> None:
     """Log (once per kernel, global shapes and mesh) every declared
     sharding that fell back to replication: the vocab-parallel rule
-    degrading to whole-vocab shards is a real cost, not a detail."""
+    degrading to whole-vocab shards is a real cost, not a detail.  Under
+    an ``obs`` session each occurrence also emits an
+    ``SpmdFallbackEvent``."""
     if not fallbacks:
         return
+    if obs_bus.enabled():
+        # every degraded launch emits; only the log line below dedups
+        obs_bus.emit(obs_events.SpmdFallbackEvent(
+            kernel=entry.name,
+            mesh=tuple(zip(tuple(mesh.axis_names), tuple(mesh.shape))),
+            reasons=tuple(fallbacks)))
     key = (entry.name, tuple(shapes), tuple(mesh.axis_names),
            tuple(mesh.shape))
     if key in _FALLBACK_LOGGED:

@@ -45,10 +45,18 @@ width.  Checkpoints go under ``--ckpt-dir`` (inside the checkout by
 default); a complete checkpoint at or past ``--steps`` restores past the
 whole run.  Prints the loss of the first and last steps; on a mesh, a
 ``spmd:`` line a rank (its backend and collective transport).
+
+``--obs-jsonl PATH`` streams the run's events (plan-cache provenance,
+SPMD fallbacks, per-step metrics, checkpoints) to a record-per-line file,
+as the reference's launcher does; aggregate it with ``python -m
+repro_torch.obs.report PATH``.  On a mesh only rank 0 opens the file: all
+ranks run one schedule, so its stream is the run's, and every other rank
+keeps the bus's NullSink default.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 
@@ -75,6 +83,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(padded_for_mesh)")
     ap.add_argument("--profile", action="store_true",
                     help="on a DxM mesh, profile one more step on rank 0")
+    ap.add_argument("--obs-jsonl", default=None,
+                    help="stream observability events (plan cache, SPMD "
+                         "fallbacks, step metrics) to this JSONL file; on a "
+                         "mesh rank 0 writes it; aggregate with python -m "
+                         "repro_torch.obs.report")
     args = ap.parse_args(argv)
     if args.mesh not in ("host", "device"):
         from repro_torch.launch.mesh import parse_shape
@@ -136,6 +149,19 @@ def _trainer(args, cfg, device, mesh=None):
         microbatches=args.microbatches, device=device, mesh=mesh)
 
 
+@contextlib.contextmanager
+def _obs_scope(args, rank: int = 0):
+    """The run's event stream: a session writing ``--obs-jsonl`` on rank
+    0, else the bus's NullSink default.  Yields the sink, or ``None``."""
+    from repro_torch import obs
+
+    if not args.obs_jsonl or rank != 0:
+        yield None
+        return
+    with obs.JsonlSink(args.obs_jsonl) as sink, obs.session(sink):
+        yield sink
+
+
 def _profile_step(trainer, step: int) -> dict:
     """Device time of one more train step by kernel (torch.profiler's CUDA
     activity) beside its CUDA-event time on this rank, and the host
@@ -172,15 +198,18 @@ def _profile_step(trainer, step: int) -> dict:
 
 
 def rank_main(mesh, args) -> dict:
-    """One rank of a ``--mesh DxM`` run: its ``Trainer`` on the mesh, then
-    what the rank saw -- its metrics, kernel launches, collectives
-    (``Mesh.comm``, checkpoint gathers included; the reduce-scatter's
-    transport), peak device memory, the shapes of its blocks of the
-    state (``"params/..."``, ``"opt/m/..."``, ...), its saves' seconds, the digests of the leaves
-    every rank must hold bit for bit, and with ``--profile`` one more step
-    profiled on rank 0 (the state donated to it), with its collectives."""
+    """One rank of a ``--mesh DxM`` run: its ``Trainer`` on the mesh (rank 0
+    streaming to ``--obs-jsonl``), then what the rank saw -- its metrics,
+    kernel launches, collectives (``Mesh.comm``, checkpoint gathers
+    included; the reduce-scatter's transport), peak device memory, the
+    shapes of its blocks of the state (``"params/..."``, ``"opt/m/..."``,
+    ...), its saves' seconds, the digests of the leaves every rank must
+    hold bit for bit, whether its bus listened and the records it wrote
+    (``"obs"``), and with ``--profile`` one more step profiled on rank 0
+    (the state donated to it), with its collectives."""
     import torch
 
+    from repro_torch import obs
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.xent import kernel as xent_kernel
     from repro_torch.launch.mesh_checks import digests
@@ -198,7 +227,9 @@ def rank_main(mesh, args) -> dict:
         for k in table:
             table[k] = 0
     mesh.comm.update(calls=0, bytes=0, seconds=0.0)
-    metrics = trainer.train(args.seed)
+    with _obs_scope(args, mesh.rank) as sink:
+        metrics = trainer.train(args.seed)
+        streamed = obs.enabled()
     out = {
         "rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
         "transport": mesh.transport, "comm": dict(mesh.comm),
@@ -214,6 +245,10 @@ def rank_main(mesh, args) -> dict:
                          for p, t in leaves(trainer.state)},
         "saves": trainer.saves,
         "digests": digests(trainer.state, trainer.specs, mesh.axis_sizes),
+        # whether this rank's bus listened while it trained, and the
+        # records it wrote: rank 0 alone streams
+        "obs": {"enabled": streamed,
+                "records": 0 if sink is None else sink.emitted},
     }
     if args.profile and cuda:
         before = dict(mesh.comm)
@@ -248,7 +283,8 @@ def main(argv=None):
                  n_params / 1e6, args.mesh, device)
     print(api.explain("xent", (args.global_batch * args.seq_len,
                                cfg.vocab_size), torch.float32))
-    metrics = trainer.train(args.seed)
+    with _obs_scope(args):
+        metrics = trainer.train(args.seed)
     _report(metrics, args)
     return metrics
 
@@ -274,6 +310,10 @@ def _main_mesh(args, device):
 
 
 def _report(metrics, args) -> None:
+    if args.obs_jsonl:
+        logging.info("obs event stream at %s (summarize: python -m "
+                     "repro_torch.obs.report %s)", args.obs_jsonl,
+                     args.obs_jsonl)
     if metrics:
         print(f"done: {len(metrics)} steps, "
               f"loss {metrics[0]['loss']:.3f} -> {metrics[-1]['loss']:.3f}")

@@ -95,6 +95,7 @@ from repro_torch.api import dispatch
 from repro_torch.api import spmd as spmd_lib
 from repro_torch.models import blocks, mamba2, moe, xlstm
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import bus as obs_bus
 from repro_torch.models.params import (
     ParamDef,
     Tree,
@@ -207,10 +208,19 @@ def layers(tree: Tree) -> list[Tree]:
     return [map_leaves(lambda parts: parts[i], split) for i in range(count)]
 
 
+def _scope() -> tuple:
+    """This thread's plan context, rules, mesh and obs sinks, for a
+    backward to re-enter (``_reenter``)."""
+    return (context_lib.current_context(), rules_lib.current_rules(),
+            rules_lib.current_mesh(), obs_bus.current_sinks())
+
+
 @contextlib.contextmanager
 def _reenter(scope):
-    plan_ctx, rules, mesh = scope
-    with context_lib.use_context(plan_ctx), rules_lib.use_rules(rules, mesh):
+    plan_ctx, rules, mesh, sinks = scope
+    with context_lib.use_context(plan_ctx), \
+            rules_lib.use_rules(rules, mesh), \
+            obs_bus.session(*sinks, inherit=False):
         yield
 
 
@@ -218,11 +228,11 @@ def apply_layer(cfg: ModelConfig, body, *args):
     """``body(*args)``, one layer: under ``checkpoint`` (non-reentrant) when
     ``cfg.remat`` and autograd records, else a plain call.  The backward's
     recomputation may run on autograd's device thread, which does not see
-    this thread's plan context and rules, so it re-enters the forward's
-    (an MoE layer on a mesh reads the mesh)."""
+    this thread's plan context, rules and obs session, so it re-enters the
+    forward's (an MoE layer on a mesh reads the mesh; the recomputation's
+    launches stream their ``PlanEvent``s to the forward's sinks)."""
     if cfg.remat and torch.is_grad_enabled():
-        scope = (context_lib.current_context(), rules_lib.current_rules(),
-                 rules_lib.current_mesh())
+        scope = _scope()
         return checkpoint(body, *args, use_reentrant=False,
                           context_fn=lambda: (contextlib.nullcontext(),
                                               _reenter(scope)))
@@ -425,8 +435,8 @@ class XentFn(torch.autograd.Function):
     with B12), the backward ``kernels.xent.ops.xent_grad`` -- the
     counterpart of the reference's ``_xent_fused`` ``custom_vjp``.  Labels
     get no gradient.  The backward may run on autograd's device thread, so
-    it re-enters the forward's plan context and rules (the mesh among
-    them) explicitly.
+    it re-enters the forward's plan context, rules (the mesh among them)
+    and obs session explicitly.
 
     With ``mask`` (T,) fp32 (a mesh's masked loss, ``lm_loss``) the forward
     is the same launch weighted by the mask: the shard body returns the
@@ -439,8 +449,7 @@ class XentFn(torch.autograd.Function):
                 mask=None):
         ctx.save_for_backward(logits, labels)
         ctx.logical_v, ctx.global_shapes = logical_v, global_shapes
-        ctx.scope = (context_lib.current_context(),
-                     rules_lib.current_rules(), rules_lib.current_mesh())
+        ctx.scope = _scope()
         if mask is None:
             ctx.weights = None
             return dispatch.launch("xent", logits, labels,
@@ -458,9 +467,7 @@ class XentFn(torch.autograd.Function):
         from repro_torch.kernels.xent import ops as xent_ops
 
         logits, labels = ctx.saved_tensors
-        plan_ctx, rules, mesh = ctx.scope
-        with context_lib.use_context(plan_ctx), \
-                rules_lib.use_rules(rules, mesh):
+        with _reenter(ctx.scope):
             grad = xent_ops.xent_grad(logits, labels, g,
                                       logical_v=ctx.logical_v,
                                       global_shapes=ctx.global_shapes,

@@ -9,12 +9,16 @@ the replay is exact), while a persistent failure -- a ``DeviceLossError``
 chosen steps; a step whose wall time blows past ``straggler_factor`` times
 the step-time EMA is reported to the log.
 
-The reference also emits each step, checkpoint and degradation as a typed
-event on its ``obs`` bus; the port has no bus yet (ROADMAP A7), so the
-metrics go to ``Trainer.metrics`` and the log.  ``Trainer.state`` is the
-latest train state (``{"params", "opt"}``), there for a caller that
-inspects or snapshots it between steps (``fail_injector`` runs before
-each step).
+Under an ``obs`` session each step streams a ``TrainStepEvent`` (the
+floats ``Trainer.metrics`` holds), each save and restore a
+``CheckpointEvent`` and each straggler or retry a ``DegradedEvent``, as
+the reference's trainer does; ``metrics`` and ``saves`` stay the return
+surface.  On a mesh each rank's ``Trainer`` emits on its own bus, and
+only rank 0 opens a sink (``launch.train --obs-jsonl``).
+
+``Trainer.state`` is the latest train state (``{"params", "opt"}``), there
+for a caller that inspects or snapshots it between steps
+(``fail_injector`` runs before each step).
 
 ``Trainer(..., mesh=, sharding=)`` trains on a mesh of ranks
 (``launch.mesh``): every rank runs its own ``Trainer`` on its shards of the
@@ -43,7 +47,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch import api
+from repro_torch import api, obs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.util import resolve_device
@@ -153,6 +157,8 @@ class Trainer:
         if restored is not None:
             step, state = restored
             log.info("restored checkpoint at step %d", step)
+            if obs.enabled():
+                obs.emit(obs.CheckpointEvent(step=step, action="restore"))
             return step, state
         return 0, state
 
@@ -198,6 +204,11 @@ class Trainer:
         if step_s > factor * ema:
             log.warning("step %d straggled: %.3fs vs EMA %.3fs (x%.1f)",
                         step, step_s, ema, step_s / ema)
+            if obs.enabled():
+                obs.emit(obs.DegradedEvent(
+                    reason="straggler", step=step,
+                    detail=f"step {step_s:.3f}s vs ema {ema:.3f}s "
+                           f"(threshold x{factor:g})"))
 
     def _backoff(self, retries: int) -> None:
         base = self.tcfg.backoff_base_s
@@ -237,12 +248,19 @@ class Trainer:
                                      "grad_norm": grad_norm,
                                      "lr": float(metrics["lr"]),
                                      "step_s": step_s})
+                if obs.enabled():
+                    obs.emit(obs.TrainStepEvent(
+                        step=step, loss=loss, grad_norm=grad_norm,
+                        step_s=step_s))
                 if step % self.tcfg.log_every == 0:
                     log.info("step %d loss %.4f", step, loss)
                 step += 1
                 retries = 0
                 if step % self.tcfg.ckpt_every == 0:
                     self._save(step, self.state, {"loss": loss})
+                    if obs.enabled():
+                        obs.emit(obs.CheckpointEvent(step=step,
+                                                     action="save"))
             except DeviceLossError:
                 # Persistent: retrying cannot bring the device back.
                 raise
@@ -252,14 +270,24 @@ class Trainer:
                     raise
                 log.warning("step %d failed (%s); restoring (retry %d/%d)",
                             step, e, retries, self.tcfg.max_retries)
+                if obs.enabled():
+                    obs.emit(obs.DegradedEvent(
+                        reason="transient_retry", step=step,
+                        detail=f"{type(e).__name__}: {e} "
+                               f"(retry {retries}/{self.tcfg.max_retries})"))
                 self._backoff(retries)
                 restored = self.ckpt.restore_latest(self.state)
                 if restored is not None:
                     step, self.state = restored
+                    if obs.enabled():
+                        obs.emit(obs.CheckpointEvent(step=step,
+                                                     action="restore"))
                 # else: replay from the current state (failure before the
                 # first checkpoint)
         t0 = time.perf_counter()
         self._save(step, self.state, {"final": True})
         self.ckpt.wait()
         self.saves[-1]["seconds"] = time.perf_counter() - t0
+        if obs.enabled():
+            obs.emit(obs.CheckpointEvent(step=step, action="save"))
         return self.metrics

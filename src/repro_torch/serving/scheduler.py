@@ -40,9 +40,14 @@ Decisions of the port:
     batcher never calls ``prefill_cross``, so it would decode against
     all-zero cross K/V (dense) or fail on the missing ``paged_cache_defs``
     (ROADMAP §C); ``launch.serve`` serves it as a static batch.
-  * **No event bus.**  The reference's ``obs.emit`` calls are left out until
-    the port has one (ROADMAP A7); preemptions are kept in
-    ``preemption_log`` and a pool shrink is logged.
+  * **Events.**  Under an ``obs`` session the batcher streams the
+    reference's events: an ``AdmissionEvent`` an admission, a
+    ``PreemptionEvent`` an eviction, a ``BatcherTickEvent`` (and, paged, a
+    ``PagePoolEvent``) a tick, a ``DegradedEvent`` a pool shrink and a
+    ``RequestAbandonedEvent`` for each request a tick budget cuts off.
+    ``preemption_log`` keeps the ``(rid, reason)`` of each eviction as
+    well.  On a mesh every rank runs the same schedule, so rank 0's stream
+    is the run's (only rank 0 opens a sink, ``obs.bus``).
 
 On a mesh (``mesh=``, as the reference's batcher takes it; or the ambient
 mesh of ranks): the slot and page plans are made under the mesh, and on a
@@ -74,7 +79,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from repro_torch import api
+from repro_torch import api, obs
 from repro_torch.kernels.util import resolve_device
 from repro_torch.models import params as params_lib
 from repro_torch.parallel import rules as rules_lib
@@ -355,6 +360,10 @@ class ContinuousBatcher:
         self._slot_pos[victim] = 0
         self.queue.appendleft(req)
         self.preemption_log.append((req.rid, reason))
+        if obs.enabled():
+            obs.emit(obs.PreemptionEvent(
+                rid=req.rid, slot=victim, reason=reason,
+                pages_freed=len(freed), queue_depth=len(self.queue)))
         return len(freed)
 
     def _preempt_one(self, *, exclude: int, allow_decode: bool,
@@ -447,6 +456,11 @@ class ContinuousBatcher:
         log.warning("page pool shrunk %d -> %d live page(s); %d tenant(s) "
                     "preempted to the replay queue", before,
                     self.pages.live_pages, preempted)
+        if obs.enabled():
+            obs.emit(obs.DegradedEvent(
+                reason="pool_shrink",
+                detail=f"live pages {before} -> {self.pages.live_pages}, "
+                       f"{preempted} tenant(s) preempted for replay"))
         return preempted
 
     def _admit(self) -> None:
@@ -462,6 +476,9 @@ class ContinuousBatcher:
                 self._slot_seq[s] = self._seq
                 self.cache = self._reset_slot(self.cache, s)
                 admitted = True
+                if obs.enabled():
+                    obs.emit(obs.AdmissionEvent(
+                        rid=req.rid, slot=s, queue_depth=len(self.queue)))
         if admitted:
             self._note_admitted_plans()
 
@@ -527,6 +544,8 @@ class ContinuousBatcher:
                 nxt = self.ranks.all_gather(nxt, self._data_axes, 0)
         nxt = nxt[:, 0].cpu().numpy()
         self.ticks += 1
+        if obs.enabled():
+            self._emit_tick()
         for s, req in enumerate(self.slot_req):
             if req is None or not advance[s]:
                 continue
@@ -544,6 +563,26 @@ class ContinuousBatcher:
                 if self.pages is not None:
                     self._release_slot_pages(s)
         self._admit()
+
+    def _emit_tick(self) -> None:
+        """The tick's occupancy and packing: free slots and tile padding
+        (``padded_slots - slots``, 0 in the port) run through the decode
+        step serving no request; paged, the pool's occupancy too."""
+        n_prefill = sum(r is not None and r.prefilling for r in self.slot_req)
+        n_decode = sum(r is not None and not r.prefilling
+                       for r in self.slot_req)
+        obs.emit(obs.BatcherTickEvent(
+            tick=self.ticks, n_prefill=n_prefill, n_decode=n_decode,
+            slots=self.slots, padded_slots=self.padded_slots,
+            free_slots=self.slots - n_prefill - n_decode,
+            pad_slots=self.padded_slots - self.slots,
+            queue_depth=len(self.queue)))
+        if self.pages is not None:
+            obs.emit(obs.PagePoolEvent(
+                tick=self.ticks, used_pages=self.pages.used_pages,
+                free_pages=self.pages.free_pages,
+                live_pages=self.pages.live_pages,
+                page_len=self.geometry.page_len))
 
     @torch.inference_mode()
     def decode_tick(self) -> torch.Tensor:
@@ -570,6 +609,7 @@ class ContinuousBatcher:
         Hitting the tick budget with work in flight is never silent: the
         default raises :class:`TruncatedRun`; ``on_truncation='return'``
         returns the partial ``completed`` dict (check ``self.busy``).
+        Either way each abandoned request is reported on the obs bus.
         ``fault_injector`` is any object with ``tick(batcher, tick)``,
         consulted before each tick (the reference's
         ``runtime.faults.FaultInjector``, whose port waits for ROADMAP A12).
@@ -583,8 +623,17 @@ class ContinuousBatcher:
             if fault_injector is not None:
                 fault_injector.tick(self, self.ticks)
             self.step()
-        if self.busy and on_truncation == "raise":
+        if self.busy:
             abandoned = [r for r in self.slot_req if r is not None]
             abandoned += list(self.queue)
-            raise TruncatedRun(dict(self.completed), abandoned, max_ticks)
+            if obs.enabled():
+                for r in abandoned:
+                    stage = ("queued" if r in self.queue
+                             else "prefill" if r.prefilling else "decode")
+                    obs.emit(obs.RequestAbandonedEvent(
+                        rid=r.rid, stage=stage, fed=r.fed,
+                        generated=len(r.generated)))
+            if on_truncation == "raise":
+                raise TruncatedRun(dict(self.completed), abandoned,
+                                   max_ticks)
         return self.completed

@@ -5,7 +5,9 @@ the family tests (``tests/test_torch_{moe,vlm,encdec,hybrid,xlstm}.py``).
 refusal raises before any collective, so no process is spawned for it.
 ``assemble`` puts the ranks' blocks of a (data, model) mesh back together.
 """
+import json
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -160,13 +162,21 @@ def assert_mesh_runs(cfg):
 
 
 def assert_launcher_trains_on_a_mesh(arch, shape, ckpt_dir):
-    """``launch.train --mesh DxM`` on the CPU: one step on every rank, the
-    ranks' losses equal and finite."""
+    """``launch.train --mesh DxM --obs-jsonl`` on the CPU: one step on every
+    rank, the ranks' losses equal and finite; rank 0 alone streams, its
+    one ``train_step`` record carrying the step's loss."""
+    stream = Path(ckpt_dir) / "obs.jsonl"
     ranks = train_launch.main(["--arch", arch, "--mesh", shape, "--device",
                                "cpu", "--steps", "1", "--seq-len", "16",
                                "--global-batch", "4", "--ckpt-dir",
-                               str(ckpt_dir)])
+                               str(ckpt_dir), "--obs-jsonl", str(stream)])
     losses = [[m["loss"] for m in r["metrics"]] for r in ranks]
     assert len(ranks) == math.prod(int(n) for n in shape.split("x"))
     assert all(v == losses[0] for v in losses)
     assert len(losses[0]) == 1 and math.isfinite(losses[0][0])
+    records = [json.loads(x) for x in stream.read_text().splitlines()]
+    assert [r["loss"] for r in records if r["kind"] == "train_step"] == \
+        losses[0]
+    assert ranks[0]["obs"] == {"enabled": True, "records": len(records)}
+    assert all(r["obs"] == {"enabled": False, "records": 0}
+               for r in ranks[1:])
