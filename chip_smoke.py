@@ -17,9 +17,9 @@ Phases, each fatal on failure:
      runs) and 3d (its first launch, ``--obs-jsonl``, rank 0 writing)
      stream too, each gated on its records (``obs:`` lines; 3b also
      prints a decode tick's host ms with no session and with a ring and a
-     JSONL session), and after 3d ``python -m repro_torch.obs.report
-     --fail-on-validation`` over the four streams must exit 0 (its
-     summary on ``obs report:`` lines);
+     JSONL session), so does the measure phase, and after 3i ``python -m
+     repro_torch.obs.report --fail-on-validation`` over the five streams
+     must exit 0 (its summary on ``obs report:`` lines);
   3. the main path at real size through ``repro_torch.api.launch``:
      STREAM copy/scale/add/triad and the Schoenauer triad at n = 2**27
      (fp32 and bf16) and at one ragged n, a phase sweep of
@@ -31,6 +31,18 @@ Phases, each fatal on failure:
      read just after, and every output is checked against the registered
      plain oracle (or the flat triad) on the card, and STREAM, the triad
      and the phase sweep bit for bit against the kernels' plain versions;
+  measure. right after 3 (``measure_phase``, ROADMAP A7.2-A7.5):
+     ``measure.validate`` times each of the fifteen registry kernels'
+     bodies at its plan on the main path's cells (``CARD_CASES``) against
+     the plan's ``predicted_hbm_bytes`` at the data sheet's rate, fatal
+     unless every ratio lies in its family's envelope (``measure:``
+     lines); ``measure.sweep`` times each geometry of ``SWEEP_CELLS``,
+     writes their profile, loads it back strictly and launches each cell
+     under ``PlanContext.from_profile``, fatal unless the output equals
+     the analytic plan's bit for bit and the cell's ``PlanEvent`` is an
+     override from the profile; and it writes the profile of phase 3d's
+     rank-local norm cell, which 3d's launches take (``--plan-profile``),
+     fatal unless each of their local plans of that cell is an override;
   3b. serving at full Qwen3-4B width, its depth cut to 2 of 36 layers
      to make room for the later phases (bf16, seeded weights, one card):
      ``ContinuousBatcher`` with 8 slots, max_len 1024 and prefill chunk 16
@@ -331,7 +343,10 @@ Phases, each fatal on failure:
      B7 and B8 give every interior site the same bits, ``overlap_report``
      finds both shifts of the overlapped bodies overlappable and none of
      the blocking body's, the bytes ``Mesh.comm`` counted equal
-     ``predicted_comm_bytes``, and B6, B7 and B8 launched.  ``halo:``
+     ``predicted_comm_bytes``, and B6, B7 and B8 launched; the same spawn
+     runs ``measure.validate.validate_comm`` with the exposed check on
+     Jacobi's grid and both LBM layouts at N = 256 (``HALO_COMM_CASES``),
+     fatal unless every record of both ranks is ok.  ``halo:``
      lines give ms a sweep or step overlapped, blocking and on one device
      (rank 0 alone), the interior's CUDA-event time, the halo's bytes and
      host seconds, and, once step 5 has timed the B1 copy, the planner's
@@ -355,10 +370,14 @@ Phases, each fatal on failure:
      phase 3j's ranks' blocks: B10's at a zamba2 and an mLSTM rank's
      (2048, 2048) bf16, B9's at an sLSTM rank's (2048, 1024) fp32, the
      apply pass with the whole row's width), with the tolerance stated;
-  5. CUDA-event times (median of 10 samples after warm-up) of each kernel,
-     its plain version and one PyTorch library call computing the same
-     function (``F.conv2d`` for B6 with cuDNN's TF32 off, as the line
-     says), beside the least time the card could take (``bound_ms``),
+  5. CUDA-event times (median of 10 samples after warm-up,
+     ``measure.timing.time_ms``) of each kernel, its plain version and one
+     PyTorch library call computing the same function (``F.conv2d`` for B6
+     with cuDNN's TF32 off, as the line says), beside the least time the
+     card could take (``bound_ms``: the larger of the plan's
+     ``predicted_hbm_bytes`` over the data sheet's memory rate, or the
+     bytes counted here where no plan has the launch's shape, and the
+     operations over the fp32 rate),
      with the kernel/library ratio and the share of the bound; the kernel
      and the library call are each timed twice, in turns (kernel, library,
      library, kernel), and the mean kept;
@@ -394,6 +413,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# the CUDA-event timer and the data-sheet rates: one copy, in ``measure``
+from repro_torch.measure.timing import datasheet, time_ms  # noqa: E402
 
 N = 1 << 27                # 512 MiB per fp32 array, far above the 50 MB L2
 N_RAGGED = N - 12_345
@@ -461,6 +483,16 @@ OBS_DIR = ROOT / "build" / "chip_smoke_obs"
 # session and a JsonlSink session, in turns (10 calls a reading)
 OBS_TICK_ROUNDS = 5
 SEED = 0
+# the measure phase (ROADMAP A7.2-A7.5): the main path's cells whose
+# planner knobs give more than one geometry, swept, profiled and replayed
+# through ``PlanContext.from_profile``; the profile of phase 3d's
+# rank-local norm cell, which 3d's launches take through --plan-profile
+MEASURE_DIR = ROOT / "build" / "chip_smoke_measure"
+SWEEP_CELLS = (("stream.copy", (N,), "float32"),
+               ("rmsnorm", (PREFILL_B * PREFILL_S, 2560), "bfloat16"),
+               ("rmsnorm.sumsq", (PREFILL_B * PREFILL_S, 1024), "float32"),
+               ("rmsnorm.gated", GATED_SHAPE, "bfloat16"))
+SPMD_PROFILE = MEASURE_DIR / "spmd_profile.json"
 # training at full Qwen2-0.5B width, depth cut to TRAIN_LAYERS of its 24
 # layers for phase 3k's seconds (a run's five saves, and the (1, 2)
 # launch's and its replay's gathered saves, shrink with the layers)
@@ -535,6 +567,11 @@ XENT_MINICPM = (2048, 122_753, 122_753)
 # phase 3i: the Jacobi and LBM halo bodies on a (2, 1) mesh of two ranks
 # of the one card, each rank a half of the main path's grid and lattices
 HALO_MESH = (2, 1)
+# phase 3i's comm census (ROADMAP A7.2, ``measure.validate.validate_comm``
+# with the exposed check) at the main path's global cells, in 3i's spawn
+HALO_COMM_CASES = {"jacobi": ((GRID, GRID), "float32"),
+                   "lbm.soa": ((19,) + (LBM_SIZES[0],) * 3, "float32"),
+                   "lbm.ivjk": ((19,) + (LBM_SIZES[0],) * 3, "float32")}
 SPMD_MESH, SPMD_STEPS, SPMD_CKPT_EVERY = "1x2", 3, 2
 SPMD_DIR = ROOT / "build" / "chip_smoke_spmd"
 # a tensor-parallel (1, 2) run's first two losses against one device's:
@@ -682,15 +719,6 @@ MESH_XENT = (256, 32_000, 31_990)
 # (tokens, width, vl, offset, logical vocab) bf16
 XENT_PARTIAL_RAGGED = (1000, 32_008, 32_000, 96_000, 127_990)
 
-# Data-sheet rates (NVIDIA H100/H200 data sheets): device-memory bytes/s and
-# fp32 operations/s outside the tensor cores.  Matched on the card's name.
-DATASHEET = [
-    ("H200", 4.8e12, 67e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-]
-
 # Each ported kernel: its CUDA source under src/repro_torch/kernels/csrc/
 # and where the TPU kernel it replaces is defined.
 KERNELS = {
@@ -741,45 +769,6 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def datasheet(name: str) -> tuple[float, float]:
-    for key, bw, fp32 in DATASHEET:
-        if key in name:
-            return bw, fp32
-    fail(f"no data-sheet rates for {name!r}")
-
-
-# GPU cycles the card spins before each timing window (about 2 ms at the
-# H100's boost clock): longer than the host takes to enqueue a window of
-# microsecond kernels, so the window times the card, not the host.
-SPIN_CYCLES = 4_000_000
-
-
-def time_ms(fn, samples: int = 10, per_sample: int = 5) -> float:
-    """Median ms per call of ``fn`` over ``samples`` CUDA-event windows of
-    ``per_sample`` calls each, after a warm-up.  An untimed call and a spin
-    of ``SPIN_CYCLES`` are queued before each window so the card is busy
-    while the window's calls are enqueued: the window holds the calls back
-    to back on the card, whatever the host's cost of a call."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        fn()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        for _ in range(per_sample):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_sample)
-    return statistics.median(times)
 
 
 def host_ms(fn, calls: int = 10) -> float:
@@ -3549,10 +3538,14 @@ def halo_phase() -> tuple[dict[str, int], dict]:
     require_default_compute_mode("halo")
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    ranks = [r[0] for r in mesh_lib.spawn(
-        mesh_checks.run, HALO_MESH, device="cuda", args=([(
-            "halo_card", dict(grid=GRID, sweeps=SWEEPS, lbm_sizes=LBM_SIZES,
-                              steps=LBM_STEPS, omega=OMEGA, seed=SEED))],))]
+    jobs = [("halo_card", dict(grid=GRID, sweeps=SWEEPS, lbm_sizes=LBM_SIZES,
+                               steps=LBM_STEPS, omega=OMEGA, seed=SEED)),
+            ("validate_comm", dict(kernels=sorted(HALO_COMM_CASES),
+                                  exposed=True, cases=HALO_COMM_CASES))]
+    out = mesh_lib.spawn(mesh_checks.run, HALO_MESH, device="cuda",
+                         args=(jobs,))
+    ranks = [r[0] for r in out]
+    measure_comm_check([r[1] for r in out])
 
     def check_report(what, rep, overlappable):
         want = 2 if overlappable else 0
@@ -3721,7 +3714,8 @@ def print_profile(label: str, prof: dict) -> None:
 def check_mesh_stream(records, ranks: list[dict]) -> None:
     """Phase 3d's gates on a ``launch.train --mesh --obs-jsonl`` run's
     stream: one ``train_step`` record a step with rank 0's losses, every
-    record rank 0's, and no other rank's bus listening; prints the
+    record rank 0's, no other rank's bus listening, and every local plan of
+    the profiled norm cell an override from ``--plan-profile``; prints the
     ``obs:`` line."""
     got = [(r["step"], r["loss"]) for r in records
            if r["kind"] == "train_step"]
@@ -3735,10 +3729,23 @@ def check_mesh_stream(records, ranks: list[dict]) -> None:
     others = {r["rank"]: r["obs"] for r in ranks[1:]}
     if any(o["enabled"] or o["records"] for o in others.values()):
         fail(f"obs: spmd: ranks other than 0 streamed: {others}")
+    from repro_torch.configs import get_config
+
+    source = f"profile:{SPMD_PROFILE}"
+    cell = [TRAIN_SEQ * TRAIN_BATCH, get_config(TRAIN_ARCH).d_model]
+    pinned = [r for r in records if r["kind"] == "plan"
+              and r["kernel"] == "rmsnorm" and r["local"]
+              and list(r["shape"]) == cell]
+    if not pinned or any(r["cache"] != "override" or r["source"] != source
+                         for r in pinned):
+        fail(f"obs: spmd: rank 0's local rmsnorm plans "
+             f"{sorted({(r['cache'], r['source']) for r in pinned})} "
+             f"(want every one an override from {source})")
     print(f"obs: phase 3d mesh stream (rank 0 of {len(ranks)}): "
           f"{len(records)} records {kind_counts(records)}; train_step "
           f"records = rank 0's metrics ({len(got)} steps); other ranks' "
-          f"buses {others}: ok")
+          f"buses {others}; {len(pinned)} local rmsnorm plans, each an "
+          f"override from --plan-profile: ok")
 
 
 def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
@@ -3764,11 +3771,14 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
     full_width_backward_check()
     shutil.rmtree(SPMD_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
+    # both launches replay the measure phase's profile of the ranks' norm
+    # cell (--plan-profile, ROADMAP A7.4)
     argv = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
             "--mesh", SPMD_MESH, "--baseline",
             "--steps", str(SPMD_STEPS), "--seq-len", str(TRAIN_SEQ),
             "--global-batch", str(TRAIN_BATCH), "--ckpt-every",
-            str(SPMD_CKPT_EVERY), "--seed", str(SEED)]
+            str(SPMD_CKPT_EVERY), "--seed", str(SEED),
+            "--plan-profile", str(SPMD_PROFILE)]
     t0 = time.perf_counter()
     ranks = train_launcher.main(argv + ["--ckpt-dir", str(SPMD_DIR / "run"),
                                         "--profile", "--obs-jsonl",
@@ -3839,6 +3849,7 @@ def spmd_phase(train_metrics: list[dict]) -> dict[str, int]:
           f"for bit; later steps {got[1:]} vs {losses[SPMD_CKPT_EVERY + 1:]}: "
           f"ok")
     shutil.rmtree(SPMD_DIR)
+    shutil.rmtree(MEASURE_DIR)
     print(f"spmd: the phase took {time.perf_counter() - t_phase:.1f} s (B12 "
           f"checks, two launches of the mesh, their checkpoints)")
     return {"xent.partial": sum(r["launches"]["xent.partial"] for r in ranks)}
@@ -4290,6 +4301,125 @@ def fsdp_phase() -> dict[str, int]:
             for k in ("xent", "rmsnorm")}
 
 
+def measure_phase() -> None:
+    """The measure phase (ROADMAP A7.2-A7.5), each step fatal:
+    (a) ``measure.validate`` times every registry kernel's body at its plan
+    on the main path's cells (``CARD_CASES``) inside a ``JsonlSink``
+    session (the stream ``obs_report`` reads), fatal unless all fifteen
+    are within their envelopes; (b) ``measure.sweep`` times each geometry
+    of ``SWEEP_CELLS``, writes the profile, loads it back strictly and
+    launches each cell under ``PlanContext.from_profile``, fatal unless the
+    outputs equal the analytic plan's bit for bit and every cell's
+    ``PlanEvent`` says ``cache="override"`` from ``profile:<path>``; then
+    the profile of phase 3d's rank-local norm cell (``SPMD_PROFILE``,
+    swept as one rank's shard of ``SPMD_MESH``, loaded back strictly)."""
+    import torch
+
+    from repro_torch import api, obs
+    from repro_torch.api.context import use_context
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import parse_shape
+    from repro_torch.measure import profile as profile_lib
+    from repro_torch.measure import sweep as sweep_lib
+    from repro_torch.measure import validate as validate_lib
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(MEASURE_DIR, ignore_errors=True)
+    label = validate_lib.device_label("cuda")
+
+    # (a) validate over the card's cells, streamed
+    with obs.session(obs.JsonlSink(OBS_DIR / "measure.jsonl")):
+        records = validate_lib.validate_kernels(device="cuda")
+    for r in records:
+        print(f"measure: {validate_lib.hbm_line(r)}")
+    bad = [r["kernel"] for r in records if r["status"] != "ok"]
+    if sorted(r["kernel"] for r in records) != api.list_kernels() or bad:
+        fail(f"measure: validate: {len(records)} records of "
+             f"{len(api.list_kernels())} registry kernels, out of their "
+             f"envelopes: {bad}")
+    t_validate = time.perf_counter() - t_phase
+
+    # (b) the sweep, its profile, and the profile replayed
+    results = sweep_lib.sweep_cells(SWEEP_CELLS, device="cuda")
+    path = str(MEASURE_DIR / "profile.json")
+    profile_lib.save_profile(path, [r.entry() for r in results],
+                             backend=label)
+    ring = obs.RingBufferSink()
+    with obs.session(ring):
+        ctx = api.PlanContext.from_profile(path)          # strict
+    for (kernel, shape, dtype), r in zip(SWEEP_CELLS, results):
+        args, scalars = validate_lib.args_for(kernel, shape, dtype,
+                                              device="cuda", seed=SEED)
+        want = api.launch(kernel, *args, **scalars)
+        with obs.session(ring), use_context(ctx):
+            got = api.launch(kernel, *args, **scalars)
+        if not torch.equal(got, want):
+            fail(f"measure: {kernel} {shape} {dtype} under the profile "
+                 f"differs from the analytic plan's output")
+        seen = [e for e in ring.events("plan") if e.kernel == kernel
+                and e.shape == r.shape]
+        if not seen or any(e.cache != "override"
+                           or e.source != f"profile:{path}" for e in seen):
+            fail(f"measure: {kernel} {r.shape}: plan records "
+                 f"{[(e.cache, e.source) for e in seen]} (want override "
+                 f"from profile:{path})")
+        geoms = ", ".join(f"block {c.plan.block_shape} "
+                          f"{c.measured['ms']:.4f} ms"
+                          for c in r.candidates)
+        print(f"measure: sweep {kernel} {shape} {dtype}: {geoms}; best "
+              f"block {r.best.plan.block_shape} "
+              f"({'swept' if r.changed else 'the analytic'}); under "
+              f"from_profile equal to the analytic plan's output bit for "
+              f"bit, {len(seen)} plan record(s) cache=override from the "
+              f"profile: ok")
+    del args, want, got
+
+    cfg = get_config(TRAIN_ARCH)
+    mesh = dict(zip(("data", "model"), parse_shape(SPMD_MESH)))
+    cell = ("rmsnorm", (TRAIN_SEQ * TRAIN_BATCH, cfg.d_model), cfg.adtype)
+    r = sweep_lib.sweep_cell(*cell, ctx=api.current_context().evolve(
+        mesh=mesh), device="cuda", local=True)
+    profile_lib.save_profile(str(SPMD_PROFILE), [r.entry()], backend=label)
+    pinned = profile_lib.load_profile(str(SPMD_PROFILE))
+    print(f"measure: phase 3d's profile: {r.kernel} {r.shape} {r.dtype} as "
+          f"one rank's shard of {mesh}: {len(r.candidates)} geometries, "
+          f"best block {r.best.plan.block_shape} "
+          f"({r.best.measured['ms']:.4f} ms), {len(pinned)} cell loaded "
+          f"back strictly; validate {t_validate:.1f} s, the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def measure_comm_check(ranks: list[list[dict]]) -> None:
+    """Phase 3i's comm census (``measure.validate.validate_comm`` with the
+    exposed check, ``HALO_COMM_CASES``), fatal unless every rank's records
+    are ok; rank 0's stream into the measure phase's obs stream."""
+    from repro_torch import obs
+    from repro_torch.measure import validate as validate_lib
+
+    bad = [(i, r["kernel"], r["check"]) for i, recs in enumerate(ranks)
+           for r in recs if r["status"] != "ok"]
+    if bad:
+        fail(f"measure: comm census out of its envelope: {bad}")
+    with obs.session(obs.JsonlSink(OBS_DIR / "measure.jsonl", append=True)):
+        for r in ranks[0]:
+            obs.emit(validate_lib.event_of(r))
+    for r in ranks[0]:
+        if r["check"] == "comm":
+            print(f"measure: comm {r['kernel']} {tuple(r['shape'])} on "
+                  f"{r['mesh']}, a rank's {tuple(r['local_shape'])}: wire "
+                  f"{r['measured']['wire_bytes']:.0f} B against predicted "
+                  f"{r['predicted']['comm_bytes']} B, ratio {r['ratio']}: ok")
+        else:
+            m = r["measured"]
+            print(f"measure: exposed {r['kernel']}: "
+                  f"{sum(c['overlappable'] for c in m['collectives'])}/"
+                  f"{len(m['collectives'])} overlappable, exposed "
+                  f"{m['exposed_wire_bytes']:.0f} B against predicted "
+                  f"{r['predicted']['exposed_comm_bytes']} B at rank 0's "
+                  f"rates {[f'{x / 1e9:.3f} GB/s' for x in m['rates']]}, "
+                  f"ratio {r['ratio']}: ok")
+
+
 def phase1_obs() -> None:
     """Phase 1's obs stream: ``scripts/torch_obs_smoke.py``'s sequence on
     the card (two ``api.launch("stream.scale")``, B2, and one ``plan_for``
@@ -4311,12 +4441,13 @@ def phase1_obs() -> None:
 
 def obs_report() -> None:
     """``python -m repro_torch.obs.report --fail-on-validation`` over the
-    streams of phases 1, 3b, 3c and 3d; fatal unless it exits 0.  Prints
-    its summary, then deletes the streams."""
+    streams of phases 1, 3b, 3c, 3d and measure (its ``ValidationEvent``s,
+    3i's comm census among them); fatal unless it exits 0.  Prints its
+    summary, then deletes the streams."""
     import os
 
     paths = [str(OBS_DIR / f"{name}.jsonl")
-             for name in ("phase1", "serve", "train", "spmd")]
+             for name in ("phase1", "serve", "train", "spmd", "measure")]
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src")] + [p for p in [env.get("PYTHONPATH")] if p])
@@ -4329,7 +4460,7 @@ def obs_report() -> None:
     if out.returncode != 0:
         fail(f"obs report: exit {out.returncode}: {out.stderr.strip()}")
     print("obs report: python -m repro_torch.obs.report --fail-on-validation "
-          "over the phase 1, 3b, 3c and 3d streams exited 0: ok")
+          "over the phase 1, 3b, 3c, 3d and measure streams exited 0: ok")
     shutil.rmtree(OBS_DIR)
 
 
@@ -4367,7 +4498,10 @@ def main() -> int:
     # ---- 1. environment ---------------------------------------------------
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    bw, fp32_rate = datasheet(kind)
+    try:
+        bw, fp32_rate = datasheet(kind)
+    except LookupError as e:
+        fail(str(e))
     print(f"env: python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {kind}, nvidia-smi: {smi}")
     limits = hopper_limits()
@@ -4518,13 +4652,13 @@ def main() -> int:
     print(f"main: vector_triad_segmented n={N} fp32, {SEGMENTS} segments, "
           f"phases {segs[0].phases}: equal to the flat triad: ok")
 
+    timed("measure", measure_phase)
     serve_launches, serve_one = timed("3b", serving_phase)
     serve_mesh_launches = timed("3l", serve_mesh_phase, serve_one)
     del serve_one
     flash_launches = timed("3m", serve_flash_phase)
     train_launches, train_metrics = timed("3c", training_phase)
     spmd_launches = timed("3d", spmd_phase, train_metrics)
-    timed("obs report", obs_report)
     recurrent_launches = timed("3j", recurrent_tp_phase)
     fsdp_launches = timed("3k", fsdp_phase)
     hybrid_launches = timed("3e", hybrid_phase)
@@ -4535,6 +4669,7 @@ def main() -> int:
                                   whisper_metrics)
     del grid            # the ranks hold the grids of phase 3i
     halo_launches, halo_results = timed("3i", halo_phase)
+    timed("obs report", obs_report)
     print(f"main: seconds a phase {phase_s}")
     grid = jacobi_ops.init_grid(GRID, GRID, torch.float32, seed=4)
     launches = {name: table[key] for name, (table, key) in counters.items()}
@@ -4578,8 +4713,7 @@ def main() -> int:
             cases[name + suffix] = dict(
                 kernel=lambda w=wrapper, a=args, p=plan: w(*a, brows=p.block_rows),
                 plain=lambda o=op, x=xs, s=s: stream_kernel.plain(o, x, s),
-                exact=True, dtype=dtype,
-                bytes=(count + 1) * N * dtype.itemsize,
+                exact=True, dtype=dtype, bytes=plan.predicted_hbm_bytes,
                 ops={"copy": 0, "scale": 1, "add": 1, "triad": 2}[op] * N,
                 library={"copy": lambda x=xs: torch.clone(x[0]),
                          "scale": lambda x=xs: torch.mul(x[0], SCALAR),
@@ -4590,7 +4724,7 @@ def main() -> int:
         cases["triad" + suffix] = dict(
             kernel=lambda x=xs, p=plan: triad_kernel.triad2d(*x, brows=p.block_rows),
             plain=lambda x=xs: triad_kernel.plain(*x),
-            exact=True, dtype=dtype, bytes=4 * N * dtype.itemsize, ops=2 * N,
+            exact=True, dtype=dtype, bytes=plan.predicted_hbm_bytes, ops=2 * N,
             library=lambda x=xs: torch.addcmul(*x))
 
     def lbm_case(n, dtype, layout):
@@ -4618,7 +4752,7 @@ def main() -> int:
         return dict(
             kernel=lambda: logical(run()),
             plain=lambda: logical(lbm_kernel.plain(x, OMEGA, layout)),
-            exact=True, dtype=dtype, bytes=2 * x.numel() * dtype.itemsize,
+            exact=True, dtype=dtype, bytes=plan.predicted_hbm_bytes,
             ops=lbm_kernel.OPS_PER_SITE * sites, library=None,
             # timed without the logical-site slice
             run=run, plain_run=lambda: lbm_kernel.plain(x, OMEGA, layout))
@@ -4651,13 +4785,11 @@ def main() -> int:
         def library():
             return F.rms_norm(x, (d,), weight=s, eps=1e-6)
 
-        # x (and z) read once, y written once, the scale read once (the
-        # planner's count, ``predicted_hbm_bytes``); squares, sums and two
-        # scalings an element, and for the gate a sigmoid (exp, add, divide)
-        # and two products more
+        # bytes: x (and z) read once, y written once, the scale read once
+        # (the planner's count); squares, sums and two scalings an element,
+        # and for the gate a sigmoid (exp, add, divide) and two products more
         return dict(kernel=run, plain=plain, exact=False, dtype=dtype,
-                    bytes=((3 if gated else 2) * rows + 1) * d
-                    * dtype.itemsize,
+                    bytes=plan.predicted_hbm_bytes,
                     ops=(9 if gated else 4) * rows * d,
                     library=None if gated else library)
 
@@ -4718,29 +4850,29 @@ def main() -> int:
         rows, d = shape
         name = "rmsnorm.gated" if gated else "rmsnorm"
         plan = api.plan_for(f"{name}.sumsq", shape, dtype)
+        aplan = api.plan_for(f"{name}.apply", shape, dtype)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         x, z = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 for _ in range(2))
         s = (torch.randn(d, generator=gen, device="cuda") + 1).to(sdtype)
         zz = z if gated else None
         ss = parts * rms_kernel.plain_sumsq(x, d, zz)
-        brows = plan.block_rows
         d_total = parts * d
 
         def stats():
             if gated:
                 return rms_kernel.gated_sumsq2d(x, z, d_logical=d,
-                                                brows=brows)
-            return rms_kernel.sumsq2d(x, d_logical=d, brows=brows)
+                                                brows=plan.block_rows)
+            return rms_kernel.sumsq2d(x, d_logical=d, brows=plan.block_rows)
 
         def apply():
             if gated:
                 return rms_kernel.gated_apply2d(x, z, s, ss, d_logical=d,
-                                                d_total=d_total, brows=brows)
+                                                d_total=d_total,
+                                                brows=aplan.block_rows)
             return rms_kernel.apply2d(x, s, ss, d_logical=d, d_total=d_total,
-                                      brows=brows)
+                                      brows=aplan.block_rows)
 
-        eb, n_in = dtype.itemsize, 2 if gated else 1
         # the gated bf16 statistic: the kernel's fast silu may round a gate
         # to the neighbouring bf16 value where the plain version's exact
         # sigmoid does not, moving that square by 2^-7 of it (1.2e-5 of a
@@ -4749,15 +4881,16 @@ def main() -> int:
         # row's sum (about 5e-4), so a dropped or doubled element fails
         stats_tol = (1e-4 if gated and dtype == torch.bfloat16 else 1e-5,
                      1e-6)
-        # stats: x (and z) read once, the fp32 statistic written once;
-        # apply: x (and z) read again, the scale and the statistic read,
-        # y written.  Squares and sums an element (and the gate's five
-        # operations); two scalings an element (and the gate's)
+        # bytes, the planner's: stats, x (and z) read once, the fp32
+        # statistic written once; apply, x (and z) read again, the scale and
+        # the statistic read, y written.  Squares and sums an element (and
+        # the gate's five operations); two scalings an element (and the
+        # gate's)
         return {
             f"{name}.sumsq": dict(
                 kernel=stats, plain=lambda: rms_kernel.plain_sumsq(x, d, zz),
                 exact=False, dtype=dtype, tol=stats_tol,
-                bytes=n_in * rows * d * eb + 4 * rows,
+                bytes=plan.predicted_hbm_bytes,
                 ops=(7 if gated else 2) * rows * d,
                 # an fp32 row's sum of squares is one call; nothing gates
                 library=(lambda: torch.linalg.vecdot(x, x, dim=-1))
@@ -4765,9 +4898,7 @@ def main() -> int:
             f"{name}.apply": dict(
                 kernel=apply, plain=lambda: rms_kernel.plain(
                     x, s, d, 1e-6, zz, ss=ss, d_total=d_total),
-                exact=False, dtype=dtype,
-                bytes=(n_in + 1) * rows * d * eb + d * sdtype.itemsize
-                + 4 * rows,
+                exact=False, dtype=dtype, bytes=aplan.predicted_hbm_bytes,
                 ops=(7 if gated else 2) * rows * d, library=None)}
 
     # the split passes at the (1, 2) ranks' blocks of phase 3j: a zamba2
@@ -4811,12 +4942,13 @@ def main() -> int:
             return xent_kernel.xent_nll(x, labels, logical_v=logical_v,
                                         brows=plan.block_rows)
 
-        # the logits read once, the labels read and the NLL written once;
-        # a max, a subtract, an exp and an add an element
+        # bytes: the logits read once, the labels read and the NLL written
+        # once (the planner's count); a max, a subtract, an exp and an add
+        # an element
         return dict(kernel=run,
                     plain=lambda: xent_kernel.plain(x, labels, logical_v),
                     exact=False, dtype=dtype, tol=(1e-5, 1e-5),
-                    bytes=t * v * dtype.itemsize + 8 * t, ops=4 * t * v,
+                    bytes=plan.predicted_hbm_bytes, ops=4 * t * v,
                     library=(lambda: F.cross_entropy(x, labels64))
                     if logical_v == v else None)
 
@@ -4856,7 +4988,8 @@ def main() -> int:
                                              brows=plan.block_rows)
 
         # the shard's logits read once, the labels read and three fp32
-        # partials written once; a max, a subtract, an exp and an add an
+        # partials written once (counted here: the "xent" plan prices the
+        # one-pass NLL's output); a max, a subtract, an exp and an add an
         # element
         return dict(kernel=run,
                     plain=lambda: xent_kernel.plain_partials(
@@ -4901,13 +5034,14 @@ def main() -> int:
         kernel=lambda: jacobi_kernel.sweep(jsrc, jdst, n_cols=GRID,
                                            block=jplan.block_shape),
         plain=lambda: jacobi_kernel.plain(jsrc, torch.empty_like(jsrc), GRID),
-        exact=True, dtype=torch.float32, bytes=2 * GRID * GRID * 4,
+        exact=True, dtype=torch.float32, bytes=jplan.predicted_hbm_bytes,
         ops=4 * (GRID - 2) * (GRID - 2),
         library=lambda: F.conv2d(grid[None, None], weight), conv=True)
     # B6 on a 3-row slab of the grid, in its own plan's tiles, and the
     # boundary launches of phase 3i's shard bodies: B6's row entry on three
     # rows where they lie (the mesh's boundary row), B7 on a rank's two
-    # boundary planes at N = 256
+    # boundary planes at N = 256; no plan has these launches' shapes, so
+    # their bytes are counted here
     slab = jacobi_ops.pitched(grid[GRID // 2 - 1:GRID // 2 + 2], jplan)
     sblock = api.plan_for("jacobi", (1, GRID), torch.float32).block_shape
     cases["jacobi.slab"] = dict(

@@ -25,8 +25,8 @@ candidates are built here with nvcc (one process each, in parallel) into
 
 At 16384^2 in fp32 and bf16, and at a (3, 16384) fp32 boundary slab, each
 sweep is checked bit for bit against the plain version, and everything is
-timed with ``chip_smoke.time_ms``, in one order and then in the reverse
-one, the mean of the two kept.  One ``design:`` line a shape gives each
+timed with ``repro_torch.measure.timing.time_ms``, in one order and then
+in the reverse one, the mean of the two kept.  One ``design:`` line a shape gives each
 time and its share of the bound (bytes: the pitched grid read once and
 written once, over the data sheet's rate), after the card's name and power
 limit and ptxas's registers and spills of each build.  Exits non-zero
@@ -88,10 +88,10 @@ def build() -> dict[str, tuple[ctypes.CDLL, list[dict]]]:
 
 def abba(fns: dict) -> dict[str, float]:
     """ms of each callable: timed in order and in reverse, the mean."""
-    import chip_smoke
+    from repro_torch.measure.timing import time_ms
 
-    first = {k: chip_smoke.time_ms(f) for k, f in fns.items()}
-    second = {k: chip_smoke.time_ms(fns[k]) for k in reversed(list(fns))}
+    first = {k: time_ms(f) for k, f in fns.items()}
+    second = {k: time_ms(fns[k]) for k in reversed(list(fns))}
     return {k: (first[k] + second[k]) / 2 for k in fns}
 
 
@@ -108,6 +108,7 @@ def main() -> int:
 
     import chip_smoke
     from repro_torch import api
+    from repro_torch.measure.timing import datasheet
     from repro_torch.kernels import _build
     from repro_torch.kernels.jacobi import kernel
     from repro_torch.kernels.jacobi import ops
@@ -118,7 +119,7 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.nvidia_smi_line())
-    bw, _ = chip_smoke.datasheet(torch.cuda.get_device_name(0))
+    bw, _ = datasheet(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     _build.library("jacobi")
     libs = build()

@@ -20,8 +20,8 @@ Each runs at the main path's shapes (those of ``chip_smoke.py``: STREAM and
 the triad at n = 2**27 in fp32 and bf16 on the plan's tiles; RMSNorm in
 bf16 at the decode (8, 2560), prefill (2048, 2560), training (4096, 896)
 and gated (2048, 4096) shapes), checked bit for bit against the shipped
-kernel, and timed with ``chip_smoke.time_ms`` beside the shipped kernel and
-the library call.  The designs of a shape are timed twice, in one order and
+kernel, and timed with ``repro_torch.measure.timing.time_ms`` beside the
+shipped kernel and the library call.  The designs of a shape are timed twice, in one order and
 then in the reverse one, and each time is the mean of its two: a drift of
 the card's clocks over the run then falls on every design alike.  One
 ``design:`` line a shape gives each time and its ratio to the library's;
@@ -90,10 +90,10 @@ def build() -> dict[str, ctypes.CDLL]:
 
 def abba(fns: dict) -> dict[str, float]:
     """ms of each callable: timed in order and in reverse, the mean."""
-    import chip_smoke
+    from repro_torch.measure.timing import time_ms
 
-    first = {k: chip_smoke.time_ms(f) for k, f in fns.items()}
-    second = {k: chip_smoke.time_ms(fns[k]) for k in reversed(list(fns))}
+    first = {k: time_ms(f) for k, f in fns.items()}
+    second = {k: time_ms(fns[k]) for k in reversed(list(fns))}
     return {k: (first[k] + second[k]) / 2 for k in fns}
 
 
@@ -113,6 +113,7 @@ def main() -> int:
 
     import chip_smoke
     from repro_torch import api
+    from repro_torch.measure.timing import datasheet
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.kernels.stream import kernel as stream_kernel
     from repro_torch.kernels.stream import ops as stream_ops
@@ -122,7 +123,7 @@ def main() -> int:
         print("kernel_designs: no CUDA device is available", file=sys.stderr)
         return 1
     print(chip_smoke.nvidia_smi_line())
-    bw, _ = chip_smoke.datasheet(torch.cuda.get_device_name(0))
+    bw, _ = datasheet(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     libs = build()
     print(f"design: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")

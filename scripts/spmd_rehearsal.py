@@ -25,7 +25,13 @@ positions cut four ways) and the (2, 2) checks with their masked-loss and
 flash-decoding jobs; ``python3 scripts/spmd_rehearsal.py obs`` runs the
 phases that stream to the obs bus (ROADMAP A7.1) and their gates: phase
 1's obs smoke, 3b, 3c, 3d and the report over their streams (about 8
-minutes)."""
+minutes); ``python3 scripts/spmd_rehearsal.py measure`` runs what the
+measure phase (ROADMAP A7.2-A7.5) touches: ``python -m
+repro_torch.measure.validate --all`` and ``.sweep --all`` on the card
+(their reports under ``build/``), the CLI's comm census on a (2, 1)
+mesh, ``measure_phase``, phase 3d with its ``--plan-profile``, phase 3i
+with its comm census, and the report over the 3d and measure streams
+(about 7 minutes)."""
 import dataclasses
 import sys
 import time
@@ -48,6 +54,19 @@ def main():
     t0 = time.perf_counter()
     _build.build()
     print(f"build {time.perf_counter() - t0:.1f} s")
+
+    def forwards(arch, data, n, layers=0):
+        cfg = get_config(arch)
+        model = build_model(dataclasses.replace(cfg, n_layers=layers)
+                            if layers else cfg)
+        params = model.init(cs.SEED)
+        with torch.no_grad():
+            out = [{"loss": float(model.loss(params, make_batch(data, i))),
+                    "grad_norm": float("nan")} for i in range(n)]
+        del model, params
+        torch.cuda.empty_cache()
+        return out
+
     if sys.argv[1:] == ["3k"]:
         t0 = time.perf_counter()
         cs.mesh_backward_checks()
@@ -96,23 +115,53 @@ def main():
         seconds["obs report"] = round(time.perf_counter() - t0, 1)
         print(f"seconds a phase {seconds}")
         return
+    if sys.argv[1:] == ["measure"]:
+        import os
+        import shutil
+        import subprocess
+
+        from repro_torch.measure import sweep, validate
+
+        shutil.rmtree(cs.OBS_DIR, ignore_errors=True)
+        cs.OBS_DIR.mkdir(parents=True)
+        seconds = {}
+        for name, argv, fn in (
+                ("validate", ["--all", "--out",
+                              "build/validation.json"], validate.main),
+                ("sweep", ["--all", "--out", "build/profile.json"],
+                 sweep.main),
+                ("comm", ["--comm", "--exposed", "--mesh", "2x1", "--out",
+                          "build/validation_comm.json"],
+                 validate.main)):
+            t0 = time.perf_counter()
+            print(f"{name}: exit {fn(argv)}")
+            seconds[name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+        cs.measure_phase()
+        seconds["measure"] = round(time.perf_counter() - t0, 1)
+        q = get_config(cs.TRAIN_ARCH)
+        train = forwards(cs.TRAIN_ARCH, DataConfig(
+            vocab_size=q.vocab_size, seq_len=cs.TRAIN_SEQ,
+            global_batch=cs.TRAIN_BATCH), cs.SPMD_STEPS, cs.TRAIN_LAYERS)
+        for name, fn, args in (("3d", cs.spmd_phase, (train,)),
+                               ("3i", cs.halo_phase, ())):
+            t0 = time.perf_counter()
+            fn(*args)
+            seconds[name] = round(time.perf_counter() - t0, 1)
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report",
+             "--fail-on-validation"]
+            + [str(cs.OBS_DIR / f"{n}.jsonl") for n in ("spmd", "measure")],
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH="src"))
+        print(out.stdout, out.stderr, f"report exit {out.returncode}")
+        print(f"seconds a phase {seconds}")
+        return
     if sys.argv[1:] == ["3j"]:
         t0 = time.perf_counter()
         cs.recurrent_tp_phase()
         print(f"phase 3j {time.perf_counter() - t0:.1f} s")
         return
-
-    def forwards(arch, data, n, layers=0):
-        cfg = get_config(arch)
-        model = build_model(dataclasses.replace(cfg, n_layers=layers)
-                            if layers else cfg)
-        params = model.init(cs.SEED)
-        with torch.no_grad():
-            out = [{"loss": float(model.loss(params, make_batch(data, i))),
-                    "grad_norm": float("nan")} for i in range(n)]
-        del model, params
-        torch.cuda.empty_cache()
-        return out
 
     q = get_config(cs.TRAIN_ARCH)
     train = forwards(cs.TRAIN_ARCH, DataConfig(

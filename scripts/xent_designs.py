@@ -7,8 +7,8 @@ one NVIDIA GPU.
 
 ``csrc/xent.cu`` is built as the port builds it and launched through its
 wrappers (``kernels/xent/kernel.py``).  At each shape the kernel is checked
-against its plain version and timed with ``chip_smoke.time_ms`` at the
-plan's rows a CTA beside:
+against its plain version and timed with
+``repro_torch.measure.timing.time_ms`` at the plan's rows a CTA beside:
 
   * ``rows=N``: the same kernel walking N rows a CTA instead of the plan's
     (the narrow ragged shapes only);
@@ -49,10 +49,10 @@ B12_SHAPES = [((4096, 75968, 75968, 75968, 151936), "float32", ()),
 
 def abba(fns: dict) -> dict[str, float]:
     """ms of each callable: timed in order and in reverse, the mean."""
-    import chip_smoke
+    from repro_torch.measure.timing import time_ms
 
-    first = {k: chip_smoke.time_ms(f) for k, f in fns.items()}
-    second = {k: chip_smoke.time_ms(fns[k]) for k in reversed(list(fns))}
+    first = {k: time_ms(f) for k, f in fns.items()}
+    second = {k: time_ms(fns[k]) for k in reversed(list(fns))}
     return {k: (first[k] + second[k]) / 2 for k in fns}
 
 
@@ -69,6 +69,7 @@ def main() -> int:
 
     import chip_smoke
     from repro_torch import api
+    from repro_torch.measure.timing import datasheet
     from repro_torch.kernels import _build
     from repro_torch.kernels.xent import kernel
 
@@ -76,7 +77,7 @@ def main() -> int:
         print("xent_designs: no CUDA device is available", file=sys.stderr)
         return 1
     print(chip_smoke.nvidia_smi_line())
-    bw, _ = chip_smoke.datasheet(torch.cuda.get_device_name(0))
+    bw, _ = datasheet(torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
     _build.library("xent")
     ptxas = _build.PTXAS.get("xent")

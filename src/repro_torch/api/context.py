@@ -64,6 +64,19 @@ class PlanContext:
     mesh: Any = None
     spmd: bool = True
 
+    @staticmethod
+    def from_profile(path: str, *, strict: bool = True,
+                     **fields) -> "PlanContext":
+        """A context whose ``plan_overrides`` come from a measured profile
+        file (``repro_torch.measure.sweep`` output).  Every loaded plan
+        carries ``provenance="profile:<path>"``, so ``explain()`` and the
+        ``PlanEvent``s report where the layout decision came from.  Extra
+        ``fields`` (mesh, ...) pass through to the constructor."""
+        from repro_torch.measure.profile import load_profile  # lazy: no cycle
+
+        return PlanContext(plan_overrides=load_profile(path, strict=strict),
+                           **fields)
+
     def evolve(self, **changes) -> "PlanContext":
         """Derived context: fields passed as ``_UNSET`` keep this context's
         value; ``plan_overrides`` merge with the new mapping winning, and an

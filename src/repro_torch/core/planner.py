@@ -90,17 +90,27 @@ CTA_BUFFERS: dict[str, int] = {"jacobi": 4}
 # RMSNorm reads x (and the gate z) and writes y, its scale vector is a
 # width-sized side stream; the cross-entropy reads its logits once, and its
 # labels and per-token NLL are row-sized side streams
-# (``MINOR_STREAM_BYTES``).
+# (``MINOR_STREAM_BYTES``).  The split norm's stats pass reads x (and z)
+# and writes only a row statistic; its apply pass reads x (and z) and
+# writes y, with the scale and the statistic as side streams.
 MAJOR_STREAMS: dict[str, int] = {"jacobi": 2, "lbm.soa": 2, "lbm.ivjk": 2,
-                                 "rmsnorm": 2, "rmsnorm.gated": 3, "xent": 1}
+                                 "rmsnorm": 2, "rmsnorm.gated": 3, "xent": 1,
+                                 "rmsnorm.sumsq": 1, "rmsnorm.gated.sumsq": 2,
+                                 "rmsnorm.apply": 2,
+                                 "rmsnorm.gated.apply": 3}
 
 # Side-operand bytes per launch beside the major streams: (rows, width,
 # element bytes) -> bytes.  RMSNorm's scale is one row; labels are int32 and
-# the NLL fp32 whatever the logits' dtype.
+# the NLL fp32 whatever the logits' dtype; the split norm's row statistic
+# is fp32 (written by the stats pass, read by the apply pass).
 MINOR_STREAM_BYTES: dict[str, Callable[[int, int, int], int]] = {
     "rmsnorm": lambda rows, width, eb: width * eb,
     "rmsnorm.gated": lambda rows, width, eb: width * eb,
     "xent": lambda rows, width, eb: rows * 4 + rows * 4,
+    "rmsnorm.sumsq": lambda rows, width, eb: rows * 4,
+    "rmsnorm.gated.sumsq": lambda rows, width, eb: rows * 4,
+    "rmsnorm.apply": lambda rows, width, eb: width * eb + rows * 4,
+    "rmsnorm.gated.apply": lambda rows, width, eb: width * eb + rows * 4,
 }
 
 # Families whose kernels tile the minor dim too.  Every other 2-D kernel

@@ -37,6 +37,8 @@ from repro_torch.kernels.lbm import ops as lbm_ops
 from repro_torch.kernels.lbm import ref as lbm_ref
 from repro_torch.kernels.xent import kernel as xent_kernel
 from repro_torch.kernels.xent import ops as xent_ops
+# a rank job too: the comm census of ``measure.validate``
+from repro_torch.measure.validate import bare_shifts, validate_comm  # noqa: F401
 from repro_torch.models import build_model
 from repro_torch.models.params import leaves, map_leaves, map_tree
 from repro_torch.optim.adamw import AdamWConfig
@@ -554,27 +556,6 @@ def _one_device_ms(mesh, fn, reps: int) -> float:
     return ms
 
 
-def _bare_shifts(mesh, x: torch.Tensor, ring: bool, reps: int = 20
-                 ) -> tuple[int, float]:
-    """The bytes and host seconds ``mesh.comm`` counts for ``reps`` + 1
-    pairs of shifts of ``x`` down and up the data axis (a ring when
-    ``ring``) with nothing between issue and wait: the link's rate at the
-    halo's payload."""
-    n = mesh.axis_size("data")
-    if ring:
-        down = [(i, (i + 1) % n) for i in range(n)]
-        up = [(i, (i - 1) % n) for i in range(n)]
-    else:
-        down = [(i, i + 1) for i in range(n - 1)]
-        up = [(i, i - 1) for i in range(1, n)]
-    c0 = dict(mesh.comm)
-    _mesh_ms(lambda: [t.wait() for t in (mesh.ppermute(x, "data", down),
-                                         mesh.ppermute(x, "data", up))],
-             reps)
-    return (mesh.comm["bytes"] - c0["bytes"],
-            mesh.comm["seconds"] - c0["seconds"])
-
-
 def _lattice(n: int, seed: int, device) -> torch.Tensor:
     """The equilibrium shear flow with a +-2.5 % seeded perturbation, the
     same bits on every rank."""
@@ -671,7 +652,7 @@ def halo_card(mesh, grid: int, sweeps: int, lbm_sizes, steps: int,
         res["interior_ms"] = _mesh_ms(lambda: jkernel.sweep(
             a, b, n_cols=grid, block=plan.block_shape), 10)
         del a, b, g
-        res["link"] = _bare_shifts(mesh, stripe[:1], ring=False)
+        res["link"] = bare_shifts(mesh, stripe[:1], ring=False)
         del stripe
 
         # ---- LBM: gates, then times ----
@@ -679,7 +660,7 @@ def halo_card(mesh, grid: int, sweeps: int, lbm_sizes, steps: int,
             f = _lattice(size, seed + size, dev)
             xl = size // n
             mine = lattices[size]
-            out["lbm"][f"link N={size}"] = _bare_shifts(
+            out["lbm"][f"link N={size}"] = bare_shifts(
                 mesh, mine[list(lbm_ops._PLUS_X), -1:], ring=True)
             for layout in lbm_ops.LAYOUTS:
                 res = out["lbm"][f"{layout} N={size}"] = {}

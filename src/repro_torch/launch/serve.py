@@ -40,11 +40,18 @@ encoder runs once (``prefill_cross`` fills the cache's cross K/V), the
 prompt is fed one token a step through ``make_decode_step``, then the top
 of ``--gen``'s range of greedy tokens.  The continuous batcher does not
 serve this family (ROADMAP §C).
+
+``--plan-profile PATH`` replays a measured plan profile, as
+``launch.train`` does (``train.plan_profile_scope``): its swept cells
+override the analytic planner for the run, on a mesh each rank's shard
+shapes.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+from repro_torch.launch.train import plan_profile_scope
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -75,6 +82,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--profile", action="store_true",
                     help="on the card, profile one more decode tick after "
                          "the first run (rank 0 on a mesh)")
+    ap.add_argument("--plan-profile", default=None,
+                    help="measured plan profile (repro_torch.measure.sweep "
+                         "output); its swept cells override the analytic "
+                         "planner (on a mesh, cells match per-shard local "
+                         "shapes)")
     args = ap.parse_args(argv)
     if args.mesh not in ("host", "device"):
         from repro_torch.launch.mesh import parse_shape
@@ -497,12 +509,13 @@ def rank_main(mesh, args) -> dict:
     else:
         reqs = make_requests(args.requests, cfg.vocab_size, args.prompt_len,
                              args.gen, args.seed)
-    return serve_on_mesh(mesh, model, params, reqs,
-                         kv_caches=_kv_caches(args), slots=args.slots,
-                         max_len=args.max_len,
-                         prefill_chunk=args.prefill_chunk, rules=rules,
-                         replay=np.load(args.replay) if args.replay else None,
-                         profile=args.profile, static=static)
+    with plan_profile_scope(args.plan_profile):
+        return serve_on_mesh(
+            mesh, model, params, reqs, kv_caches=_kv_caches(args),
+            slots=args.slots, max_len=args.max_len,
+            prefill_chunk=args.prefill_chunk, rules=rules,
+            replay=np.load(args.replay) if args.replay else None,
+            profile=args.profile, static=static)
 
 
 def _main_mesh(args, device) -> dict:
@@ -547,15 +560,24 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     import torch
 
-    from repro_torch import api
     from repro_torch.kernels.util import resolve_device
-    from repro_torch.models import build_model
 
     device = resolve_device(args.device)
     # fp32 matmuls in full precision, never TF32 (the reduced configs are fp32)
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.mesh not in ("host", "device"):
-        return _main_mesh(args, device)
+        return _main_mesh(args, device)    # each rank loads the profile
+    with plan_profile_scope(args.plan_profile):
+        return _main_one(args, device)
+
+
+def _main_one(args, device) -> dict:
+    """One device's run (``--mesh host`` or ``device``)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.models import build_model
+
     cfg = _config(args, device.type == "cuda")
     model = build_model(cfg)
     params = model.init(args.seed, device=device)

@@ -52,6 +52,12 @@ as the reference's launcher does; aggregate it with ``python -m
 repro_torch.obs.report PATH``.  On a mesh only rank 0 opens the file: all
 ranks run one schedule, so its stream is the run's, and every other rank
 keeps the bus's NullSink default.
+
+``--plan-profile PATH`` replays a measured plan profile
+(``python -m repro_torch.measure.sweep`` output): its swept cells override
+the analytic planner for the run (``PlanContext.from_profile``).  On a
+mesh the cells are one rank's shard shapes, the shapes the SPMD launch
+plans (``measure.sweep --mesh DxM``); every rank loads the file.
 """
 from __future__ import annotations
 
@@ -88,6 +94,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "fallbacks, step metrics) to this JSONL file; on a "
                          "mesh rank 0 writes it; aggregate with python -m "
                          "repro_torch.obs.report")
+    ap.add_argument("--plan-profile", default=None,
+                    help="measured plan profile (repro_torch.measure.sweep "
+                         "output); its swept cells override the analytic "
+                         "planner (on a mesh, cells match per-shard local "
+                         "shapes)")
     args = ap.parse_args(argv)
     if args.mesh not in ("host", "device"):
         from repro_torch.launch.mesh import parse_shape
@@ -162,6 +173,24 @@ def _obs_scope(args, rank: int = 0):
         yield sink
 
 
+@contextlib.contextmanager
+def plan_profile_scope(path: str | None):
+    """The run's plan overrides: a measured profile's cells
+    (``--plan-profile``), loaded strictly, else none.  Without a profile
+    ``plan_overrides`` stays unspecified: an explicit ``None`` would clear
+    the pins an enclosing context holds."""
+    if not path:
+        yield
+        return
+    from repro_torch import api
+    from repro_torch.measure.profile import load_profile
+
+    overrides = load_profile(path)
+    logging.info("plan profile %s: %d swept cell(s)", path, len(overrides))
+    with api.plan_context(plan_overrides=overrides):
+        yield
+
+
 def _profile_step(trainer, step: int) -> dict:
     """Device time of one more train step by kernel (torch.profiler's CUDA
     activity) beside its CUDA-event time on this rank, and the host
@@ -227,7 +256,8 @@ def rank_main(mesh, args) -> dict:
         for k in table:
             table[k] = 0
     mesh.comm.update(calls=0, bytes=0, seconds=0.0)
-    with _obs_scope(args, mesh.rank) as sink:
+    with _obs_scope(args, mesh.rank) as sink, \
+            plan_profile_scope(args.plan_profile):
         metrics = trainer.train(args.seed)
         streamed = obs.enabled()
     out = {
@@ -283,7 +313,7 @@ def main(argv=None):
                  n_params / 1e6, args.mesh, device)
     print(api.explain("xent", (args.global_batch * args.seq_len,
                                cfg.vocab_size), torch.float32))
-    with _obs_scope(args):
+    with _obs_scope(args), plan_profile_scope(args.plan_profile):
         metrics = trainer.train(args.seed)
     _report(metrics, args)
     return metrics

@@ -148,11 +148,13 @@ class SpmdOverrideShadowEvent(Event):
 
 @dataclasses.dataclass(frozen=True)
 class ValidationEvent(Event):
-    """One measured-vs-predicted record (the reference's
-    ``repro.measure.validate``).
+    """One measured-vs-predicted record (``repro_torch.measure.validate``).
 
-    ``check`` is "hbm" (compiled bytes-accessed vs predicted_hbm_bytes)
-    or "comm" (collective-census wire bytes vs predicted_comm_bytes).
+    ``check`` is "hbm" (the body's CUDA-event time at the card's data-sheet
+    memory rate, ms x bytes/s, vs predicted_hbm_bytes: a timed check, not a
+    byte census), "comm" (the wire bytes of the collectives a rank issued
+    vs predicted_comm_bytes) or "exposed_comm" (the bytes left on the
+    critical path vs predicted_exposed_comm_bytes).
     """
 
     kind: ClassVar[str] = "validation"

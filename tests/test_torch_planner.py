@@ -6,6 +6,7 @@ numpy-only modules, so their outputs must equal the reference's exactly
 so it is held to invariants, not to the TPU golden plans.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -189,3 +190,108 @@ def test_rmsnorm_traffic_charges_the_scale_vector(kernel, dtype, shape):
         jplanner.MINOR_STREAM_BYTES[kernel](rows, d, eb))
     if p.padded_shape == shape:
         assert p.predicted_hbm_bytes == p.predicted_logical_bytes
+
+
+# ---- LBM, the six RMSNorm entries and the cross-entropy (ROADMAP A7.5) ----
+
+NORMS = ["rmsnorm", "rmsnorm.gated", "rmsnorm.sumsq", "rmsnorm.gated.sumsq",
+         "rmsnorm.apply", "rmsnorm.gated.apply"]
+
+
+@pytest.mark.parametrize("n", [2, 10, 64, 250, 256])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["lbm.soa", "lbm.ivjk"])
+def test_lbm_plan_invariants(kernel, dtype, n):
+    """A block gives each of a CTA's threads one site in whole vector-unit
+    chunks; the sites pad to whole blocks, less than one block; the
+    lattice is read and written once (``MAJOR_STREAMS``)."""
+    from repro_torch.api import registry
+
+    registry.resolve(kernel)
+    p = plan(kernel, (19, n, n, n), dtype)
+    unit = p.minor_unit
+    sites = p.padded_elems // 19
+    block_sites = p.padded_elems // 19 // math.prod(p.grid)
+    assert block_sites == max(layout.CTA_THREADS // unit, 1) * unit
+    assert sites % block_sites == 0 and 0 <= sites - n ** 3 < block_sites
+    if kernel == "lbm.soa":
+        assert p.padded_shape == (19, sites) and p.block_shape[0] == 19
+    else:
+        assert p.padded_shape == (sites // unit, 19, unit)
+    assert p.predicted_hbm_bytes == 2 * p.padded_elems * p.elem_bytes
+    assert p.predicted_logical_bytes == 2 * 19 * n ** 3 * p.elem_bytes
+
+
+@pytest.mark.parametrize("shape", [(1, 7), (8, 896), (300, 1111),
+                                   (2048, 2560), (2113, 1024)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", NORMS)
+def test_rmsnorm_plan_invariants(kernel, dtype, shape):
+    """Every norm entry streams full-width row blocks: rows a whole number
+    of blocks, the width whole vector units, one CTA's in-flight rows in
+    the budget; bf16 pays no more padding bytes than fp32."""
+    from repro_torch.api import registry
+
+    registry.resolve(kernel)
+    p = plan(kernel, shape, dtype)
+    size = p.elem_bytes
+    assert p.width >= shape[1] and p.width % p.minor_unit == 0
+    assert p.width * size % layout.VEC_BYTES == 0
+    assert p.rows >= shape[0] and p.rows % p.block_rows == 0
+    assert p.block_cols == p.width
+    n_buffers = planner.CTA_BUFFERS.get(kernel, p.signature.n_streams + 1)
+    assert p.block_rows == 1 or p.block_rows * p.width * size * n_buffers \
+        <= BUDGET
+    if dtype == "bfloat16":
+        assert p.waste_bytes <= plan(kernel, shape, "float32").waste_bytes
+
+
+@pytest.mark.parametrize("kernel", NORMS[2:])
+def test_split_norm_geometry_does_not_read_the_byte_tables(kernel,
+                                                           monkeypatch):
+    """The split passes' ``MAJOR_STREAMS`` / ``MINOR_STREAM_BYTES`` entries
+    move their predicted bytes only: planned without them, every cell
+    keeps its padded shape and block."""
+    from repro_torch.api import registry
+
+    registry.resolve(kernel)
+    cells = [((r, d), dt) for r in (8, 300, 2048, 4096)
+             for d in (896, 1024, 2048) for dt in DTYPES]
+    # (the bytes are read off the tables when asked: keep them now)
+    with_tables = [(p.padded_shape, p.block_shape, p.predicted_hbm_bytes)
+                   for p in (plan(kernel, s, dt) for s, dt in cells)]
+    monkeypatch.delitem(planner.MAJOR_STREAMS, kernel)
+    monkeypatch.delitem(planner.MINOR_STREAM_BYTES, kernel)
+    planner.clear_plan_cache()
+    try:
+        for (s, dt), (padded, block, nbytes) in zip(cells, with_tables):
+            q = plan(kernel, s, dt)
+            assert (q.padded_shape, q.block_shape) == (padded, block)
+            assert q.predicted_hbm_bytes != nbytes
+    finally:
+        planner.clear_plan_cache()
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (300, 5000), (1000, 32008),
+                                   (4096, 151936), (3584, 51865)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_xent_plan_invariants(dtype, shape):
+    """The column-tiled loss pads nothing on one device (its kernel reads
+    rows of any width in place), walks whole rows a CTA in passes of one
+    16-B vector a thread, keeps every SM busy where the rows allow, and
+    moves its logits once beside two row-sized fp32/int32 side streams."""
+    from repro_torch.api import registry
+
+    registry.resolve("xent")
+    p = plan("xent", shape, dtype)
+    t, v = shape
+    assert p.padded_shape == shape and p.minor_unit == 1 and p.waste == 0
+    assert p.block_cols == min(layout.CTA_THREADS * layout.VEC_BYTES
+                               // p.elem_bytes, v)
+    assert 1 <= p.block_rows <= t
+    if t >= layout.CTAS_PER_SM * SMS:
+        assert p.grid[0] >= layout.CTAS_PER_SM * SMS or p.block_rows == 1
+    # the fewest rows that stream COL_TILED_CTA_BYTES, or fewer
+    assert (p.block_rows - 1) * v * p.elem_bytes < \
+        planner.COL_TILED_CTA_BYTES
+    assert p.predicted_hbm_bytes == t * v * p.elem_bytes + 8 * t

@@ -33,6 +33,10 @@ each mesh:
   * a single-device checkpoint restores into the mesh ``Trainer`` as each
     rank's blocks, and the mesh ``Trainer``'s checkpoint restores into a
     single-device ``Trainer`` bit for bit;
+  * ``measure.validate``'s comm census at the reference's ``COMM_CASES``
+    (``mesh_checks.validate_comm``): the wire bytes each rank's launches
+    issue equal the local plans' ``predicted_comm_bytes``, and the halo
+    shifts are overlappable (ROADMAP A7.2);
   * at the port's own init stds (the true attention fan-ins), the fp32
     step's loss, norm and gradients against the one-device port to rtol
     1e-6 and 1e-5 of a leaf's scale, from carried weights and from
@@ -96,6 +100,10 @@ from _torch_mesh import assemble, assemble_tree
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = [(1, 2), (2, 1), (2, 2)]
+# the exposed check's device-memory and link rates (bytes/s), given on the
+# CPU: the card's are measured (``measure.validate.measure_rates``)
+COMM_RATES = (3.35e12, 4e8)
+COMM_KERNELS = ("jacobi", "lbm.ivjk", "lbm.soa", "xent")
 AXES = ("data", "model")
 XENT = dict(rtol=1e-5, atol=1e-6)
 XENT_GRAD = dict(rtol=1e-5, atol=1e-9)
@@ -588,11 +596,47 @@ def mesh_run(request, reference, tmp_path_factory):
     ox, ol = reference["odd_inputs"]
     jobs += [("xent", dict(logits=ox, labels=ol, logical_v=ODD_CASE[2],
                            dtype=dtype)) for dtype in ODD_DTYPES]
+    # measure.validate's comm census and exposed check (the last job)
+    jobs.append(("validate_comm", dict(exposed=True, rates=COMM_RATES)))
     results = mesh_lib.spawn(mesh_checks.run, shape, AXES, device="cpu",
                              args=(jobs,))
     return {"shape": shape, "ranks": results, "cfg": cfg, "data": data,
             "root": root, "single": single, "state64": state64,
             "well": tree}
+
+
+def test_comm_census_matches_the_planner(mesh_run):
+    """``measure.validate.validate_comm(exposed=True)`` at the reference's
+    ``COMM_CASES`` (ROADMAP A7.2): on every rank the wire bytes of the
+    collectives and shifts the launch issued, priced by the ring formulas,
+    equal the local plan's ``predicted_comm_bytes`` (ratio 1.0, inside the
+    reference's [0.5, 2.0]; none where the plan predicts none), and the
+    halo families' shifts are all overlappable, with the bytes left
+    exposed at the given rates equal to ``predicted_exposed_comm_bytes``
+    (the cross-entropy's combine blocks, all of it exposed)."""
+    d, m = mesh_run["shape"]
+    for r in mesh_run["ranks"]:
+        recs = {(x["kernel"], x["check"]): x for x in r[-1]}
+        assert len(recs) == 2 * len(COMM_KERNELS)
+        for k in COMM_KERNELS:
+            comm, exposed = recs[k, "comm"], recs[k, "exposed_comm"]
+            assert comm["status"] == exposed["status"] == "ok", (comm,
+                                                                 exposed)
+            predicted = comm["predicted"]["comm_bytes"]
+            # halos cross data ranks; the loss's combine crosses vocab
+            # ranks, its mean the data ranks
+            assert (predicted > 0) == (d > 1 or (k == "xent" and m > 1)), k
+            if predicted:
+                assert comm["ratio"] == exposed["ratio"] == 1.0, k
+            else:
+                assert comm["measured"]["wire_bytes"] == 0, k
+            sites = exposed["measured"]["collectives"]
+            if k != "xent" and predicted:
+                assert len(sites) == 2 and exposed["structure_ok"]
+                assert all(c["overlappable"] and c["primitive"] == "ppermute"
+                           for c in sites), k
+            if k == "xent":
+                assert not any(c["overlappable"] for c in sites)
 
 
 def test_xent_loss_matches_reference(mesh_run, reference):
